@@ -1,0 +1,408 @@
+"""On-card smoke test of the PyTorch/CUDA port (winnowmap_tpu_torch).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
+  1. card and toolchain: name and power limit, nvcc/g++ versions, build
+     time of the native library and of the CUDA kernels;
+  2. each kernel (K1 extd DP, K2 traceback) against its plain PyTorch
+     version on the card, at the main path's shape (B=512 jobs of length
+     1000, w=500) and on a ragged batch, map-ont and asm5 profiles, flags
+     0x18 0x0 0xC2 0x40 0x01; results and CIGARs must be exactly equal to
+     the plain versions and to native.extd on a sample; kernel times from
+     CUDA events;
+  3. the port's CLI on the golden corpus (tests/data/golden), --sv-off
+     byte-equal to golden_svoff.sam, sv-aware equal to golden_svon.sam up
+     to the reference's uninitialised rep_len fields (at most 6 lines);
+  4. map-ont SV-aware mapping at real read length: a 1 Mbp genome and 1000
+     reads of 15 +- 5 kb at 8% error (tests/tools/make_testdata.py, seed 7),
+     reads/s, STATS and kernel launch counts of the run.
+It prints a "kernels" JSON line, the card's name and power limit, and as
+its last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+GOLD = REPO / "tests" / "data" / "golden"
+DATA = REPO / "smoke_data"
+DEVICE = "cuda"
+MAP_ONT = (2, 4, 4, 2, 24, 1)  # a, b, q, e, q2, e2
+ASM5 = (1, 19, 39, 3, 81, 1)
+FLAGS = (0x18, 0x0, 0xC2, 0x40, 0x01)
+# H100 SXM peaks at 700 W: HBM3 3.35 TB/s (NVIDIA data sheet), and the
+# INT32 ALU rate, 132 SMs x 64 INT32 lanes x 1.98 GHz (the clock behind the
+# data sheet's 67 TFLOP/s float32 = 132 x 128 lanes x 2 x 1.98 GHz); both
+# kernels are scalar integer code, which the tensor cores' int8 rate does
+# not cover
+HBM_BPS = 3.35e12
+INT32_OPS = 132 * 64 * 1.98e9
+# integer operations per DP cell of the extd recurrence (score, 4 gap
+# candidates, max/clamp, 6 state updates, direction bits) and per
+# traceback step (band bounds, state machine, index arithmetic)
+OPS_PER_CELL = 40
+OPS_PER_STEP = 30
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def run(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True, check=True)
+
+
+def cigars(K, native, c, ops, fin):
+    packed = K.pack_ops(ops).cpu().numpy()
+    f = fin.cpu().numpy()
+    rev = np.full(len(f), bool(c.flag & K.EZ_REV_CIGAR), np.uint8)
+    blob, off, ln = native.rle_ops_blob(packed, f[:, 0], f[:, 1], rev)
+    return [blob[o:o + n] for o, n in zip(off, ln)]
+
+
+def cuda_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    z.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(z) / reps
+
+
+def band_cells(jobs_np, res_np):
+    """Live band cells (wm_extd's [st0, en0] per computed row) and
+    rounded-band cells (direction bytes written) this batch's data needs;
+    a z-dropped job is counted up to its maximum's anti-diagonal."""
+    live = wide = 0
+    for j, r9 in zip(jobs_np, res_np):
+        ql, tl, w = int(j[1]), int(j[4]), int(j[6])
+        R = ql + tl - 1
+        if r9[1]:
+            R = max(0, int(r9[2]) + int(r9[3]) + 1)
+        r = np.arange(R)
+        st0 = np.maximum(np.maximum(0, r - ql + 1), (r - w + 1) >> 1)
+        en0 = np.minimum(np.minimum(tl - 1, r), (r + w) >> 1)
+        ok = st0 <= en0
+        live += int((en0 - st0 + 1)[ok].sum())
+        st = st0 // 16 * 16
+        en = (en0 + 16) // 16 * 16 - 1
+        wide += int((en - st + 1)[ok].sum())
+    return live, wide
+
+
+def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
+           n_ragged=48):
+    """Kernels against their plain versions at the main path's shape (B
+    jobs of length n, band w) and on a ragged batch; returns the kernel
+    records."""
+    rng = np.random.default_rng(20261016)
+    main = check.random_jobs(rng, [n] * B, w, 400)
+    ragged_lens = rng.integers(50, 1500, n_ragged - 1)
+    ragged_ws = rng.choice([64, 97, 500, 751, -1], n_ragged)
+    ragged = check.random_jobs(rng, ragged_lens, ragged_ws,
+                               rng.choice([40, 200, 400], n_ragged),
+                               dissimilar=True)
+    checks = []
+    for name, (qp, tp, jobs, qs, ts) in (("main", main), ("ragged", ragged)):
+        for prof in (MAP_ONT, ASM5):
+            mat = gen_simple_mat(prof[0], prof[1], 1)
+            for flag in FLAGS:
+                if name == "main" and (prof is ASM5 or flag not in (0x18,
+                                                                     0x0)):
+                    continue
+                eb = rng.integers(0, 60, len(jobs))
+                checks.append((name, prof, flag, qp, tp, jobs, qs, ts, mat,
+                               eb))
+    max_err = {"extd": 0, "traceback": 0}
+    for name, prof, flag, qp, tp, jobs, qs, ts, mat, eb in checks:
+        c = check.OnDevice(DEVICE, qp, tp, jobs, mat, prof[2:], flag, eb)
+        err, res_k, ops_k, fin_k = check.check_against_plain(c)
+        torch.cuda.synchronize()
+        for k in max_err:
+            max_err[k] = max(max_err[k], err[k])
+        if err["extd"] or err["traceback"]:
+            fail(f"kernels != plain on {name} {prof} flag {flag:#x}: "
+                 f"max abs err {err}")
+        res_np = res_k.cpu().numpy()
+        if not (flag & K.EZ_SCORE_ONLY):
+            cig = cigars(K, native, c, ops_k, fin_k)
+        # the native oracle on a sample of jobs
+        sample = range(0, len(jobs), max(1, len(jobs) // 16))
+        for i in sample:
+            qq = qs[i][::-1] if jobs[i, 2] else qs[i]
+            tt = ts[i][::-1] if jobs[i, 5] else ts[i]
+            h = native.extd(qq, tt, mat, *prof[2:], int(jobs[i, 6]),
+                            int(jobs[i, 7]), int(eb[i]), flag)
+            hv = [h.max, int(h.zdropped), h.max_q, h.max_t, h.mqe, h.mqe_t,
+                  h.mte, h.mte_q, h.score]
+            if res_np[i, :9].tolist() != hv:
+                fail(f"K1 != native.extd on {name} {prof} flag {flag:#x} "
+                     f"job {i}: {res_np[i, :9].tolist()} vs {hv}")
+            if not (flag & K.EZ_SCORE_ONLY) and not np.array_equal(
+                    cig[i], h.cigar):
+                fail(f"CIGAR != native.extd on {name} {prof} flag "
+                     f"{flag:#x} job {i}")
+        log(f"[phase 2] {name:6s} a={prof[0]} flag={flag:#04x} B={len(jobs)}"
+            f": K1, K2 == plain on every job; == native.extd on a sample")
+
+    # times at the main path's shape (map-ont, the bench's flag 0x18)
+    mat = gen_simple_mat(2, 4, 1)
+    qp, tp, jobs, _, _ = main
+    c = check.OnDevice(DEVICE, qp, tp, jobs, mat, MAP_ONT[2:], 0x18, 0)
+    saved = dict(K.LAUNCHES)
+    res, dirs = c.k1()
+    start = c.starts(res)
+    k1_ms = cuda_ms(torch, c.k1, 5)
+    k2_ms = cuda_ms(torch, lambda: c.k2(dirs, start), 5)
+    t0 = time.perf_counter()
+    c.k1_plain()
+    torch.cuda.synchronize()
+    k1_plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    c.k2_plain(dirs, start)
+    torch.cuda.synchronize()
+    k2_plain_ms = (time.perf_counter() - t0) * 1e3
+    res_np = res.cpu().numpy()
+    live, wide = band_cells(c.jobs_np, res_np)
+    fin = c.k2(dirs, start)[1].cpu().numpy()
+    st_np = start.cpu().numpy()
+    steps = int(((st_np[:, 0] - fin[:, 0]) + (st_np[:, 1] - fin[:, 1])).sum())
+    K.LAUNCHES.update(saved)  # comparison launches are not main-path ones
+    # bytes: each input read once (sequences, job rows, dirs offsets), each
+    # output written once (direction bytes, result rows)
+    k1_bytes = (int(jobs[:, 1].sum() + jobs[:, 4].sum()) + B * (64 + 8)
+                + wide + B * 64)
+    k1_ops = live * OPS_PER_CELL
+    # one direction byte read and one op byte written per step, plus the
+    # job rows, offsets, starts and the remaining (i, j)
+    k2_bytes = 2 * steps + B * (64 + 8 + 8) + B * 8
+    k2_ops = steps * OPS_PER_STEP
+    rec = []
+    for nm, src, rep, ms, pms, by, op in (
+            ("extd_dp", "winnowmap_tpu_torch/csrc/extd.cu",
+             "winnowmap_tpu/extend/pallas_kernel.py:124", k1_ms,
+             k1_plain_ms, k1_bytes, k1_ops),
+            ("traceback", "winnowmap_tpu_torch/csrc/traceback.cu",
+             "winnowmap_tpu/extend/pallas_kernel.py:1075", k2_ms,
+             k2_plain_ms, k2_bytes, k2_ops)):
+        tb, to = by / HBM_BPS * 1e3, op / INT32_OPS * 1e3
+        rec.append({"name": nm, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": 0,
+                    "max_abs_err": max_err["extd" if nm == "extd_dp"
+                                           else "traceback"],
+                    "ms": ms, "plain_ms": pms, "bound_ms": max(tb, to),
+                    "bound_by": "bytes" if tb >= to else "operations",
+                    "library_ms": None})
+    log(f"[phase 2] K1 extd at B={B} len={n} w={w} flag=0x18: {k1_ms:.3f} ms"
+        f" ({live / k1_ms / 1e6:.2f} Gcells/s live, {wide} dirs bytes); "
+        f"plain {k1_plain_ms:.1f} ms")
+    log(f"[phase 2] K2 traceback: {k2_ms:.3f} ms ({steps} steps); plain "
+        f"{k2_plain_ms:.1f} ms")
+    return rec
+
+
+# --------------------------------------------------------------------------
+# main path
+# --------------------------------------------------------------------------
+
+def assert_equal_mod_ub(ours, gold, mapq_field):
+    """Byte equality except MAPQ + rl on reads hit by the reference's
+    uninitialized-rep_len UB (reference map.c:281 vs 917); returns how many
+    lines differ."""
+    ol, gl = ours.splitlines(), gold.splitlines()
+    if len(ol) != len(gl):
+        fail(f"line counts differ: {len(ol)} vs {len(gl)}")
+    n_ub = 0
+    for o, g in zip(ol, gl):
+        if o == g:
+            continue
+        of, gf = o.split("\t"), g.split("\t")
+        if len(of) != len(gf):
+            fail(f"field counts differ: {o[:120]} / {g[:120]}")
+        diffs = [(i, a, b) for i, (a, b) in enumerate(zip(of, gf)) if a != b]
+        if not all((a.startswith("rl:i:") and b.startswith("rl:i:"))
+                   or i == mapq_field for i, a, b in diffs):
+            fail(f"line differs beyond rl/MAPQ: {diffs[:3]}")
+        if not any(a == "rl:i:0" for _, a, b in diffs):
+            fail(f"rl/MAPQ difference without rl:i:0: {diffs[:3]}")
+        n_ub += 1
+    return n_ub
+
+
+def strip_pg(s):
+    return "\n".join(ln for ln in s.splitlines() if not ln.startswith("@PG"))
+
+
+def phase3(cli):
+    args = ["-a", "-W", str(GOLD / "t_rep_k15.txt"), str(GOLD / "t_ref.fa"),
+            str(GOLD / "t_reads.fa")]
+    for sv in (False, True):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main((["--sv-off"] if sv is False else []) + args)
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"CLI exited {rc}")
+        if not sv:
+            gold = (GOLD / "golden_svoff.sam").read_text()
+            if strip_pg(buf.getvalue()) != strip_pg(gold):
+                fail("--sv-off SAM differs from golden_svoff.sam")
+            log(f"[phase 3] --sv-off SAM == golden_svoff.sam ({dt:.2f} s)")
+        else:
+            gold = (GOLD / "golden_svon.sam").read_text()
+            n_ub = assert_equal_mod_ub(strip_pg(buf.getvalue()),
+                                       strip_pg(gold), 4)
+            if n_ub > 6:
+                fail(f"{n_ub} sv-aware lines differ mod UB (max 6)")
+            log(f"[phase 3] sv-aware SAM == golden_svon.sam mod UB "
+                f"({n_ub} lines, {dt:.2f} s)")
+
+
+def rep_kmers(seqs, k: int, frac: float):
+    """Canonical k-mer counts over the 0..3 codes of all sequences, and the
+    k-mers whose count is above the threshold that covers `frac` of the
+    distinct k-mers (meryl 'print greater-than distinct=frac')."""
+    sh = np.arange(2 * (k - 1), -1, -2, dtype=np.uint64)
+    cans = []
+    for codes in seqs:
+        win = np.lib.stride_tricks.sliding_window_view(codes, k)
+        win = win[(win < 4).all(1)].astype(np.uint64)
+        fwd = (win << sh).sum(1, dtype=np.uint64)
+        rev = ((3 - win[:, ::-1]) << sh).sum(1, dtype=np.uint64)
+        cans.append(np.minimum(fwd, rev))
+    kmers, counts = np.unique(np.concatenate(cans), return_counts=True)
+    vals, occ = np.unique(counts, return_counts=True)
+    idx = int(np.searchsorted(np.cumsum(occ), int(frac * len(kmers))))
+    thr = int(vals[min(idx, len(vals) - 1)])
+    sel = counts > thr
+    return kmers[sel], counts[sel]
+
+
+def kmer_str(x: int, k: int) -> str:
+    return "".join("ACGT"[(x >> (2 * (k - 1 - i))) & 3] for i in range(k))
+
+
+def phase4(torch, K, build, fastx, options, batch, seqcode):
+    DATA.mkdir(exist_ok=True)
+    pre = DATA / "wmbench2"
+    ref, reads = Path(f"{pre}_ref.fa"), Path(f"{pre}_reads.fa")
+    if not (ref.exists() and reads.exists()):
+        run([sys.executable, str(REPO / "tests/tools/make_testdata.py"),
+             "--out-prefix", str(pre), "--genome-len", "1000000",
+             "--n-reads", "1000", "--read-len", "15000",
+             "--read-len-jitter", "5000", "--error", "0.08", "--seed", "7",
+             "--n-chroms", "2"])
+    recs = fastx.read_all(str(ref))
+    codes = np.concatenate([seqcode.encode(r.seq) for r in recs])
+    t0 = time.perf_counter()
+    kmers, cnt = rep_kmers([seqcode.encode(r.seq) for r in recs], 15, 0.9998)
+    rep = DATA / "wmbench2_rep.txt"
+    with open(rep, "w") as f:
+        for x, c in zip(kmers.tolist(), cnt.tolist()):
+            f.write(f"{kmer_str(x, 15)}\t{c}\n")
+    io_, mo = options.IndexOptions(), options.MapOptions()
+    options.set_preset("map-ont", io_, mo)
+    mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
+    wset = build.load_weight_set(str(rep), io_.k)
+    mi = build.build_index(recs, io_.w, io_.k, io_.flag, wset)
+    options.update_mid_occ(mo, mi)
+    log(f"[phase 4] corpus {len(codes)} bp, {len(wset)} repetitive 15-mers,"
+        f" index {len(mi.keys)} keys ({time.perf_counter() - t0:.1f} s)")
+    rs = fastx.read_all(str(reads))
+    seqs, names = [r.seq for r in rs], [r.name for r in rs]
+    # warm the card (context, allocator) on a few reads
+    batch.map_batch(mi, mo, seqs[:8], names[:8])
+    torch.cuda.synchronize()
+    batch.STATS.clear()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = batch.map_batch(mi, mo, seqs, names)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = {k: (round(float(v), 6)) for k, v in batch.STATS.items()}
+    n_mapped = sum(1 for r in results if r.regs)
+    log(f"[phase 4] mapped {len(seqs)} reads ({sum(map(len, seqs))} bp) in "
+        f"{dt:.3f} s -> {len(seqs) / dt:.3f} reads/s; {n_mapped} with hits")
+    log(f"[phase 4] launches {launches}; dev_jobs {int(st['dev_jobs'])} vs "
+        f"engine host-kept {int(st.get('eng_host_dp_calls', 0))}")
+    log("[phase 4] STATS " + json.dumps(st, sort_keys=True))
+    if launches["extd"] == 0 or launches["traceback"] == 0:
+        fail(f"a kernel was not launched on the main path: {launches}")
+    if st["delivered_jobs"] != st["dev_jobs"] or st["dev_jobs"] <= 0:
+        fail("not every exported DP job was delivered from the kernel path")
+    if n_mapped < 0.9 * len(seqs):
+        fail(f"only {n_mapped} of {len(seqs)} reads mapped")
+    for r in results:
+        for g in r.regs:
+            if g.p is None or not (0 <= g.qs <= g.qe and g.rs <= g.re):
+                fail("malformed alignment record")
+    return launches
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs a "
+             "CUDA card")
+    sys.path.insert(0, str(REPO))
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch import cli, options
+    from winnowmap_tpu_torch.extend import _build, check
+    from winnowmap_tpu_torch.extend import kernels as K
+    from winnowmap_tpu_torch.index import build
+    from winnowmap_tpu_torch.io import fastx, seqcode
+    from winnowmap_tpu_torch.map import batch
+    from winnowmap_tpu_torch.map.align import gen_simple_mat
+
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).stdout.strip().splitlines()[0]
+    log(f"[phase 1] card: {smi}; torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    log(f"[phase 1] nvcc: {_build._nvcc_version(_build.nvcc_path())}")
+    log(f"[phase 1] g++: {run(['g++', '--version']).stdout.splitlines()[0]}")
+    t0 = time.perf_counter()
+    native.lib()
+    log(f"[phase 1] native library: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"[phase 1] CUDA kernels: {time.perf_counter() - t0:.1f} s "
+        f"(nvcc, in parallel)")
+    for src, info in _build.BUILD_INFO["ptxas"].items():
+        log(f"[phase 1] {src}: " + " | ".join(info.splitlines()[-2:]))
+
+    records = phase2(K, check, native, torch, gen_simple_mat)
+    phase3(cli)
+    launches = phase4(torch, K, build, fastx, options, batch, seqcode)
+    for rec in records:
+        rec["launches"] = launches["extd" if rec["name"] == "extd_dp"
+                                   else "traceback"]
+    print(json.dumps({"kernels": records}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,60 @@
+"""The port's CLI against the JAX package's: `-a` SAM on the first golden
+reads must be byte-identical to `python -m winnowmap_tpu.cli -a` on its host
+kernels (WM_NO_TPU=1), and flags of paths not ported yet must exit with a
+clear error instead of running something else."""
+import contextlib
+import io
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+GOLD = REPO / "tests" / "data" / "golden"
+N_READS = 6
+
+
+@pytest.fixture(scope="module")
+def reads_fa(tmp_path_factory):
+    recs = (GOLD / "t_reads.fa").read_text().split(">")[1:N_READS + 1]
+    p = tmp_path_factory.mktemp("cli") / "reads.fa"
+    p.write_text("".join(">" + r for r in recs))
+    return p
+
+
+def _out(fn, argv, **kw):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(list(argv), **kw)
+    assert rc == 0
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("extra", [[], ["--sv-off"]], ids=["sv", "svoff"])
+def test_cli_sam_matches_jax_cli(extra, reads_fa, monkeypatch):
+    from winnowmap_tpu.cli import main as jax_main
+    from winnowmap_tpu_torch.cli import main as port_main
+
+    monkeypatch.setenv("WM_NO_TPU", "1")
+    argv = extra + ["-a", "-W", str(GOLD / "t_rep_k15.txt"),
+                    str(GOLD / "t_ref.fa"), str(reads_fa)]
+    ref = _out(jax_main, argv)
+    got = _out(port_main, argv, device="cpu")
+    assert got == ref
+    assert sum(1 for ln in got.splitlines() if not ln.startswith("@")) >= \
+        N_READS
+
+
+@pytest.mark.parametrize("argv", [
+    ["-d", "idx.wmi"], ["-I", "100k"], ["--sr"], ["-x", "splice"],
+    ["-x", "sr"], ["--junc-bed", "a.bed"], ["--print-seeds"],
+], ids=lambda a: a[-1] if a[0] == "-x" else a[0])
+def test_cli_unported_flags_exit_with_error(argv, capsys):
+    from winnowmap_tpu_torch.cli import main as port_main
+
+    rc = port_main(argv + [str(GOLD / "t_ref.fa"), str(GOLD / "t_reads.fa")],
+                   device="cpu")
+    assert rc == 2
+    assert "not yet ported" in capsys.readouterr().err

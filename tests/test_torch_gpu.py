@@ -1,0 +1,160 @@
+"""The port's CUDA kernels on the card: K1 (csrc/extd.cu) and K2
+(csrc/traceback.cu) against their plain PyTorch versions on the same device
+tensors, the pooled call on the card against the CPU, and map_batch on the
+card against the CPU.  Integer DP: every comparison is exact.
+
+These tests need a CUDA card, nvcc and g++; without a card they skip.  On a
+machine with a card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(--noconftest: the suite's conftest.py imports JAX, which the port and its
+card's host do not need.)
+"""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from winnowmap_tpu_torch import native
+from winnowmap_tpu_torch.extend import _build
+from winnowmap_tpu_torch.extend import check
+from winnowmap_tpu_torch.extend import kernels as K
+from winnowmap_tpu_torch.index.build import MinimizerIndex
+from winnowmap_tpu_torch.map.align import gen_simple_mat
+
+pytestmark = pytest.mark.gpu
+
+GOLD = Path(__file__).resolve().parent / "data" / "golden"
+# map-ont and asm5 (a, b, q, e, q2, e2): asm5's q2=81 drives int8 wraps
+PROFILES = {"map-ont": (2, 4, 4, 2, 24, 1), "asm5": (1, 19, 39, 3, 81, 1)}
+FLAGS = (0x18, 0x0, 0xC2, 0x40, 0x01)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _batch(seed, B=24, lo=30, hi=700):
+    """Pools and (B, 8) job rows: mutated pairs plus one dissimilar pair,
+    mixed band widths (-1 = full), z-drops and strands."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi, B - 1)
+    ws = rng.choice([-1, 33, 64, 97, 500], B)
+    zdrops = rng.choice([40, 200, 400], B)
+    qpool, tpool, jobs, _, _ = check.random_jobs(rng, lens, ws, zdrops,
+                                                 dissimilar=True)
+    return qpool, tpool, jobs, rng.integers(0, 60, B)
+
+
+def _on_card(dev, qpool, tpool, jobs, profile, flag, eb):
+    a, b, q, e, q2, e2 = PROFILES[profile]
+    return check.OnDevice(dev, qpool, tpool, jobs, gen_simple_mat(a, b, 1),
+                          (q, e, q2, e2), flag, eb)
+
+
+def _check_kernels_against_plain(c: check.OnDevice):
+    n0 = dict(K.LAUNCHES)
+    err, _, _, _ = check.check_against_plain(c)
+    torch.cuda.synchronize()
+    assert err == {"extd": 0, "traceback": 0}
+    # K1 once; K2 on K1's direction bytes and on the plain K1's
+    n2 = 0 if c.flag & K.EZ_SCORE_ONLY else 2
+    assert K.LAUNCHES["extd"] == n0["extd"] + 1
+    assert K.LAUNCHES["traceback"] == n0["traceback"] + n2
+
+
+@pytest.mark.parametrize("flag", FLAGS, ids=lambda f: f"flag{f:#04x}")
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_kernels_match_plain(cuda, profile, flag):
+    qpool, tpool, jobs, eb = _batch(7)
+    _check_kernels_against_plain(
+        _on_card(cuda, qpool, tpool, jobs, profile, flag, eb))
+
+
+@pytest.mark.parametrize("flag", (0x18, 0x0), ids=("flag0x18", "flag0x00"))
+def test_extd_kernel_global_ring_matches_plain(cuda, flag, monkeypatch):
+    """The band ring in global scratch (bands too wide for shared memory)
+    computes what the shared-memory ring does."""
+    monkeypatch.setattr(_build, "EXTD_SMEM_MAX", 0)
+    qpool, tpool, jobs, eb = _batch(11, B=12)
+    _check_kernels_against_plain(
+        _on_card(cuda, qpool, tpool, jobs, "map-ont", flag, eb))
+
+
+def test_long_full_band_job_matches_native(cuda):
+    """One job whose full band (w = -1) needs the 256-thread, global-ring
+    launch, against the native oracle."""
+    rng = np.random.default_rng(5)
+    t = rng.integers(0, 4, 8400).astype(np.uint8)
+    q = check.mutate(rng, t, 0.08)
+    a, b, qo, e, q2, e2 = PROFILES["map-ont"]
+    mat = gen_simple_mat(a, b, 1)
+    mi = MinimizerIndex(w=10, k=15, codes=t)
+    pools = K.PoolContext(q, mi, cuda)
+    jobs = np.array([[0, len(q), 0, 0, len(t), 0, -1, 400]], np.int64)
+    assert K.job_geometry(jobs).cap > 8192
+    res9, blob, off, ln, _ = K.DevCallPooled(
+        pools, jobs, mat, qo, e, q2, e2, 0, 0x0).collect_blob()
+    h = native.extd(q, t, mat, qo, e, q2, e2, -1, 400, 0, 0x0)
+    assert res9[0].tolist() == [h.max, int(h.zdropped), h.max_q, h.max_t,
+                                h.mqe, h.mqe_t, h.mte, h.mte_q, h.score]
+    assert np.array_equal(blob[off[0]:off[0] + ln[0]], h.cigar)
+
+
+@pytest.mark.parametrize("flag", FLAGS, ids=lambda f: f"flag{f:#04x}")
+def test_pooled_call_on_card_matches_cpu(cuda, flag):
+    qpool, tpool, jobs, eb = _batch(3)
+    a, b, q, e, q2, e2 = PROFILES["asm5"]
+    mat = gen_simple_mat(a, b, 1)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        mi = MinimizerIndex(w=10, k=15, codes=tpool)
+        pools = K.PoolContext(qpool, mi, dev)
+        out.append(K.DevCallPooled(pools, jobs, mat, q, e, q2, e2, eb,
+                                   flag).collect_blob())
+    (res_g, blob_g, off_g, ln_g, reach_g), (res_c, blob_c, off_c, ln_c,
+                                            reach_c) = out
+    assert np.array_equal(res_g, res_c) and np.array_equal(reach_g, reach_c)
+    if flag & K.EZ_SCORE_ONLY:
+        assert blob_g is None and blob_c is None
+        return
+    assert np.array_equal(ln_g, ln_c)
+    for i in range(len(jobs)):
+        assert np.array_equal(blob_g[off_g[i]:off_g[i] + ln_g[i]],
+                              blob_c[off_c[i]:off_c[i] + ln_c[i]]), i
+
+
+def test_map_batch_on_card_matches_cpu(cuda):
+    from winnowmap_tpu_torch.index.build import build_index, load_weight_set
+    from winnowmap_tpu_torch.io.fastx import read_all
+    from winnowmap_tpu_torch.map.batch import STATS, map_batch
+    from winnowmap_tpu_torch.options import (MM_F_CIGAR, IndexOptions,
+                                             MapOptions, update_mid_occ)
+
+    io_, mo = IndexOptions(), MapOptions()
+    mo.flag |= MM_F_CIGAR
+    mi = build_index(read_all(str(GOLD / "t_ref.fa")), io_.w, io_.k,
+                     io_.flag, load_weight_set(str(GOLD / "t_rep_k15.txt"),
+                                               io_.k))
+    update_mid_occ(mo, mi)
+    reads = read_all(str(GOLD / "t_reads.fa"))[:12]
+    seqs, names = [r.seq for r in reads], [r.name for r in reads]
+    ref = map_batch(mi, mo, seqs, names, device="cpu")
+    STATS.clear()
+    K.reset_launches()
+    got = map_batch(mi, mo, seqs, names)
+    assert K.LAUNCHES["extd"] > 0 and K.LAUNCHES["traceback"] > 0
+    assert STATS["delivered_jobs"] == STATS["dev_jobs"] > 0
+
+    def key(r):
+        return (r.rid, r.score, r.qs, r.qe, r.rs, r.re, r.mapq, r.rev,
+                None if r.p is None else (r.p.dp_score, r.p.dp_max,
+                                          tuple(r.p.cigar.tolist())))
+
+    assert [[key(r) for r in x.regs] for x in got] == \
+        [[key(r) for r in x.regs] for x in ref]
