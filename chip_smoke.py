@@ -5,18 +5,27 @@
 Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
   1. card and toolchain: name and power limit, nvcc/g++ versions, build
      time of the native library and of the CUDA kernels;
-  2. each kernel (K1 extd DP, K2 traceback) against its plain PyTorch
-     version on the card, at the main path's shape (B=512 jobs of length
-     1000, w=500) and on a ragged batch, map-ont and asm5 profiles, flags
-     0x18 0x0 0xC2 0x40 0x01; results and CIGARs must be exactly equal to
-     the plain versions and to native.extd on a sample; kernel times from
-     CUDA events;
-  3. the port's CLI on the golden corpus (tests/data/golden), --sv-off
+  2. each kernel against its plain PyTorch version on the card:
+     K1 extd DP and K2 traceback at the map-ont path's shape (B=512 jobs of
+     length 1000, w=500) and on a ragged batch, map-ont and asm5 profiles,
+     flags 0x18 0x0 0xC2 0x40 0x01; K3 exts DP and K2's spliced form on
+     B=256 spliced jobs (2-4 exons, 300-800 bases, 1-3 canonical introns of
+     100-1500 bases, junction bytes on a third), splice and splice:hq
+     profiles, flags 0x508 (the splice path's) 0x500 0x600 0x318 0x1C2
+     0x101 0x0, and one long unbanded job (K3's ring in global scratch);
+     results and CIGARs must be exactly equal to the plain versions and to
+     native.extd / native.exts on a sample; kernel times from CUDA events;
+  3. the port's CLI on the golden corpora (tests/data/golden): --sv-off
      byte-equal to golden_svoff.sam, sv-aware equal to golden_svon.sam up
      to the reference's uninitialised rep_len fields (at most 6 lines);
+     -x splice byte-equal to golden_splice.paf and golden_splice_cs.paf
+     (--cs), and to golden_splice.sam apart from @PG;
   4. map-ont SV-aware mapping at real read length: a 1 Mbp genome and 1000
      reads of 15 +- 5 kb at 8% error (tests/tools/make_testdata.py, seed 7),
-     reads/s, STATS and kernel launch counts of the run.
+     reads/s, STATS and kernel launch counts of the run;
+  5. spliced mapping (-x splice -a) at a real size: a 4 Mbp genome with 400
+     genes and 5000 reads of their transcripts from both strands, made
+     with numpy (seed 20261016); reads/s, STATS and launch counts.
 It prints a "kernels" JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -39,6 +48,12 @@ DEVICE = "cuda"
 MAP_ONT = (2, 4, 4, 2, 24, 1)  # a, b, q, e, q2, e2
 ASM5 = (1, 19, 39, 3, 81, 1)
 FLAGS = (0x18, 0x0, 0xC2, 0x40, 0x01)
+# splice and splice:hq (a, b, q, e, q2, noncan, junc_bonus); the splice
+# path's gap-filling jobs carry 0x508 (forward strand, flank, approx max)
+SPLICE = (1, 2, 2, 1, 32, 9, 9)
+SPLICE_HQ = (1, 4, 6, 1, 24, 9, 5)
+SPLICE_FLAGS = (0x508, 0x100 | 0x400, 0x200 | 0x400, 0x300 | 0x18,
+                0x100 | 0x40 | 0x02 | 0x80, 0x100 | 0x01, 0x00)
 # H100 SXM peaks at 700 W: HBM3 3.35 TB/s (NVIDIA data sheet), and the
 # INT32 ALU rate, 132 SMs x 64 INT32 lanes x 1.98 GHz (the clock behind the
 # data sheet's 67 TFLOP/s float32 = 132 x 128 lanes x 2 x 1.98 GHz); both
@@ -46,11 +61,25 @@ FLAGS = (0x18, 0x0, 0xC2, 0x40, 0x01)
 # not cover
 HBM_BPS = 3.35e12
 INT32_OPS = 132 * 64 * 1.98e9
-# integer operations per DP cell of the extd recurrence (score, 4 gap
-# candidates, max/clamp, 6 state updates, direction bits) and per
-# traceback step (band bounds, state machine, index arithmetic)
-OPS_PER_CELL = 40
-OPS_PER_STEP = 30
+# Integer operations the function needs, counted from the scalar reference
+# (native/src/wm_ksw.cpp), not from the kernels: no loads or stores, no
+# address arithmetic, no range or boundary tests that the reference makes
+# once per row, and no row max (the timed flags take the approximate max).
+# Per live cell of wm_extd (:1514-1586): score 6 (two N tests, their or,
+# the base compare, two selects), candidates a b a2 b2 4, max and
+# direction 12 (compare, select, max per candidate), clamp 1, u v 2,
+# z-q z-q2 an bn a2n b2n 6, continue tests 4, x y x2 y2 8 (select,
+# subtract), direction bits 4.
+OPS_PER_CELL = 47
+# per live cell of wm_exts (:1847-1913): score 6, candidates a b a2
+# a2+acceptor 4, max and direction 9, u v 2, z-q z-q2 an bn a2n 5,
+# continue tests 3 (a2n against the donor), x y x2 6, direction bits 3
+OPS_PER_CELL_EXTS = 38
+# per traceback step of traceback_intron (:80-99): r = i + j 1, band tests
+# 2 and their selects 2, state machine 8 (state == 0, d & 7, state + 2,
+# shift, & 1, select, state == 0, select), forced state 1, op choice 5
+# (state == 0, == 1, == 3, two selects), i and j 2, the walk's test 2
+OPS_PER_STEP = 23
 
 
 def log(msg):
@@ -64,14 +93,6 @@ def fail(msg):
 
 def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True)
-
-
-def cigars(K, native, c, ops, fin):
-    packed = K.pack_ops(ops).cpu().numpy()
-    f = fin.cpu().numpy()
-    rev = np.full(len(f), bool(c.flag & K.EZ_REV_CIGAR), np.uint8)
-    blob, off, ln = native.rle_ops_blob(packed, f[:, 0], f[:, 1], rev)
-    return [blob[o:o + n] for o, n in zip(off, ln)]
 
 
 def cuda_ms(torch, fn, reps):
@@ -143,7 +164,7 @@ def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
                  f"max abs err {err}")
         res_np = res_k.cpu().numpy()
         if not (flag & K.EZ_SCORE_ONLY):
-            cig = cigars(K, native, c, ops_k, fin_k)
+            cig = c.cigars(native, ops_k, fin_k)
         # the native oracle on a sample of jobs
         sample = range(0, len(jobs), max(1, len(jobs) // 16))
         for i in sample:
@@ -167,6 +188,17 @@ def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
     mat = gen_simple_mat(2, 4, 1)
     qp, tp, jobs, _, _ = main
     c = check.OnDevice(DEVICE, qp, tp, jobs, mat, MAP_ONT[2:], 0x18, 0)
+    return time_kernels(K, torch, c, max_err, OPS_PER_CELL, (
+        ("extd_dp", "extd.cu", "winnowmap_tpu/extend/pallas_kernel.py:124"),
+        ("traceback", "traceback.cu",
+         "winnowmap_tpu/extend/pallas_kernel.py:1075")),
+        f"B={B} len={n} w={w} flag=0x18")
+
+
+def time_kernels(K, torch, c, max_err, ops_per_cell, names, shape):
+    """CUDA-event times of the DP kernel and K2 on c's batch, their plain
+    versions' host-clock times, and each one's bound from this batch's
+    data; returns the two kernel records."""
     saved = dict(K.LAUNCHES)
     res, dirs = c.k1()
     start = c.starts(res)
@@ -186,37 +218,111 @@ def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
     st_np = start.cpu().numpy()
     steps = int(((st_np[:, 0] - fin[:, 0]) + (st_np[:, 1] - fin[:, 1])).sum())
     K.LAUNCHES.update(saved)  # comparison launches are not main-path ones
-    # bytes: each input read once (sequences, job rows, dirs offsets), each
-    # output written once (direction bytes, result rows)
+    jobs = c.jobs_np
+    B = len(jobs)
+    # bytes: each input read once (sequences, job rows, dirs offsets, and
+    # junction bytes), each output written once (direction bytes, results)
+    jbytes = 0 if c.jpool is None else c.jpool.numel() + 8 * B
     k1_bytes = (int(jobs[:, 1].sum() + jobs[:, 4].sum()) + B * (64 + 8)
-                + wide + B * 64)
-    k1_ops = live * OPS_PER_CELL
+                + jbytes + wide + B * 64)
+    k1_ops = live * ops_per_cell
     # one direction byte read and one op byte written per step, plus the
     # job rows, offsets, starts and the remaining (i, j)
     k2_bytes = 2 * steps + B * (64 + 8 + 8) + B * 8
     k2_ops = steps * OPS_PER_STEP
     rec = []
-    for nm, src, rep, ms, pms, by, op in (
-            ("extd_dp", "winnowmap_tpu_torch/csrc/extd.cu",
-             "winnowmap_tpu/extend/pallas_kernel.py:124", k1_ms,
-             k1_plain_ms, k1_bytes, k1_ops),
-            ("traceback", "winnowmap_tpu_torch/csrc/traceback.cu",
-             "winnowmap_tpu/extend/pallas_kernel.py:1075", k2_ms,
-             k2_plain_ms, k2_bytes, k2_ops)):
+    for (nm, src, rep), ms, pms, by, op, err in zip(
+            names, (k1_ms, k2_ms), (k1_plain_ms, k2_plain_ms),
+            (k1_bytes, k2_bytes), (k1_ops, k2_ops),
+            (max_err[c.dp_name], max_err["traceback"])):
         tb, to = by / HBM_BPS * 1e3, op / INT32_OPS * 1e3
-        rec.append({"name": nm, "route": "cuda", "source": src,
-                    "replaces": rep, "launches": 0,
-                    "max_abs_err": max_err["extd" if nm == "extd_dp"
-                                           else "traceback"],
+        rec.append({"name": nm, "route": "cuda",
+                    "source": f"winnowmap_tpu_torch/csrc/{src}",
+                    "replaces": rep, "launches": 0, "max_abs_err": err,
                     "ms": ms, "plain_ms": pms, "bound_ms": max(tb, to),
                     "bound_by": "bytes" if tb >= to else "operations",
                     "library_ms": None})
-    log(f"[phase 2] K1 extd at B={B} len={n} w={w} flag=0x18: {k1_ms:.3f} ms"
-        f" ({live / k1_ms / 1e6:.2f} Gcells/s live, {wide} dirs bytes); "
-        f"plain {k1_plain_ms:.1f} ms")
-    log(f"[phase 2] K2 traceback: {k2_ms:.3f} ms ({steps} steps); plain "
-        f"{k2_plain_ms:.1f} ms")
+    log(f"[phase 2] {names[0][0]} at {shape}: {k1_ms:.3f} ms "
+        f"({live / k1_ms / 1e6:.2f} Gcells/s live, {wide} dirs bytes); "
+        f"plain {k1_plain_ms:.1f} ms; bound {rec[0]['bound_ms']:.4f} ms")
+    log(f"[phase 2] {names[1][0]}: {k2_ms:.3f} ms ({steps} steps); plain "
+        f"{k2_plain_ms:.1f} ms; bound {rec[1]['bound_ms']:.5f} ms")
     return rec
+
+
+def phase2_splice(K, check, native, torch, gen_simple_mat, B=256):
+    """K3 and K2's spliced form against their plain versions on B spliced
+    jobs per flag and profile, and a long unbanded job against native.exts;
+    returns the kernel records, timed at the splice path's flag."""
+    rng = np.random.default_rng(20261016)
+    batches = {rev: check.spliced_jobs(rng, B, rev=rev)
+               for rev in (False, True)}
+    max_err = {"exts": 0, "traceback": 0}
+    n_intron = 0
+    for pname, prof in (("splice", SPLICE), ("splice:hq", SPLICE_HQ)):
+        a, b, q, e, q2, noncan, jb = prof
+        mat = gen_simple_mat(a, b, 1)
+        for flag in SPLICE_FLAGS:
+            qp, tp, jobs, qs, ts, js = batches[bool(flag & K.EZ_REV_CIGAR)]
+            c = check.OnDevice(DEVICE, qp, tp, jobs, mat, (q, e, q2), flag,
+                               0, splice=(noncan, jb), juncs=js)
+            err, res_k, ops_k, fin_k = check.check_against_plain(c)
+            torch.cuda.synchronize()
+            for k in max_err:
+                max_err[k] = max(max_err[k], err[k])
+            if err["exts"] or err["traceback"]:
+                fail(f"spliced kernels != plain on {pname} flag {flag:#x}: "
+                     f"max abs err {err}")
+            res_np = res_k.cpu().numpy()
+            cig = (None if flag & K.EZ_SCORE_ONLY
+                   else c.cigars(native, ops_k, fin_k))
+            for i in range(0, B, B // 16):
+                h = native.exts(qs[i], ts[i], mat, q, e, q2, noncan,
+                                int(jobs[i, 7]), jb, flag, junc=js[i])
+                hv = [h.max, int(h.zdropped), h.max_q, h.max_t, h.mqe,
+                      h.mqe_t, h.mte, h.mte_q, h.score]
+                if res_np[i, :9].tolist() != hv:
+                    fail(f"K3 != native.exts on {pname} flag {flag:#x} job "
+                         f"{i}: {res_np[i, :9].tolist()} vs {hv}")
+                if cig is not None:
+                    if not np.array_equal(cig[i], h.cigar):
+                        fail(f"spliced CIGAR != native.exts on {pname} flag "
+                             f"{flag:#x} job {i}")
+                    n_intron += int(((h.cigar & 15) == 3).any())
+            log(f"[phase 2] {pname:9s} flag={flag:#05x} B={B}: K3, K2 "
+                f"== plain on every job; == native.exts on a sample")
+    if n_intron == 0:
+        fail("no sampled spliced job has an intron")
+    # one long job: shorter side above 8192 lanes, K3's ring in global
+    # scratch
+    a, b, q, e, q2, noncan, jb = SPLICE
+    mat = gen_simple_mat(a, b, 1)
+    qp, tp, jobs, qs, ts, _ = check.spliced_jobs(
+        rng, 1, junc_frac=0, exon_total=(8600, 8600), n_exons=(4, 4))
+    c = check.OnDevice(DEVICE, qp, tp, jobs, mat, (q, e, q2), 0x508, 0,
+                       splice=(noncan, jb))
+    saved = dict(K.LAUNCHES)
+    res, dirs = c.k1()
+    ops, fin = c.k2(dirs, c.starts(res))
+    K.LAUNCHES.update(saved)
+    h = native.exts(qs[0], ts[0], mat, q, e, q2, noncan, int(jobs[0, 7]), jb,
+                    0x508)
+    if res[0, :9].tolist() != [h.max, int(h.zdropped), h.max_q, h.max_t,
+                               h.mqe, h.mqe_t, h.mte, h.mte_q, h.score] \
+            or not np.array_equal(c.cigars(native, ops, fin)[0], h.cigar):
+        fail("the long unbanded job differs from native.exts")
+    log(f"[phase 2] long spliced job {jobs[0, 1]} x {jobs[0, 4]} (ring "
+        f"{c.geo.cap} lanes, global scratch) == native.exts")
+
+    # timed as the engine calls it: no junction bytes
+    qp, tp, jobs, _, _, _ = batches[False]
+    c = check.OnDevice(DEVICE, qp, tp, jobs, gen_simple_mat(1, 2, 1),
+                       SPLICE[2:5], 0x508, 0, splice=SPLICE[5:])
+    return time_kernels(K, torch, c, max_err, OPS_PER_CELL_EXTS, (
+        ("exts_dp", "exts.cu", "winnowmap_tpu/extend/pallas_kernel.py:879"),
+        ("traceback_splice", "traceback.cu",
+         "winnowmap_tpu/extend/pallas_kernel.py:1075")),
+        f"B={B} spliced flag=0x508")
 
 
 # --------------------------------------------------------------------------
@@ -275,6 +381,26 @@ def phase3(cli):
                 fail(f"{n_ub} sv-aware lines differ mod UB (max 6)")
             log(f"[phase 3] sv-aware SAM == golden_svon.sam mod UB "
                 f"({n_ub} lines, {dt:.2f} s)")
+    sargs = ["-W", str(GOLD / "s_rep_k15.txt"), str(GOLD / "s_ref.fa"),
+             str(GOLD / "s_reads.fa")]
+    for extra, golden in ((["-c"], "golden_splice.paf"),
+                          (["-a"], "golden_splice.sam"),
+                          (["-c", "--cs"], "golden_splice_cs.paf")):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-x", "splice"] + extra + sargs)
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"CLI -x splice {extra} exited {rc}")
+        gold = (GOLD / golden).read_text()
+        ours = buf.getvalue()
+        if golden.endswith(".sam"):
+            ours, gold = strip_pg(ours), strip_pg(gold)
+        if ours != gold:
+            fail(f"-x splice {' '.join(extra)} differs from {golden}")
+        log(f"[phase 3] -x splice {' '.join(extra)} == {golden} "
+            f"({dt:.2f} s)")
 
 
 def rep_kmers(seqs, k: int, frac: float):
@@ -359,6 +485,110 @@ def phase4(torch, K, build, fastx, options, batch, seqcode):
     return launches
 
 
+def splice_corpus(check, ref: Path, reads: Path, seed: int = 20261016,
+                  genome_len: int = 4_000_000, n_genes: int = 400,
+                  n_reads: int = 5000):
+    """A genome of two chromosomes with n_genes genes, one per slot of
+    genome_len / n_genes bases, half of them on the reverse strand: 4-12
+    exons of 60-400 bases joined by canonical GT..AG introns of 80-8000
+    bases (log-uniform, scaled down to fit the slot); and n_reads reads,
+    each a transcript from either strand cut at its 5' end to 40-100% of
+    its length, at 4% substitutions and 2% indels."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, genome_len).astype(np.uint8)
+    slot = genome_len // n_genes
+    tx = []
+    for k in range(n_genes):
+        ne = int(rng.integers(4, 13))
+        exons = [rng.integers(0, 4, int(n)).astype(np.uint8)
+                 for n in rng.integers(60, 401, ne)]
+        il = np.exp(rng.uniform(np.log(80), np.log(8000), ne - 1))
+        room = slot - 400 - sum(map(len, exons))
+        if il.sum() > room:
+            il = np.maximum(80, il * room / il.sum())
+        parts = [exons[0]]
+        for n, ex in zip(il.astype(int), exons[1:]):
+            intron = rng.integers(0, 4, n).astype(np.uint8)
+            intron[:2], intron[-2:] = (2, 3), (0, 2)
+            parts += [intron, ex]
+        gene = np.concatenate(parts)
+        if rng.random() < 0.5:  # reverse strand: CT..AC in the genome
+            gene = (3 - gene)[::-1]
+        o = k * slot + 200
+        g[o:o + len(gene)] = gene
+        tx.append(np.concatenate(exons))
+    half = genome_len // 2
+    with open(ref, "w") as f:
+        for i, (a, b) in enumerate(((0, half), (half, genome_len))):
+            f.write(f">chr{i + 1}\n")
+            f.write("".join("ACGT"[c] for c in g[a:b].tolist()) + "\n")
+    with open(reads, "w") as f:
+        for i in range(n_reads):
+            t = tx[int(rng.integers(0, n_genes))]
+            t = t[len(t) - int(len(t) * rng.uniform(0.4, 1.0)):]
+            if rng.random() < 0.5:
+                t = (3 - t)[::-1]
+            r = check.mutate_rates(rng, t, 0.04, 0.02)
+            f.write(f">tx{i}\n" + "".join("ACGT"[c] for c in r.tolist())
+                    + "\n")
+
+
+def phase5(torch, K, check, build, fastx, options, batch, seqcode):
+    """Spliced mapping (-x splice -a) of 5000 transcript reads against a
+    4 Mbp genome of 400 genes."""
+    DATA.mkdir(exist_ok=True)
+    ref, reads = DATA / "splice_ref.fa", DATA / "splice_reads.fa"
+    t0 = time.perf_counter()
+    if not (ref.exists() and reads.exists()):
+        splice_corpus(check, ref, reads)
+    recs = fastx.read_all(str(ref))
+    kmers, cnt = rep_kmers([seqcode.encode(r.seq) for r in recs], 15, 0.9998)
+    rep = DATA / "splice_rep.txt"
+    with open(rep, "w") as f:
+        for x, c in zip(kmers.tolist(), cnt.tolist()):
+            f.write(f"{kmer_str(x, 15)}\t{c}\n")
+    io_, mo = options.IndexOptions(), options.MapOptions()
+    options.set_preset("splice", io_, mo)
+    mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
+    wset = build.load_weight_set(str(rep), io_.k)
+    mi = build.build_index(recs, io_.w, io_.k, io_.flag, wset)
+    options.update_mid_occ(mo, mi)
+    rs = fastx.read_all(str(reads))
+    seqs, names = [r.seq for r in rs], [r.name for r in rs]
+    log(f"[phase 5] corpus {sum(len(r.seq) for r in recs)} bp, "
+        f"{len(seqs)} reads ({sum(map(len, seqs))} bp), {len(wset)} "
+        f"repetitive 15-mers, index {len(mi.keys)} keys "
+        f"({time.perf_counter() - t0:.1f} s)")
+    batch.map_batch(mi, mo, seqs[:8], names[:8])
+    torch.cuda.synchronize()
+    batch.STATS.clear()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = batch.map_batch(mi, mo, seqs, names)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = {k: round(float(v), 6) for k, v in batch.STATS.items()}
+    mapped = [r for r in results if r.regs]
+    n_spliced = sum(1 for r in mapped if any(
+        g.p is not None and ((g.p.cigar & 15) == 3).any() for g in r.regs))
+    log(f"[phase 5] mapped {len(seqs)} reads in {dt:.3f} s -> "
+        f"{len(seqs) / dt:.3f} reads/s; {len(mapped)} with hits, "
+        f"{n_spliced} of them with an N op")
+    log(f"[phase 5] launches {launches}; dev_jobs {int(st['dev_jobs'])}; "
+        f"engine host-kept {int(st.get('eng_host_dp_calls', 0))}")
+    log("[phase 5] STATS " + json.dumps(st, sort_keys=True))
+    if launches["exts"] == 0 or launches["traceback"] == 0:
+        fail(f"a spliced kernel was not launched: {launches}")
+    if st["delivered_jobs"] != st["dev_jobs"] or st["dev_jobs"] <= 0:
+        fail("not every exported DP job was delivered from the kernel path")
+    if len(mapped) < 0.9 * len(seqs):
+        fail(f"only {len(mapped)} of {len(seqs)} reads mapped")
+    if n_spliced < 0.5 * len(mapped):
+        fail(f"only {n_spliced} of {len(mapped)} mapped reads are spliced")
+    return launches
+
+
 def main():
     import torch
 
@@ -392,11 +622,15 @@ def main():
         log(f"[phase 1] {src}: " + " | ".join(info.splitlines()[-2:]))
 
     records = phase2(K, check, native, torch, gen_simple_mat)
+    records += phase2_splice(K, check, native, torch, gen_simple_mat)
     phase3(cli)
-    launches = phase4(torch, K, build, fastx, options, batch, seqcode)
-    for rec in records:
-        rec["launches"] = launches["extd" if rec["name"] == "extd_dp"
-                                   else "traceback"]
+    ont = phase4(torch, K, build, fastx, options, batch, seqcode)
+    spl = phase5(torch, K, check, build, fastx, options, batch, seqcode)
+    # each kernel's launches on its own path: K1 and K2 on map-ont (phase
+    # 4), K3 and K2's spliced form on splice (phase 5)
+    for rec, n in zip(records, (ont["extd"], ont["traceback"], spl["exts"],
+                                spl["traceback"])):
+        rec["launches"] = n
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

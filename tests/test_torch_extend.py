@@ -146,13 +146,53 @@ def test_check_batches_match_native_extd(profile, flag):
             (profile, i)
 
 
+@pytest.mark.parametrize("profile,flag", [("asm5", 0x0), ("map-ont", 0x18)])
+def test_ragged_banded_batch_matches_native_extd(profile, flag):
+    """Mixed band widths in one call: lanes right of a narrow job's band
+    stay at their initial state while a wider job sets the window (the
+    plain version keeps the band state of all jobs in one tensor)."""
+    rng = np.random.default_rng(23)
+    lens = rng.integers(50, 400, 15)
+    ws = rng.choice([64, 97, 500, 751, -1], 16)
+    qpool, tpool, jobs, qs, ts = check.random_jobs(
+        rng, lens, ws, rng.choice([40, 200, 400], 16), dissimilar=True)
+    a, b, q, e, q2, e2 = PROFILES[profile]
+    eb = rng.integers(0, 60, 16)
+    c = check.OnDevice("cpu", qpool, tpool, jobs, gen_simple_mat(a, b, 1),
+                       (q, e, q2, e2), flag, eb)
+    res, dirs = c.k1_plain()
+    ops, fin = c.k2_plain(dirs, c.starts(res))
+    cig = c.cigars(jnative, ops, fin)
+    mat = jax_mat(a, b, 1)
+    for i in range(len(qs)):
+        qq = qs[i][::-1] if jobs[i, 2] else qs[i]
+        tt = ts[i][::-1] if jobs[i, 5] else ts[i]
+        h = jnative.extd(qq, tt, mat, q, e, q2, e2, int(jobs[i, 6]),
+                         int(jobs[i, 7]), int(eb[i]), flag)
+        assert res[i, :9].tolist() == [
+            h.max, int(h.zdropped), h.max_q, h.max_t, h.mqe, h.mqe_t, h.mte,
+            h.mte_q, h.score], (profile, i)
+        assert np.array_equal(cig[i], h.cigar), (profile, i)
+
+
 def test_pooled_unported_profiles_raise():
+    """Single-cost profiles need extz, which is not ported; splice bits in
+    the flag do not pick a kernel (the profile does, through
+    DevCallPooled's splice argument), so without it the call runs extd."""
     qs, ts = _cases()
     qpool, tpool, jobs = _pooled(qs[:1], ts[:1], [64], 200)
     with pytest.raises(NotImplementedError, match="extz"):
         _run_port(qpool, tpool, jobs, (2, 4, 4, 2, 4, 2), 0, 0)
-    with pytest.raises(NotImplementedError, match="exts"):
-        _run_port(qpool, tpool, jobs, PROFILES["map-ont"], 0, 0x100)
+    res9, blob, off, ln, _ = _run_port(qpool, tpool, jobs,
+                                       PROFILES["map-ont"], 0, 0x100)
+    a, b, q, e, q2, e2 = PROFILES["map-ont"]
+    qq = qs[0][::-1] if jobs[0, 2] else qs[0]
+    tt = ts[0][::-1] if jobs[0, 5] else ts[0]
+    h = jnative.extd(qq, tt, jax_mat(a, b, 1), q, e, q2, e2, 64, 200, 0,
+                     0x100)
+    assert res9[0].tolist() == [h.max, int(h.zdropped), h.max_q, h.max_t,
+                                h.mqe, h.mqe_t, h.mte, h.mte_q, h.score]
+    assert np.array_equal(blob[off[0]:off[0] + ln[0]], h.cigar)
 
 
 JAX_SCRIPT = textwrap.dedent("""

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: K1 (csrc/extd.cu) and K2
-(csrc/traceback.cu) against their plain PyTorch versions on the same device
-tensors, the pooled call on the card against the CPU, and map_batch on the
-card against the CPU.  Integer DP: every comparison is exact.
+"""The port's CUDA kernels on the card: K1 (csrc/extd.cu), K3
+(csrc/exts.cu) and K2 (csrc/traceback.cu, plain and spliced) against their
+plain PyTorch versions on the same device tensors, the pooled call on the
+card against the CPU, and map_batch on the card against the CPU, map-ont
+and spliced.  Integer DP: every comparison is exact.
 
 These tests need a CUDA card, nvcc and g++; without a card they skip.  On a
 machine with a card:
@@ -30,6 +31,10 @@ GOLD = Path(__file__).resolve().parent / "data" / "golden"
 # map-ont and asm5 (a, b, q, e, q2, e2): asm5's q2=81 drives int8 wraps
 PROFILES = {"map-ont": (2, 4, 4, 2, 24, 1), "asm5": (1, 19, 39, 3, 81, 1)}
 FLAGS = (0x18, 0x0, 0xC2, 0x40, 0x01)
+# splice and splice:hq (a, b, q, e, q2, noncan, junc_bonus)
+SPLICE = {"splice": (1, 2, 2, 1, 32, 9, 9), "splice:hq": (1, 4, 6, 1, 24, 9, 5)}
+SPLICE_FLAGS = (0x100 | 0x400, 0x200 | 0x400, 0x300 | 0x18,
+                0x100 | 0x40 | 0x02 | 0x80, 0x100 | 0x01, 0x00)
 
 
 @pytest.fixture
@@ -61,10 +66,10 @@ def _check_kernels_against_plain(c: check.OnDevice):
     n0 = dict(K.LAUNCHES)
     err, _, _, _ = check.check_against_plain(c)
     torch.cuda.synchronize()
-    assert err == {"extd": 0, "traceback": 0}
-    # K1 once; K2 on K1's direction bytes and on the plain K1's
+    assert err == {c.dp_name: 0, "traceback": 0}
+    # the DP kernel once; K2 on its direction bytes and on the plain one's
     n2 = 0 if c.flag & K.EZ_SCORE_ONLY else 2
-    assert K.LAUNCHES["extd"] == n0["extd"] + 1
+    assert K.LAUNCHES[c.dp_name] == n0[c.dp_name] + 1
     assert K.LAUNCHES["traceback"] == n0["traceback"] + n2
 
 
@@ -154,6 +159,149 @@ def test_map_batch_on_card_matches_cpu(cuda):
     def key(r):
         return (r.rid, r.score, r.qs, r.qe, r.rs, r.re, r.mapq, r.rev,
                 None if r.p is None else (r.p.dp_score, r.p.dp_max,
+                                          tuple(r.p.cigar.tolist())))
+
+    assert [[key(r) for r in x.regs] for x in got] == \
+        [[key(r) for r in x.regs] for x in ref]
+
+
+def _spliced_on_card(dev, profile, flag, B=24, seed=13, **kw):
+    rng = np.random.default_rng(seed)
+    qpool, tpool, jobs, qs, ts, js = check.spliced_jobs(
+        rng, B, rev=bool(flag & K.EZ_REV_CIGAR), **kw)
+    a, b, q, e, q2, noncan, jb = SPLICE[profile]
+    c = check.OnDevice(dev, qpool, tpool, jobs, gen_simple_mat(a, b, 1),
+                       (q, e, q2), flag, 0, splice=(noncan, jb), juncs=js)
+    return c, qs, ts, js
+
+
+@pytest.mark.parametrize("flag", SPLICE_FLAGS, ids=lambda f: f"flag{f:#05x}")
+@pytest.mark.parametrize("profile", sorted(SPLICE))
+def test_exts_kernels_match_plain(cuda, profile, flag):
+    """K3 and K2's spliced form against their plain versions, with junction
+    bytes on a third of the jobs."""
+    c, _, _, _ = _spliced_on_card(cuda, profile, flag)
+    _check_kernels_against_plain(c)
+
+
+@pytest.mark.parametrize("flag", (0x300 | 0x18, 0x100 | 0x400))
+def test_exts_kernel_global_ring_matches_plain(cuda, flag, monkeypatch):
+    monkeypatch.setattr(_build, "EXTD_SMEM_MAX", 0)
+    c, _, _, _ = _spliced_on_card(cuda, "splice", flag, B=12)
+    _check_kernels_against_plain(c)
+
+
+def test_long_unbanded_exts_job_matches_native(cuda):
+    """One spliced job whose unbanded band passes 8192 lanes (the K3 ring in
+    global scratch) against native.exts."""
+    c, qs, ts, _ = _spliced_on_card(
+        cuda, "splice", 0x100 | 0x400, B=1, seed=5, junc_frac=0,
+        exon_total=(8600, 8600), n_exons=(4, 4))
+    assert c.geo.cap > 8192
+    res, dirs = c.k1()
+    ops, fin = c.k2(dirs, c.starts(res))
+    a, b, q, e, q2, noncan, jb = SPLICE["splice"]
+    h = native.exts(qs[0], ts[0], gen_simple_mat(a, b, 1), q, e, q2, noncan,
+                    int(c.jobs_np[0, 7]), jb, 0x100 | 0x400)
+    assert res[0, :9].tolist() == [h.max, int(h.zdropped), h.max_q, h.max_t,
+                                   h.mqe, h.mqe_t, h.mte, h.mte_q, h.score]
+    assert np.array_equal(c.cigars(native, ops, fin)[0], h.cigar)
+
+
+def _recorded_map_batch(monkeypatch, mi, mo, seqs, names):
+    """map_batch on the card, recording the job rows of every device call."""
+    from winnowmap_tpu_torch.map import engine
+    from winnowmap_tpu_torch.map.batch import STATS, map_batch
+
+    seen = []
+
+    class Recording(K.DevCallPooled):
+        def __init__(self, pools, jobs, *a, **kw):
+            seen.append(np.array(jobs))
+            super().__init__(pools, jobs, *a, **kw)
+
+    monkeypatch.setattr(engine, "DevCallPooled", Recording)
+    STATS.clear()
+    out = map_batch(mi, mo, seqs, names)
+    return out, np.concatenate(seen), dict(STATS)
+
+
+def _long_tail_read(seed, genome_len, keep, tail):
+    """A genome and one read: `keep` bases of it and then a random tail, so
+    the read's right extension is a job with a long query and target."""
+    from winnowmap_tpu_torch.index.build import build_index
+    from winnowmap_tpu_torch.io.fastx import SeqRecord
+
+    rng = np.random.default_rng(seed)
+    g = "".join("ACGT"[i] for i in rng.integers(0, 4, genome_len))
+    read = g[5000:5000 + keep] + "".join(
+        "ACGT"[i] for i in rng.integers(0, 4, tail))
+    mi = build_index([SeqRecord("chr1", g.encode(), None, None)], 25, 15, 0,
+                     np.zeros(0, np.uint64))
+    return mi, read.encode()
+
+
+def test_long_jobs_reach_the_card(cuda, monkeypatch):
+    """Jobs beyond the TPU kernel's limits run on the card: an exts job
+    whose shorter side is above 4096 and an extd job with w + 1 > 6000 and
+    both sides above 6000; the engine keeps none on the host."""
+    from dataclasses import replace
+
+    from winnowmap_tpu_torch.options import (MM_F_CIGAR, IndexOptions,
+                                             MapOptions, set_preset,
+                                             update_mid_occ)
+
+    mi, read = _long_tail_read(3, 60000, 3000, 5000)
+    io_, mo = IndexOptions(), MapOptions()
+    set_preset("splice", io_, mo)
+    mo = replace(mo, flag=mo.flag | MM_F_CIGAR, max_gap=10000)
+    update_mid_occ(mo, mi)
+    _, jobs, st = _recorded_map_batch(monkeypatch, mi, mo, [read], ["r"])
+    assert st["eng_host_dp_calls"] == 0
+    assert (np.minimum(jobs[:, 1], jobs[:, 4]) > 4096).any()
+
+    mi, read = _long_tail_read(4, 60000, 3000, 7000)
+    io_, mo = IndexOptions(), MapOptions()
+    set_preset("map-ont", io_, mo)
+    mo = replace(mo, flag=mo.flag | MM_F_CIGAR, max_gap=10000, bw=10000,
+                 sv_aware=False)
+    update_mid_occ(mo, mi)
+    _, jobs, st = _recorded_map_batch(monkeypatch, mi, mo, [read], ["r"])
+    assert st["eng_host_dp_calls"] == 0
+    assert ((jobs[:, 6] + 1 > 6000) & (jobs[:, 1] > 6000)
+            & (jobs[:, 4] > 6000)).any()
+
+
+@pytest.mark.parametrize("preset", ["splice", "splice:hq"])
+def test_splice_map_batch_on_card_matches_cpu(cuda, preset):
+    from winnowmap_tpu_torch.index.build import build_index, load_weight_set
+    from winnowmap_tpu_torch.io.fastx import read_all
+    from winnowmap_tpu_torch.map.batch import STATS, map_batch
+    from winnowmap_tpu_torch.options import (MM_F_CIGAR, IndexOptions,
+                                             MapOptions, set_preset,
+                                             update_mid_occ)
+
+    io_, mo = IndexOptions(), MapOptions()
+    set_preset(preset, io_, mo)
+    mo.flag |= MM_F_CIGAR
+    mi = build_index(read_all(str(GOLD / "s_ref.fa")), io_.w, io_.k,
+                     io_.flag, load_weight_set(str(GOLD / "s_rep_k15.txt"),
+                                               io_.k))
+    update_mid_occ(mo, mi)
+    reads = read_all(str(GOLD / "s_reads.fa"))
+    seqs, names = [r.seq for r in reads], [r.name for r in reads]
+    ref = map_batch(mi, mo, seqs, names, device="cpu")
+    STATS.clear()
+    K.reset_launches()
+    got = map_batch(mi, mo, seqs, names)
+    assert K.LAUNCHES["exts"] > 0 and K.LAUNCHES["traceback"] > 0
+    assert K.LAUNCHES["extd"] == 0
+    assert STATS["delivered_jobs"] == STATS["dev_jobs"] > 0
+
+    def key(r):
+        return (r.rid, r.score, r.qs, r.qe, r.rs, r.re, r.mapq, r.rev,
+                None if r.p is None else (r.p.dp_score, r.p.dp_max,
+                                          r.p.trans_strand,
                                           tuple(r.p.cigar.tolist())))
 
     assert [[key(r) for r in x.regs] for x in got] == \

@@ -2,8 +2,8 @@
 chip_smoke.py) imports jax or anything of the JAX package winnowmap_tpu.
 
 A subprocess installs a sys.meta_path blocker for both, imports every module
-of the port and runs one tiny DevCallPooled on the CPU; an AST scan of the
-sources finds no such import statement.
+of the port and runs one tiny DevCallPooled on the CPU, extd and spliced; an
+AST scan of the sources finds no such import statement.
 """
 import ast
 import os
@@ -60,6 +60,10 @@ SCRIPT = textwrap.dedent("""
     res9, blob, off, ln, reach = DevCallPooled(
         pools, jobs, gen_simple_mat(2, 4, 1), 4, 2, 24, 1, 0, 0x0
     ).collect_blob()
+    assert res9[0, 8] > 0 and ln[0] > 0, (res9, ln)
+    res9, blob, off, ln, reach = DevCallPooled(
+        pools, jobs, gen_simple_mat(1, 2, 1), 2, 1, 32, 0, 0, 0x508,
+        splice=(9, 9)).collect_blob()
     assert res9[0, 8] > 0 and ln[0] > 0, (res9, ln)
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked

@@ -1,8 +1,9 @@
 """winnowmap-compatible command line for the PyTorch/CUDA port (reference
 src/main.c).
 
-    python -m winnowmap_tpu_torch.cli [-x map-ont|map-pb|asm5|asm10|asm20]
-        [-a|-c] [--sv-off] [--device cuda|cpu] -W rep.txt ref.fa reads.fa
+    python -m winnowmap_tpu_torch.cli [-x map-ont|map-pb|asm5|asm10|asm20|
+        splice|splice:hq|cdna] [-a|-c] [--sv-off] [--device cuda|cpu]
+        -W rep.txt ref.fa reads.fa
 
 Maps reads against a reference built on the fly and writes PAF or SAM, with
 the same flags and output as winnowmap_tpu.cli.  The DP runs on the CUDA
@@ -43,19 +44,20 @@ from .options import (
     set_preset,
     update_mid_occ,
 )
-from .utils.log import cputime, peakrss, phase_log, realtime
+from .utils.log import cputime, peakrss, phase_log, realtime, warn
 
 USAGE = """Usage: python -m winnowmap_tpu_torch.cli [options] <target.fa> <query.fa>
 The PyTorch/CUDA port of winnowmap-tpu (Winnowmap v2.03 capabilities);
 flags mirror the reference (see winnowmap --help)."""
 
-PRESETS = ("map-ont", "map-pb", "map-pb-clr", "asm5", "asm10", "asm20")
+PRESETS = ("map-ont", "map-pb", "map-pb-clr", "asm5", "asm10", "asm20",
+           "splice", "splice:hq", "cdna")
 
 # flags of paths that are not in this slice of the port
 NOT_PORTED = {
     "-d": "index dump", "-I": "multi-part indexes", "--split-prefix":
-    "multi-part indexes", "--junc-bed": "splice junctions", "--junc-bonus":
-    "splice junctions", "-u": "splice junctions", "--sr": "short reads",
+    "multi-part indexes", "--junc-bed": "splice junctions from a BED file",
+    "--sr": "short reads",
     "--frag": "paired-end / fragment mode", "-F": "paired-end / fragment "
     "mode", "-X": "all-chains mode", "-D": "no-diagonal mode",
     "--for-only": "single-strand mode", "--rev-only": "single-strand mode",
@@ -194,6 +196,11 @@ def main(argv: list[str] | None = None, device=None) -> int:
             mo.flag |= MM_F_SOFTCLIP
         elif a == "-K":
             mo.mini_batch_size = _num(take())
+        elif a == "--junc-bonus":
+            mo.junc_bonus = int(take())
+        elif a == "-u":
+            take()
+            warn("splice junction matching is handled by the splice preset")
         elif a == "--sv-off":
             mo.sv_aware = False
         elif a == "--cs" or a.startswith("--cs="):

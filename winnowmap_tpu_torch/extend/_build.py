@@ -19,10 +19,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("extd.cu", "traceback.cu")
+SOURCES = ("extd.cu", "exts.cu", "traceback.cu")
+# headers the sources include: a change to one rebuilds every source
+HEADERS = ("ext_common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-# dynamic shared memory one extd block may take for its band ring; wider
-# bands keep the ring in a global scratch slot
+# dynamic shared memory one extd or exts block may take for its band ring;
+# wider bands keep the ring in a global scratch slot
 EXTD_SMEM_MAX = 100 * 1024
 
 _lock = threading.Lock()
@@ -50,6 +52,8 @@ def _nvcc_version(nvcc: str) -> str:
 
 def _target(src: str, nvcc_ver: str) -> Path:
     h = hashlib.sha256((CSRC / src).read_bytes())
+    for hdr in HEADERS:
+        h.update((CSRC / hdr).read_bytes())
     h.update(nvcc_ver.encode())
     h.update(ARCH.encode())
     return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
@@ -93,6 +97,7 @@ def load():
             return _libs["api"]
         paths = build()
         extd = ctypes.CDLL(str(paths["extd.cu"]))
+        exts = ctypes.CDLL(str(paths["exts.cu"]))
         tb = ctypes.CDLL(str(paths["traceback.cu"]))
         vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         extd.wm_extd_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, ci,
@@ -101,15 +106,19 @@ def load():
         extd.wm_extd_launch.restype = ci
         extd.wm_cuda_error_string.argtypes = [ci]
         extd.wm_cuda_error_string.restype = ctypes.c_char_p
+        exts.wm_exts_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp,
+                                        vp, ci, ci, ci] + [ci] * 12 + [vp]
+        exts.wm_exts_launch.restype = ci
         tb.wm_traceback_launch.argtypes = [vp, vp, vp, vp, ci, vp, i64, vp,
-                                           vp]
+                                           ci, vp]
         tb.wm_traceback_launch.restype = ci
 
         class _Api:
             wm_extd_launch = extd.wm_extd_launch
+            wm_exts_launch = exts.wm_exts_launch
             wm_traceback_launch = tb.wm_traceback_launch
             wm_cuda_error_string = extd.wm_cuda_error_string
-            libs = (extd, tb)
+            libs = (extd, exts, tb)
 
         _libs["api"] = _Api
         return _Api

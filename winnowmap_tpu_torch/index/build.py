@@ -44,7 +44,8 @@ class MinimizerIndex:
     # --bloom-filter strict-parity mode: (table u8, table_bits, salt0, salt1)
     bloom: tuple | None = None
     index_part: int = 0
-    # splice-junction intervals; always empty until the splice slice
+    # splice-junction intervals (--junc-bed); empty until reading a BED
+    # file is ported, and map_batch refuses a spliced run that has them
     intervals: dict = field(default_factory=dict)
     # device copies of `codes`, keyed by device (extend/kernels.PoolContext)
     device_codes: dict = field(default_factory=dict, repr=False,

@@ -6,10 +6,12 @@ src/align.c) runs inside the C++ engine (native/src/wm_engine.cpp) on its
 own threads.  This module pumps it: every extension-DP job the engine
 exports goes to extend/kernels.DevCallPooled (the CUDA kernels on a card,
 their plain PyTorch versions on the CPU), and the results go back over the
-engine's flat deliver boundary.
+engine's flat deliver boundary.  Spliced profiles (MM_F_SPLICE) send every
+job to the exts kernel, unbanded; the others to extd.
 
-Jobs the engine keeps on the host itself (local-buffer jobs and jobs longer
-than 32768, wm_engine.cpp device_eligible) are counted in
+Jobs the engine keeps on the host itself (local-buffer jobs, jobs longer
+than 32768, and jobs whose result the oracle's own refusal guards or
+--cap-sw-mem decide; wm_engine.cpp device_eligible) are counted in
 STATS["eng_host_dp_calls"].  Chains stay on the engine's scalar DP.
 """
 from __future__ import annotations
@@ -52,11 +54,14 @@ MAX_CALL_DIRS_BYTES = 4 << 30
 STATS: dict = defaultdict(float)
 
 
-def _est_live_cells(rows):
-    """Live band cells of jobs: (qlen + tlen - 1) * min(qlen, tlen, w + 1)."""
+def _est_live_cells(rows, unbanded: bool = False):
+    """Live band cells of jobs: (qlen + tlen - 1) * min(qlen, tlen, w + 1),
+    without the w term for unbanded (exts) jobs."""
     ql = rows[:, C_QLEN].astype(np.int64)
     tl = rows[:, C_TLEN].astype(np.int64)
-    wv = np.minimum(np.minimum(ql, tl), rows[:, C_W] + 1)
+    wv = np.minimum(ql, tl)
+    if not unbanded:
+        wv = np.minimum(wv, rows[:, C_W] + 1)
     return float(((ql + tl - 1) * wv).sum())
 
 
@@ -67,16 +72,21 @@ def engine_supported(opt: MapOptions) -> bool:
     return not (opt.flag & unsupported)
 
 
-def check_ported(opt: MapOptions) -> None:
-    """Raise NotImplementedError for options whose DP needs a kernel that
-    is not ported yet (never route them elsewhere)."""
+def check_ported(opt: MapOptions, mi=None) -> None:
+    """Raise NotImplementedError for options whose path is not ported yet
+    (never route them elsewhere)."""
     if not engine_supported(opt):
         raise NotImplementedError(
             "option flags outside the native engine (--sr, -D/-X, --for-only,"
             " --rev-only, no-dual) are not ported yet")
     if opt.flag & MM_F_SPLICE:
-        raise NotImplementedError(
-            "spliced mapping needs the exts kernel, not ported yet")
+        if mi is not None and mi.intervals:
+            # the junction bytes depend on each job's DP window, which the
+            # engine path does not carry
+            raise NotImplementedError(
+                "spliced mapping with junction annotations (--junc-bed) is "
+                "not ported yet")
+        return
     if opt.q == opt.q2 and opt.e == opt.e2:
         raise NotImplementedError(
             "single-cost gap profiles (q == q2 and e == e2) need the extz "
@@ -210,15 +220,19 @@ class MapEngine:
         """DevCallPooled calls for one group of rows (same scoring class and
         flag; w, zdrop and end_bonus ride per-job columns), longest job
         first, split so no call's direction buffer passes
-        MAX_CALL_DIRS_BYTES.  Returns [(call, rows)]."""
+        MAX_CALL_DIRS_BYTES.  The profile, not the job flag, picks the
+        kernel: a spliced profile's jobs all go to exts, as in the engine's
+        host DP.  Returns [(call, rows)]."""
         opt = self.opts3[prof]
         mat = gen_simple_mat(opt.a, opt.b, opt.sc_ambi)
+        spliced = bool(opt.flag & MM_F_SPLICE)
+        splice = (opt.noncan, opt.junc_bonus) if spliced else None
         order = np.argsort(-(rows[:, C_QLEN] + rows[:, C_TLEN]),
                            kind="stable")
         rows = rows[order]
         units = rows[:, [C_QOFF, C_QLEN, C_QREV, C_TOFF, C_TLEN, C_TREV,
                          C_W, C_ZD]]
-        nb = np.cumsum(job_geometry(units).nbytes)
+        nb = np.cumsum(job_geometry(units, unbanded=spliced).nbytes)
         out = []
         lo = 0
         while lo < len(rows):
@@ -231,11 +245,12 @@ class MapEngine:
             call = DevCallPooled(
                 self.pools, np.ascontiguousarray(units[lo:hi]), mat, opt.q,
                 opt.e, opt.q2, opt.e2,
-                np.ascontiguousarray(crows[:, C_EB]), int(flag))
+                np.ascontiguousarray(crows[:, C_EB]), int(flag),
+                splice=splice)
             STATS["dispatch_s"] += time.perf_counter() - t0
             STATS["dev_calls"] += 1
             STATS["dev_jobs"] += len(crows)
-            STATS["cells_live_G"] += _est_live_cells(crows) / 1e9
+            STATS["cells_live_G"] += _est_live_cells(crows, spliced) / 1e9
             STATS["cells_pad_G"] += call.geometry.dirs_bytes / 1e9
             out.append((call, crows))
             lo = hi
@@ -343,7 +358,7 @@ def map_batch_engine(mi, opt: MapOptions, seqs, qnames,
                      device: torch.device) -> list[MapResult]:
     """Map a batch of reads through the native engine with every exported
     DP job on `device` (reference mm_map semantics)."""
-    check_ported(opt)
+    check_ported(opt, mi)
     qpool, qoffs = build_read_pool(seqs)
     pools = PoolContext(qpool, mi, device)
     eng = MapEngine(mi, opt, seqs, qnames, pools, qoffs, qpool)

@@ -1103,17 +1103,8 @@ static void adjust_minier(const EngIndex& mi, const uint8_t* const qseq0[2],
 
 namespace weng {
 
-// ---- device-eligibility (mirror of map/batch.py policy) ------------------
+// ---- device-eligibility ------------------------------------------------
 static const int MAX_DEV_LEN = 32768;
-static const int64_t LEN_STEPS[] = {128,  256,  384,   512,   768,  1024,
-                                    1536, 2048, 3072,  4096,  6144, 8192,
-                                    12288, 16384, 24576, 32768, 65536};
-
-static int64_t quantize_len(int64_t n) {
-  for (int64_t s : LEN_STEPS)
-    if (n <= s) return s;
-  return (n + 16383) / 16384 * 16384;
-}
 
 struct ExtJob {
   int64_t qoff;  // offset into qpool (start of the forward-order window)
@@ -1327,30 +1318,13 @@ class Engine {
         j.tlen > MAX_DEV_LEN)
       return false;
     const EngOpts& o = opts[j.prof];
+    // the oracle's own refusal guards decide results, not placement: jobs
+    // that wm_exts refuses, and --cap-sw-mem's dummy drop, stay on the host
     if (o.flag & MM_F_SPLICE) {
-      // exts device path (mirrors map/batch.py splice eligibility): the
-      // oracle's refusal guards run host-side; the splice kernel's H-range
-      // bound is query-length based (see pallas_kernel splice assert)
       if (o.q2 <= o.q + o.e) return false;
       if (std::max(std::abs(o.b), std::abs(o.sc_ambi)) > 2 * (o.q + o.e))
         return false;
-      // unbanded exts window = min(Lq, Lt) lanes; rank packing caps ~6k
-      if (quantize_len(std::max(1, std::min(j.qlen, j.tlen))) > 4096)
-        return false;
-      int64_t lqq = quantize_len(std::max(1, j.qlen));
-      if (lqq * (o.q + 2 * o.e) +
-              2 * (o.q + o.q2 + 2 * std::abs(o.noncan)) + 1024 >=
-          (int64_t)1 << 17)
-        return false;
-      if (o.max_sw_mat > 0 && (int64_t)j.qlen * j.tlen > o.max_sw_mat)
-        return false;
-      return true;
     }
-    if (j.w + 1 > 6000 && j.qlen > 6000 && j.tlen > 6000) return false;
-    int64_t R = quantize_len(std::max(1, j.qlen)) +
-                quantize_len(std::max(1, j.tlen)) - 1;
-    int64_t emax = std::max(o.e, o.e2);
-    if (R * emax + o.q + o.q2 >= (int64_t)1 << 17) return false;
     if (o.max_sw_mat > 0 && (int64_t)j.qlen * j.tlen > o.max_sw_mat)
       return false;
     return true;
