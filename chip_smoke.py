@@ -8,13 +8,17 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
   2. each kernel against its plain PyTorch version on the card:
      K1 extd DP and K2 traceback at the map-ont path's shape (B=512 jobs of
      length 1000, w=500) and on a ragged batch, map-ont and asm5 profiles,
-     flags 0x18 0x0 0xC2 0x40 0x01; K3 exts DP and K2's spliced form on
-     B=256 spliced jobs (2-4 exons, 300-800 bases, 1-3 canonical introns of
-     100-1500 bases, junction bytes on a third), splice and splice:hq
-     profiles, flags 0x508 (the splice path's) 0x500 0x600 0x318 0x1C2
-     0x101 0x0, and one long unbanded job (K3's ring in global scratch);
+     flags 0x18 0x0 0xC2 0x40 0x01; K4 extz DP and K2 on the same two
+     batches under two single-cost profiles (-O 4,4 -E 2,2, and q = 61,
+     e = 2, whose biased score byte wraps: max_sc = 128); K3 exts DP and
+     K2's spliced form on B=256 spliced jobs (2-4 exons, 300-800 bases,
+     1-3 canonical introns of 100-1500 bases, junction bytes on a third),
+     splice profile at flags 0x508 (the splice path's) 0x500 0x600 0x318
+     0x1C2 0x101 0x0, splice:hq at 0x508 0x600 0x318 0x1C2, and one long
+     unbanded job (K3's ring in global scratch);
      results and CIGARs must be exactly equal to the plain versions and to
-     native.extd / native.exts on a sample; kernel times from CUDA events;
+     native.extd / native.extz / native.exts on a sample; kernel times from
+     CUDA events;
   3. the port's CLI on the golden corpora (tests/data/golden): --sv-off
      byte-equal to golden_svoff.sam, sv-aware equal to golden_svon.sam up
      to the reference's uninitialised rep_len fields (at most 6 lines);
@@ -25,7 +29,10 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      reads/s, STATS and kernel launch counts of the run;
   5. spliced mapping (-x splice -a) at a real size: a 4 Mbp genome with 400
      genes and 5000 reads of their transcripts from both strands, made
-     with numpy (seed 20261016); reads/s, STATS and launch counts.
+     with numpy (seed 20261016); reads/s, STATS and launch counts;
+  6. single-cost mapping (map-ont SV-aware with -O 4,4 -E 2,2 -a) of phase
+     4's corpus: every DP job through K4, none through K1.
+Phases 4-6 keep no DP job on the engine's host DP (eng_host_dp_calls 0).
 It prints a "kernels" JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -47,6 +54,11 @@ DATA = REPO / "smoke_data"
 DEVICE = "cuda"
 MAP_ONT = (2, 4, 4, 2, 24, 1)  # a, b, q, e, q2, e2
 ASM5 = (1, 19, 39, 3, 81, 1)
+# one gap cost (-O 4,4 -E 2,2), and q + e = 63, where the biased score byte
+# of wm_extz wraps (max_sc = 2 + 126 = 128); that profile's scores fall at
+# once, so its jobs run without z-drop
+EXTZ = (2, 4, 4, 2, 4, 2)
+EXTZ_WRAP = (2, 4, 61, 2, 61, 2)
 FLAGS = (0x18, 0x0, 0xC2, 0x40, 0x01)
 # splice and splice:hq (a, b, q, e, q2, noncan, junc_bonus); the splice
 # path's gap-filling jobs carry 0x508 (forward strand, flank, approx max)
@@ -54,6 +66,11 @@ SPLICE = (1, 2, 2, 1, 32, 9, 9)
 SPLICE_HQ = (1, 4, 6, 1, 24, 9, 5)
 SPLICE_FLAGS = (0x508, 0x100 | 0x400, 0x200 | 0x400, 0x300 | 0x18,
                 0x100 | 0x40 | 0x02 | 0x80, 0x100 | 0x01, 0x00)
+# splice:hq is checked on the flags whose cell paths differ most (the
+# path's, the reverse strand, both strands with the approximate max, and
+# right-aligned left extensions); splice takes all seven
+SPLICE_HQ_FLAGS = (0x508, 0x200 | 0x400, 0x300 | 0x18,
+                   0x100 | 0x40 | 0x02 | 0x80)
 # H100 SXM peaks at 700 W: HBM3 3.35 TB/s (NVIDIA data sheet), and the
 # INT32 ALU rate, 132 SMs x 64 INT32 lanes x 1.98 GHz (the clock behind the
 # data sheet's 67 TFLOP/s float32 = 132 x 128 lanes x 2 x 1.98 GHz); both
@@ -75,6 +92,11 @@ OPS_PER_CELL = 47
 # a2+acceptor 4, max and direction 9, u v 2, z-q z-q2 an bn a2n 5,
 # continue tests 3 (a2n against the donor), x y x2 6, direction bits 3
 OPS_PER_CELL_EXTS = 38
+# per live cell of wm_extz (:1290-1329): score 6, z = s + 2(q+e) and the
+# candidates a b 3, max and direction 6 (compare, select, max for a;
+# compare, select for b; b's unsigned max), max_sc cap 1, u v 2, z-q an bn
+# 3, continue tests 2, x y selects 2, direction bits 2
+OPS_PER_CELL_EXTZ = 27
 # per traceback step of traceback_intron (:80-99): r = i + j 1, band tests
 # 2 and their selects 2, state machine 8 (state == 0, d & 7, state + 2,
 # shift, & 1, select, state == 0, select), forced state 1, op choice 5
@@ -131,9 +153,9 @@ def band_cells(jobs_np, res_np):
 
 def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
            n_ragged=48):
-    """Kernels against their plain versions at the main path's shape (B
-    jobs of length n, band w) and on a ragged batch; returns the kernel
-    records."""
+    """K1 and K4 against their plain versions at the main path's shape (B
+    jobs of length n, band w) and on a ragged batch; returns the K1, K2 and
+    K4 records, K1 and K4 timed on the same batch."""
     rng = np.random.default_rng(20261016)
     main = check.random_jobs(rng, [n] * B, w, 400)
     ragged_lens = rng.integers(50, 1500, n_ragged - 1)
@@ -143,23 +165,27 @@ def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
                                dissimilar=True)
     checks = []
     for name, (qp, tp, jobs, qs, ts) in (("main", main), ("ragged", ragged)):
-        for prof in (MAP_ONT, ASM5):
+        for prof in (MAP_ONT, ASM5, EXTZ, EXTZ_WRAP):
             mat = gen_simple_mat(prof[0], prof[1], 1)
             for flag in FLAGS:
-                if name == "main" and (prof is ASM5 or flag not in (0x18,
-                                                                     0x0)):
+                if name == "main" and (prof in (ASM5, EXTZ_WRAP)
+                                       or flag not in (0x18, 0x0)):
                     continue
+                pj = jobs
+                if prof is EXTZ_WRAP:
+                    pj = jobs.copy()
+                    pj[:, 7] = -1
                 eb = rng.integers(0, 60, len(jobs))
-                checks.append((name, prof, flag, qp, tp, jobs, qs, ts, mat,
-                               eb))
-    max_err = {"extd": 0, "traceback": 0}
+                checks.append((name, prof, flag, qp, tp, pj, qs, ts, mat, eb))
+    max_err = {"extd": 0, "extz": 0, "traceback": 0}
     for name, prof, flag, qp, tp, jobs, qs, ts, mat, eb in checks:
         c = check.OnDevice(DEVICE, qp, tp, jobs, mat, prof[2:], flag, eb)
+        dp = c.dp_name
         err, res_k, ops_k, fin_k = check.check_against_plain(c)
         torch.cuda.synchronize()
-        for k in max_err:
+        for k in (dp, "traceback"):
             max_err[k] = max(max_err[k], err[k])
-        if err["extd"] or err["traceback"]:
+        if err[dp] or err["traceback"]:
             fail(f"kernels != plain on {name} {prof} flag {flag:#x}: "
                  f"max abs err {err}")
         res_np = res_k.cpu().numpy()
@@ -170,53 +196,66 @@ def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
         for i in sample:
             qq = qs[i][::-1] if jobs[i, 2] else qs[i]
             tt = ts[i][::-1] if jobs[i, 5] else ts[i]
-            h = native.extd(qq, tt, mat, *prof[2:], int(jobs[i, 6]),
-                            int(jobs[i, 7]), int(eb[i]), flag)
+            h = c.native(native, i, qq, tt)
             hv = [h.max, int(h.zdropped), h.max_q, h.max_t, h.mqe, h.mqe_t,
                   h.mte, h.mte_q, h.score]
             if res_np[i, :9].tolist() != hv:
-                fail(f"K1 != native.extd on {name} {prof} flag {flag:#x} "
-                     f"job {i}: {res_np[i, :9].tolist()} vs {hv}")
+                fail(f"{dp} kernel != native.{dp} on {name} {prof} flag "
+                     f"{flag:#x} job {i}: {res_np[i, :9].tolist()} vs {hv}")
             if not (flag & K.EZ_SCORE_ONLY) and not np.array_equal(
                     cig[i], h.cigar):
-                fail(f"CIGAR != native.extd on {name} {prof} flag "
+                fail(f"CIGAR != native.{dp} on {name} {prof} flag "
                      f"{flag:#x} job {i}")
-        log(f"[phase 2] {name:6s} a={prof[0]} flag={flag:#04x} B={len(jobs)}"
-            f": K1, K2 == plain on every job; == native.extd on a sample")
+        log(f"[phase 2] {name:6s} {dp} a={prof[0]} q={prof[2]} "
+            f"flag={flag:#04x} B={len(jobs)}: {dp}, K2 == plain on every "
+            f"job; == native.{dp} on a sample")
 
-    # times at the main path's shape (map-ont, the bench's flag 0x18)
-    mat = gen_simple_mat(2, 4, 1)
+    # times at the main path's shape (map-ont, the bench's flag 0x18); K4
+    # on the same batch under -O 4,4 -E 2,2
     qp, tp, jobs, _, _ = main
-    c = check.OnDevice(DEVICE, qp, tp, jobs, mat, MAP_ONT[2:], 0x18, 0)
-    return time_kernels(K, torch, c, max_err, OPS_PER_CELL, (
-        ("extd_dp", "extd.cu", "winnowmap_tpu/extend/pallas_kernel.py:124"),
-        ("traceback", "traceback.cu",
-         "winnowmap_tpu/extend/pallas_kernel.py:1075")),
-        f"B={B} len={n} w={w} flag=0x18")
+    rec = []
+    for prof, ops, names in (
+            (MAP_ONT, OPS_PER_CELL, (
+                ("extd_dp", "extd.cu",
+                 "winnowmap_tpu/extend/pallas_kernel.py:124"),
+                ("traceback", "traceback.cu",
+                 "winnowmap_tpu/extend/pallas_kernel.py:1075"))),
+            (EXTZ, OPS_PER_CELL_EXTZ, (
+                ("extz_dp", "extz.cu",
+                 "winnowmap_tpu/extend/pallas_kernel.py:1969"),))):
+        c = check.OnDevice(DEVICE, qp, tp, jobs,
+                           gen_simple_mat(prof[0], prof[1], 1), prof[2:],
+                           0x18, 0)
+        rec += time_kernels(K, torch, c, max_err, ops, names,
+                            f"B={B} len={n} w={w} flag=0x18")
+    return rec
 
 
 def time_kernels(K, torch, c, max_err, ops_per_cell, names, shape):
-    """CUDA-event times of the DP kernel and K2 on c's batch, their plain
-    versions' host-clock times, and each one's bound from this batch's
-    data; returns the two kernel records."""
+    """CUDA-event times of the DP kernel and, when names holds a second
+    record, K2 on c's batch; their plain versions' host-clock times, and
+    each one's bound from this batch's data; returns one record per name."""
     saved = dict(K.LAUNCHES)
     res, dirs = c.k1()
     start = c.starts(res)
     k1_ms = cuda_ms(torch, c.k1, 5)
-    k2_ms = cuda_ms(torch, lambda: c.k2(dirs, start), 5)
     t0 = time.perf_counter()
     c.k1_plain()
     torch.cuda.synchronize()
     k1_plain_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    c.k2_plain(dirs, start)
-    torch.cuda.synchronize()
-    k2_plain_ms = (time.perf_counter() - t0) * 1e3
+    with_k2 = len(names) > 1
+    if with_k2:
+        k2_ms = cuda_ms(torch, lambda: c.k2(dirs, start), 5)
+        t0 = time.perf_counter()
+        c.k2_plain(dirs, start)
+        torch.cuda.synchronize()
+        k2_plain_ms = (time.perf_counter() - t0) * 1e3
+        fin = c.k2(dirs, start)[1].cpu().numpy()
+        st_np = start.cpu().numpy()
+        steps = int(((st_np[:, 0] - fin[:, 0])
+                     + (st_np[:, 1] - fin[:, 1])).sum())
     res_np = res.cpu().numpy()
     live, wide = band_cells(c.jobs_np, res_np)
-    fin = c.k2(dirs, start)[1].cpu().numpy()
-    st_np = start.cpu().numpy()
-    steps = int(((st_np[:, 0] - fin[:, 0]) + (st_np[:, 1] - fin[:, 1])).sum())
     K.LAUNCHES.update(saved)  # comparison launches are not main-path ones
     jobs = c.jobs_np
     B = len(jobs)
@@ -226,15 +265,15 @@ def time_kernels(K, torch, c, max_err, ops_per_cell, names, shape):
     k1_bytes = (int(jobs[:, 1].sum() + jobs[:, 4].sum()) + B * (64 + 8)
                 + jbytes + wide + B * 64)
     k1_ops = live * ops_per_cell
-    # one direction byte read and one op byte written per step, plus the
-    # job rows, offsets, starts and the remaining (i, j)
-    k2_bytes = 2 * steps + B * (64 + 8 + 8) + B * 8
-    k2_ops = steps * OPS_PER_STEP
+    timed = [(k1_ms, k1_plain_ms, k1_bytes, k1_ops, max_err[c.dp_name])]
+    if with_k2:
+        # one direction byte read and one op byte written per step, plus
+        # the job rows, offsets, starts and the remaining (i, j)
+        k2_bytes = 2 * steps + B * (64 + 8 + 8) + B * 8
+        timed.append((k2_ms, k2_plain_ms, k2_bytes, steps * OPS_PER_STEP,
+                      max_err["traceback"]))
     rec = []
-    for (nm, src, rep), ms, pms, by, op, err in zip(
-            names, (k1_ms, k2_ms), (k1_plain_ms, k2_plain_ms),
-            (k1_bytes, k2_bytes), (k1_ops, k2_ops),
-            (max_err[c.dp_name], max_err["traceback"])):
+    for (nm, src, rep), (ms, pms, by, op, err) in zip(names, timed):
         tb, to = by / HBM_BPS * 1e3, op / INT32_OPS * 1e3
         rec.append({"name": nm, "route": "cuda",
                     "source": f"winnowmap_tpu_torch/csrc/{src}",
@@ -245,8 +284,9 @@ def time_kernels(K, torch, c, max_err, ops_per_cell, names, shape):
     log(f"[phase 2] {names[0][0]} at {shape}: {k1_ms:.3f} ms "
         f"({live / k1_ms / 1e6:.2f} Gcells/s live, {wide} dirs bytes); "
         f"plain {k1_plain_ms:.1f} ms; bound {rec[0]['bound_ms']:.4f} ms")
-    log(f"[phase 2] {names[1][0]}: {k2_ms:.3f} ms ({steps} steps); plain "
-        f"{k2_plain_ms:.1f} ms; bound {rec[1]['bound_ms']:.5f} ms")
+    if with_k2:
+        log(f"[phase 2] {names[1][0]}: {k2_ms:.3f} ms ({steps} steps); "
+            f"plain {k2_plain_ms:.1f} ms; bound {rec[1]['bound_ms']:.5f} ms")
     return rec
 
 
@@ -259,10 +299,11 @@ def phase2_splice(K, check, native, torch, gen_simple_mat, B=256):
                for rev in (False, True)}
     max_err = {"exts": 0, "traceback": 0}
     n_intron = 0
-    for pname, prof in (("splice", SPLICE), ("splice:hq", SPLICE_HQ)):
+    for pname, prof, flags in (("splice", SPLICE, SPLICE_FLAGS),
+                               ("splice:hq", SPLICE_HQ, SPLICE_HQ_FLAGS)):
         a, b, q, e, q2, noncan, jb = prof
         mat = gen_simple_mat(a, b, 1)
-        for flag in SPLICE_FLAGS:
+        for flag in flags:
             qp, tp, jobs, qs, ts, js = batches[bool(flag & K.EZ_REV_CIGAR)]
             c = check.OnDevice(DEVICE, qp, tp, jobs, mat, (q, e, q2), flag,
                                0, splice=(noncan, jb), juncs=js)
@@ -474,15 +515,27 @@ def phase4(torch, K, build, fastx, options, batch, seqcode):
     log("[phase 4] STATS " + json.dumps(st, sort_keys=True))
     if launches["extd"] == 0 or launches["traceback"] == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
+    check_mapped("phase 4", st, results, len(seqs))
+    return launches, (mi, seqs, names)
+
+
+def check_mapped(phase, st, results, n_reads):
+    """Every exported DP job came back from the kernel path, none stayed on
+    the engine's host DP, at least 90% of the reads mapped, and every
+    region carries a well-formed alignment."""
     if st["delivered_jobs"] != st["dev_jobs"] or st["dev_jobs"] <= 0:
-        fail("not every exported DP job was delivered from the kernel path")
-    if n_mapped < 0.9 * len(seqs):
-        fail(f"only {n_mapped} of {len(seqs)} reads mapped")
+        fail(f"{phase}: not every exported DP job was delivered from the "
+             "kernel path")
+    if st.get("eng_host_dp_calls", 0) != 0:
+        fail(f"{phase}: {int(st['eng_host_dp_calls'])} DP jobs stayed on "
+             "the engine's host DP")
+    n_mapped = sum(1 for r in results if r.regs)
+    if n_mapped < 0.9 * n_reads:
+        fail(f"{phase}: only {n_mapped} of {n_reads} reads mapped")
     for r in results:
         for g in r.regs:
             if g.p is None or not (0 <= g.qs <= g.qe and g.rs <= g.re):
-                fail("malformed alignment record")
-    return launches
+                fail(f"{phase}: malformed alignment record")
 
 
 def splice_corpus(check, ref: Path, reads: Path, seed: int = 20261016,
@@ -580,12 +633,43 @@ def phase5(torch, K, check, build, fastx, options, batch, seqcode):
     log("[phase 5] STATS " + json.dumps(st, sort_keys=True))
     if launches["exts"] == 0 or launches["traceback"] == 0:
         fail(f"a spliced kernel was not launched: {launches}")
-    if st["delivered_jobs"] != st["dev_jobs"] or st["dev_jobs"] <= 0:
-        fail("not every exported DP job was delivered from the kernel path")
-    if len(mapped) < 0.9 * len(seqs):
-        fail(f"only {len(mapped)} of {len(seqs)} reads mapped")
+    check_mapped("phase 5", st, results, len(seqs))
     if n_spliced < 0.5 * len(mapped):
         fail(f"only {n_spliced} of {len(mapped)} mapped reads are spliced")
+    return launches
+
+
+def phase6(torch, K, options, batch, corpus):
+    """Single-cost mapping: phase 4's index and reads, map-ont SV-aware
+    with one gap cost (-O 4,4 -E 2,2 -a), every DP job through K4."""
+    mi, seqs, names = corpus
+    io_, mo = options.IndexOptions(), options.MapOptions()
+    options.set_preset("map-ont", io_, mo)
+    mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
+    mo.q2, mo.e2 = mo.q, mo.e
+    options.update_mid_occ(mo, mi)
+    batch.map_batch(mi, mo, seqs[:8], names[:8])
+    torch.cuda.synchronize()
+    batch.STATS.clear()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = batch.map_batch(mi, mo, seqs, names)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = {k: round(float(v), 6) for k, v in batch.STATS.items()}
+    n_mapped = sum(1 for r in results if r.regs)
+    log(f"[phase 6] -O {mo.q},{mo.q2} -E {mo.e},{mo.e2}: mapped {len(seqs)} "
+        f"reads in {dt:.3f} s -> {len(seqs) / dt:.3f} reads/s; {n_mapped} "
+        f"with hits")
+    log(f"[phase 6] launches {launches}; dev_jobs {int(st['dev_jobs'])}; "
+        f"engine host-kept {int(st.get('eng_host_dp_calls', 0))}")
+    log("[phase 6] STATS " + json.dumps(st, sort_keys=True))
+    if launches["extz"] == 0 or launches["traceback"] == 0:
+        fail(f"a single-cost kernel was not launched: {launches}")
+    if launches["extd"] != 0:
+        fail(f"single-cost mapping launched K1: {launches}")
+    check_mapped("phase 6", st, results, len(seqs))
     return launches
 
 
@@ -621,15 +705,27 @@ def main():
     for src, info in _build.BUILD_INFO["ptxas"].items():
         log(f"[phase 1] {src}: " + " | ".join(info.splitlines()[-2:]))
 
+    t0 = time.perf_counter()
     records = phase2(K, check, native, torch, gen_simple_mat)
+    log(f"[phase 2] K1, K4: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     records += phase2_splice(K, check, native, torch, gen_simple_mat)
+    log(f"[phase 2] K3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase3(cli)
-    ont = phase4(torch, K, build, fastx, options, batch, seqcode)
+    ont, corpus = phase4(torch, K, build, fastx, options, batch, seqcode)
+    log(f"[phase 3-4] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     spl = phase5(torch, K, check, build, fastx, options, batch, seqcode)
+    log(f"[phase 5] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ext = phase6(torch, K, options, batch, corpus)
+    log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on its own path: K1 and K2 on map-ont (phase
-    # 4), K3 and K2's spliced form on splice (phase 5)
-    for rec, n in zip(records, (ont["extd"], ont["traceback"], spl["exts"],
-                                spl["traceback"])):
+    # 4), K4 on single-cost map-ont (phase 6), K3 and K2's spliced form on
+    # splice (phase 5)
+    for rec, n in zip(records, (ont["extd"], ont["traceback"], ext["extz"],
+                                spl["exts"], spl["traceback"])):
         rec["launches"] = n
     print(json.dumps({"kernels": records}))
     print(smi)

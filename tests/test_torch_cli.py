@@ -1,7 +1,8 @@
 """The port's CLI against the JAX package's: `-a` SAM on the first golden
 reads must be byte-identical to `python -m winnowmap_tpu.cli -a` on its host
-kernels (WM_NO_TPU=1), and flags of paths not ported yet must exit with a
-clear error instead of running something else."""
+kernels (WM_NO_TPU=1), and so must single-cost (`-O 4,4 -E 2,2 -c`) PAF;
+flags of paths not ported yet must exit with a clear error instead of
+running something else."""
 import contextlib
 import io
 import re
@@ -60,6 +61,22 @@ def test_cli_unported_flags_exit_with_error(argv, capsys):
                    device="cpu")
     assert rc == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_single_cost_matches_jax_cli(reads_fa, monkeypatch):
+    """-O 4,4 -E 2,2 (one gap cost: the extz kernel) with -c: the PAF is
+    byte-equal to the JAX CLI's on its host kernels."""
+    from winnowmap_tpu.cli import main as jax_main
+    from winnowmap_tpu_torch.cli import main as port_main
+
+    monkeypatch.setenv("WM_NO_TPU", "1")
+    argv = ["-O", "4,4", "-E", "2,2", "-c", "-W",
+            str(GOLD / "t_rep_k15.txt"), str(GOLD / "t_ref.fa"),
+            str(reads_fa)]
+    got = _out(port_main, argv, device="cpu")
+    assert got == _out(jax_main, argv)
+    assert len(got.splitlines()) >= N_READS
+    assert "cg:Z:" in got
 
 
 def _no_pg(s):

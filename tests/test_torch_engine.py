@@ -93,8 +93,9 @@ def test_map_batch_matches_jax_engine(sv_aware, monkeypatch):
 
 
 def test_map_batch_unported_options_raise():
-    """--sr and single-cost profiles raise; spliced mapping runs, but not
-    with junction annotations (--junc-bed), whose path is not ported."""
+    """--sr raises; single-cost profiles and spliced mapping run, but not
+    spliced mapping with junction annotations (--junc-bed), whose path is
+    not ported."""
     from winnowmap_tpu_torch.map.batch import map_batch
     from winnowmap_tpu_torch.options import MM_F_SPLICE, MM_F_SR
 
@@ -103,9 +104,8 @@ def test_map_batch_unported_options_raise():
         with pytest.raises(NotImplementedError):
             map_batch(mi, replace(mo, flag=mo.flag | flag), [b"ACGT" * 50],
                       ["r"], device="cpu")
-    with pytest.raises(NotImplementedError, match="extz"):
-        map_batch(mi, replace(mo, q2=mo.q, e2=mo.e), [b"ACGT" * 50], ["r"],
-                  device="cpu")
+    assert len(map_batch(mi, replace(mo, q2=mo.q, e2=mo.e), [b"ACGT" * 50],
+                         ["r"], device="cpu")) == 1
     spliced = replace(mo, flag=mo.flag | MM_F_SPLICE)
     assert len(map_batch(mi, spliced, [b"ACGT" * 50], ["r"],
                          device="cpu")) == 1

@@ -176,18 +176,23 @@ def test_ragged_banded_batch_matches_native_extd(profile, flag):
 
 
 def test_pooled_unported_profiles_raise():
-    """Single-cost profiles need extz, which is not ported; splice bits in
-    the flag do not pick a kernel (the profile does, through
-    DevCallPooled's splice argument), so without it the call runs extd."""
+    """Single-cost profiles (q == q2 and e == e2) run extz and equal
+    native.extz; splice bits in the flag do not pick a kernel (the profile
+    does, through DevCallPooled's splice argument), so without it the call
+    runs extd."""
     qs, ts = _cases()
     qpool, tpool, jobs = _pooled(qs[:1], ts[:1], [64], 200)
-    with pytest.raises(NotImplementedError, match="extz"):
-        _run_port(qpool, tpool, jobs, (2, 4, 4, 2, 4, 2), 0, 0)
+    qq = qs[0][::-1] if jobs[0, 2] else qs[0]
+    tt = ts[0][::-1] if jobs[0, 5] else ts[0]
+    res9, blob, off, ln, _ = _run_port(qpool, tpool, jobs,
+                                       (2, 4, 4, 2, 4, 2), 0, 0)
+    h = jnative.extz(qq, tt, jax_mat(2, 4, 1), 4, 2, 64, 200, 0, 0)
+    assert res9[0].tolist() == [h.max, int(h.zdropped), h.max_q, h.max_t,
+                                h.mqe, h.mqe_t, h.mte, h.mte_q, h.score]
+    assert np.array_equal(blob[off[0]:off[0] + ln[0]], h.cigar)
     res9, blob, off, ln, _ = _run_port(qpool, tpool, jobs,
                                        PROFILES["map-ont"], 0, 0x100)
     a, b, q, e, q2, e2 = PROFILES["map-ont"]
-    qq = qs[0][::-1] if jobs[0, 2] else qs[0]
-    tt = ts[0][::-1] if jobs[0, 5] else ts[0]
     h = jnative.extd(qq, tt, jax_mat(a, b, 1), q, e, q2, e2, 64, 200, 0,
                      0x100)
     assert res9[0].tolist() == [h.max, int(h.zdropped), h.max_q, h.max_t,

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: K1 (csrc/extd.cu), K3
-(csrc/exts.cu) and K2 (csrc/traceback.cu, plain and spliced) against their
-plain PyTorch versions on the same device tensors, the pooled call on the
-card against the CPU, and map_batch on the card against the CPU, map-ont
-and spliced.  Integer DP: every comparison is exact.
+(csrc/exts.cu), K4 (csrc/extz.cu) and K2 (csrc/traceback.cu, plain and
+spliced) against their plain PyTorch versions on the same device tensors,
+the pooled call on the card against the CPU, and map_batch on the card
+against the CPU, map-ont, single-cost and spliced.  Integer DP: every
+comparison is exact.
 
 These tests need a CUDA card, nvcc and g++; without a card they skip.  On a
 machine with a card:
@@ -306,3 +307,129 @@ def test_splice_map_batch_on_card_matches_cpu(cuda, preset):
 
     assert [[key(r) for r in x.regs] for x in got] == \
         [[key(r) for r in x.regs] for x in ref]
+
+
+# one gap cost (a, b, q, e, q2, e2), and the profile whose biased score
+# byte wraps (q + e = 63, max_sc = 128); its jobs run without z-drop
+EXTZ = {"single": (2, 4, 4, 2, 4, 2), "wrap": (2, 4, 61, 2, 61, 2)}
+
+
+def _extz_on_card(dev, profile, flag, seed=7, B=24):
+    qpool, tpool, jobs, eb = _batch(seed, B=B)
+    if profile == "wrap":
+        jobs[:, 7] = -1
+    a, b, q, e, q2, e2 = EXTZ[profile]
+    c = check.OnDevice(dev, qpool, tpool, jobs, gen_simple_mat(a, b, 1),
+                       (q, e, q2, e2), flag, eb)
+    assert c.dp_name == "extz"
+    return c
+
+
+@pytest.mark.parametrize("flag", FLAGS, ids=lambda f: f"flag{f:#04x}")
+@pytest.mark.parametrize("profile", sorted(EXTZ))
+def test_extz_kernels_match_plain(cuda, profile, flag):
+    _check_kernels_against_plain(_extz_on_card(cuda, profile, flag))
+
+
+@pytest.mark.parametrize("flag", (0x18, 0x0), ids=("flag0x18", "flag0x00"))
+def test_extz_kernel_global_ring_matches_plain(cuda, flag, monkeypatch):
+    monkeypatch.setattr(_build, "EXTD_SMEM_MAX", 0)
+    _check_kernels_against_plain(_extz_on_card(cuda, "single", flag, 11,
+                                               B=12))
+
+
+def test_long_full_band_extz_job_matches_native(cuda):
+    """One single-cost job whose full band needs the 256-thread,
+    global-ring launch, against native.extz."""
+    rng = np.random.default_rng(5)
+    t = rng.integers(0, 4, 8400).astype(np.uint8)
+    q = check.mutate(rng, t, 0.08)
+    mat = gen_simple_mat(2, 4, 1)
+    mi = MinimizerIndex(w=10, k=15, codes=t)
+    pools = K.PoolContext(q, mi, cuda)
+    jobs = np.array([[0, len(q), 0, 0, len(t), 0, -1, 400]], np.int64)
+    assert K.job_geometry(jobs).cap > 8192
+    n0 = K.LAUNCHES["extz"]
+    res9, blob, off, ln, _ = K.DevCallPooled(
+        pools, jobs, mat, 4, 2, 4, 2, 0, 0x0).collect_blob()
+    assert K.LAUNCHES["extz"] == n0 + 1
+    h = native.extz(q, t, mat, 4, 2, -1, 400, 0, 0x0)
+    assert res9[0].tolist() == [h.max, int(h.zdropped), h.max_q, h.max_t,
+                                h.mqe, h.mqe_t, h.mte, h.mte_q, h.score]
+    assert np.array_equal(blob[off[0]:off[0] + ln[0]], h.cigar)
+
+
+def test_single_cost_map_batch_on_card_matches_cpu(cuda):
+    from dataclasses import replace
+
+    from winnowmap_tpu_torch.index.build import build_index, load_weight_set
+    from winnowmap_tpu_torch.io.fastx import read_all
+    from winnowmap_tpu_torch.map.batch import STATS, map_batch
+    from winnowmap_tpu_torch.options import (MM_F_CIGAR, IndexOptions,
+                                             MapOptions, update_mid_occ)
+
+    io_, mo = IndexOptions(), MapOptions()
+    mo.flag |= MM_F_CIGAR
+    mo = replace(mo, q2=mo.q, e2=mo.e)
+    mi = build_index(read_all(str(GOLD / "t_ref.fa")), io_.w, io_.k,
+                     io_.flag, load_weight_set(str(GOLD / "t_rep_k15.txt"),
+                                               io_.k))
+    update_mid_occ(mo, mi)
+    reads = read_all(str(GOLD / "t_reads.fa"))[:12]
+    seqs, names = [r.seq for r in reads], [r.name for r in reads]
+    ref = map_batch(mi, mo, seqs, names, device="cpu")
+    STATS.clear()
+    K.reset_launches()
+    got = map_batch(mi, mo, seqs, names)
+    assert K.LAUNCHES["extz"] > 0 and K.LAUNCHES["traceback"] > 0
+    assert K.LAUNCHES["extd"] == 0
+    assert STATS["delivered_jobs"] == STATS["dev_jobs"] > 0
+    assert STATS["eng_host_dp_calls"] == 0
+
+    def key(r):
+        return (r.rid, r.score, r.qs, r.qe, r.rs, r.re, r.mapq, r.rev,
+                None if r.p is None else (r.p.dp_score, r.p.dp_max,
+                                          tuple(r.p.cigar.tolist())))
+
+    assert [[key(r) for r in x.regs] for x in got] == \
+        [[key(r) for r in x.regs] for x in ref]
+
+
+def test_long_and_inversion_jobs_reach_the_card(cuda, monkeypatch):
+    """The engine's two repaired cases run on the card: a right extension
+    whose query side is above 32768, and the inversion rescue's extension
+    (flag 0x40, its query on the other read strand); no job stays on the
+    host, and the inverted region comes back."""
+    from dataclasses import replace
+
+    from winnowmap_tpu_torch.index.build import build_index
+    from winnowmap_tpu_torch.io.fastx import SeqRecord
+    from winnowmap_tpu_torch.options import (MM_F_CIGAR, IndexOptions,
+                                             MapOptions, set_preset,
+                                             update_mid_occ)
+
+    rng = np.random.default_rng(11)
+    g = "".join("ACGT"[i] for i in rng.integers(0, 4, 50000))
+    mi = build_index([SeqRecord("chr1", g.encode(), None, None)], 10, 15, 0,
+                     np.zeros(0, np.uint64))
+    io_, mo = IndexOptions(), MapOptions()
+    set_preset("map-ont", io_, mo)
+    mo = replace(mo, flag=mo.flag | MM_F_CIGAR, sv_aware=False,
+                 max_gap=40000)
+    update_mid_occ(mo, mi)
+    tail = "".join("ACGT"[i] for i in rng.integers(0, 4, 33000))
+    comp = str.maketrans("ACGT", "TGCA")
+    inverted = (g[20000:24000] + g[24000:25500].translate(comp)[::-1]
+                + g[25500:29500])
+    reads = [(g[5000:8000] + tail).encode(), inverted.encode()]
+    K.reset_launches()
+    out, jobs, st = _recorded_map_batch(monkeypatch, mi, mo, reads,
+                                        ["long", "inv"])
+    assert st["eng_host_dp_calls"] == 0
+    assert st["delivered_jobs"] == st["dev_jobs"] == len(jobs)
+    assert K.LAUNCHES["extd"] > 0
+    assert (jobs[:, 1] > 32768).any()
+    inv = [r for r in out[1].regs if r.inv]
+    assert len(inv) == 1 and abs(inv[0].rs - 24000) < 8
+    assert ((jobs[:, 0] >= len(reads[0]) * 2 + len(reads[1]))
+            & (jobs[:, 3] == inv[0].rs)).any()

@@ -6,9 +6,11 @@ src/main.c).
         -W rep.txt ref.fa reads.fa
 
 Maps reads against a reference built on the fly and writes PAF or SAM, with
-the same flags and output as winnowmap_tpu.cli.  The DP runs on the CUDA
-card; --device cpu runs the kernels' plain PyTorch versions.  Flags of
-paths not ported yet exit with a "not yet ported" error.
+the same flags and output as winnowmap_tpu.cli.  Single-cost gap profiles
+(-O q,q -E e,e) run the extz kernel, spliced presets exts, the others extd.
+The DP runs on the CUDA card; --device cpu runs the kernels' plain PyTorch
+versions.  Flags of paths not ported yet exit with a "not yet ported"
+error.
 """
 from __future__ import annotations
 

@@ -1,15 +1,16 @@
-// The extension-DP wavefront shared by K1 (extd.cu) and K3 (exts.cu): one
-// kernel body, ext_kernel<kSplice>, with the cell and the extra ring rows
-// chosen at compile time, as the JAX package builds both from one
-// _build_extd_kernel(splice=...).
+// The extension-DP wavefront shared by K1 (extd.cu), K3 (exts.cu) and K4
+// (extz.cu): one kernel body, ext_kernel<kMode>, with the cell and the ring
+// rows chosen at compile time, as the JAX package builds extd and exts from
+// one _build_extd_kernel(splice=...).
 //
-// Semantics are wm_extd's and wm_exts's (native/src/wm_ksw.cpp, reference
-// src/ksw2_extd2_sse.c and src/ksw2_exts2_sse.c): wrapping int8
-// difference-form state u, v, x, y, x2 (and y2 for extd) and the score row
-// s, the 16-lane band rounding st = st0/16*16, en = (en0+16)/16*16-1 with
-// the boundary values and init refill, the SSE 4-lane-strided row-max tie
+// Semantics are wm_extd's, wm_exts's and wm_extz's (native/src/wm_ksw.cpp,
+// reference src/ksw2_extd2_sse.c, src/ksw2_exts2_sse.c and
+// src/ksw2_extz2_sse.c): wrapping int8 difference-form state u, v, x, y, x2
+// (and y2 for extd; u, v, x, y only for extz) and the score row s, the
+// 16-lane band rounding st = st0/16*16, en = (en0+16)/16*16-1 with the
+// boundary values and init refill, the SSE 4-lane-strided row-max tie
 // order, z-drop, approx-max/approx-drop and mqe/mte.  Results and direction
-// bytes equal wm_extd's / wm_exts's exactly.
+// bytes equal the scalar oracle's exactly.
 //
 // The spliced cell (kSplice, wm_ksw.cpp:1705-1985) differs from extd's: no
 // y2; x2 starts at -q2 (e2 = 0); the intron candidate is a2 + acceptor[t];
@@ -17,6 +18,15 @@
 // gaps) and restarts from donor[t]; the boundary after long_thres is
 // -e2 = 0; z is not clamped to the match score; z-drop's gap term is
 // e2 = 0; the band is the whole anti-diagonal (w = qlen + tlen).
+//
+// The single-cost cell (kExtz, wm_ksw.cpp:1192-1412) keeps its state as
+// *biased unsigned* bytes, as ksw_extz2_sse does: u, v, x, y start at 0 (not
+// -(q+e)); the boundary is q for r > 0 (0 at r = 0); z = s + 2(q+e) as a
+// byte; the direction compares z with a and b signed, but z's max with b is
+// unsigned and z is capped unsigned at max_sc = mat[0] + 2(q+e); x and y
+// keep an and bn without subtracting q+e; H adds (unsigned) v - (q+e);
+// z-drop's gap term is e.  The signed and unsigned views part once
+// 2(q+e) + a > 127, so every byte is kept exactly as the reference keeps it.
 //
 // What bounds it on this card: neither bytes nor arithmetic.  Each job is a
 // chain of qlen+tlen-1 dependent anti-diagonals, so a job's time is its row
@@ -73,18 +83,25 @@
 #define EZ_SPLICE_REV 0x200
 #define EZ_SPLICE_FLANK 0x400
 
+// the three cells of the shared body
+enum ExtMode { kExtd = 0, kExts = 1, kExtz = 2 };
+
 // Per-call scoring.  exts has e2 = 0 and no y2; extd has noncan and
-// junc_bonus 0.
+// junc_bonus 0; extz has q2 = q, e2 = e and its byte cap max_sc.
 struct ExtProf {
   int q, e, q2, e2, sc_mch, sc_mis, sc_n, long_thres, long_diff, noncan,
       junc_bonus, flag;
-  int dead;  // the scalar code's empty result (a refused scoring)
+  int dead;    // the scalar code's empty result (a refused scoring)
+  int max_sc;  // extz: mat[0] + 2(q+e) as an unsigned byte
 };
 
-// int8 ring rows: u v x y x2 s, then y2 (extd) or donor and acceptor
-// (exts); the exact max adds an int32 H row (4 bytes a lane)
-__host__ __device__ constexpr int ring_bytes(int cap, int flag, bool splice) {
-  return cap * ((splice ? 8 : 7) + ((flag & EZ_APPROX_MAX) ? 0 : 4));
+// int8 ring rows: u v x y, x2 (extd, exts), s, then y2 (extd) or donor and
+// acceptor (exts); the exact max adds an int32 H row (4 bytes a lane)
+__host__ __device__ constexpr int ring_rows(int mode) {
+  return mode == kExts ? 8 : mode == kExtd ? 7 : 5;
+}
+__host__ __device__ constexpr int ring_bytes(int cap, int flag, int mode) {
+  return cap * (ring_rows(mode) + ((flag & EZ_APPROX_MAX) ? 0 : 4));
 }
 
 struct ZState {
@@ -231,7 +248,7 @@ __device__ __forceinline__ void site_scores(const JobTarget& T,
   }
 }
 
-template <bool kSplice>
+template <int kMode>
 __global__ void __launch_bounds__(256) ext_kernel(
     const uint8_t* __restrict__ qpool, const uint8_t* __restrict__ tpool,
     const int64_t* __restrict__ jobs, const int64_t* __restrict__ dirs_off,
@@ -240,6 +257,7 @@ __global__ void __launch_bounds__(256) ext_kernel(
     uint8_t* __restrict__ gscratch, int cap, int use_smem, ExtProf P) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ long long wkey[32];
+  constexpr bool kSplice = kMode == kExts, kExtzCell = kMode == kExtz;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -259,7 +277,9 @@ __global__ void __launch_bounds__(256) ext_kernel(
   const bool right = (P.flag & EZ_RIGHT) != 0;
   const int q = P.q, q2 = P.q2, e2 = P.e2;
   const int qe = P.q + P.e, qe2 = P.q2 + P.e2;
-  const int8_t init1 = (int8_t)(-qe), init2 = (int8_t)(-qe2);
+  // extz's biased state starts at 0
+  const int8_t init1 = kExtzCell ? 0 : (int8_t)(-qe);
+  const int8_t init2 = kExtzCell ? 0 : (int8_t)(-qe2);
   const int8_t sc_mch = (int8_t)P.sc_mch, sc_mis = (int8_t)P.sc_mis,
                sc_n = (int8_t)P.sc_n;
 
@@ -271,27 +291,31 @@ __global__ void __launch_bounds__(256) ext_kernel(
     uint8_t* base = use_smem
                         ? smem
                         : gscratch + (size_t)b * ring_bytes(cap, P.flag,
-                                                             kSplice);
+                                                             kMode);
     int8_t* U = (int8_t*)base;
     int8_t* V = U + cap;
     int8_t* X = V + cap;
     int8_t* Y = X + cap;
-    int8_t* X2 = Y + cap;
-    int8_t* S = X2 + cap;
+    int8_t* X2 = Y + cap;  // extd, exts only
+    int8_t* S = Y + cap * (kExtzCell ? 1 : 2);
     int8_t* Y2 = S + cap;  // extd: y2; exts: the donor score of the lane
     int8_t* D = S + cap;
     int8_t* A = D + cap;  // exts: the acceptor score of the lane
-    int32_t* H = (int32_t*)(S + cap * (kSplice ? 3 : 2));  // exact max only
+    int32_t* H = (int32_t*)(base + cap * ring_rows(kMode));  // exact max
     const int mask = cap - 1;
+    // a u or v byte as H adds it: extz reads it unsigned, less q+e
+    auto hd = [&](int8_t x) {
+      return kExtzCell ? (int)(uint8_t)x - qe : (int)x;
+    };
     // a lane's initial values; site scores for the lane `lane` next in the
     // slot
     auto reset = [&](int sl, int lane) {
       U[sl] = V[sl] = X[sl] = Y[sl] = init1;
-      X2[sl] = init2;
+      if constexpr (!kExtzCell) X2[sl] = init2;
       S[sl] = 0;
       if constexpr (kSplice)
         site_scores(T, P, lane, D[sl], A[sl]);
-      else
+      else if constexpr (!kExtzCell)
         Y2[sl] = init2;
       if (!approx_max) H[sl] = WM_NEG_INF;
     };
@@ -322,6 +346,7 @@ __global__ void __launch_bounds__(256) ext_kernel(
         for (int t = last_st - 1 + tid; t < st - 1; t += nthr)
           if (t >= 0) reset(t & mask, t + cap);
       const int8_t ub = r == 0              ? init1
+                        : kExtzCell         ? (int8_t)q
                         : r < P.long_thres  ? (int8_t)(-P.e)
                         : r == P.long_thres ? (int8_t)P.long_diff
                                             : (int8_t)(-e2);
@@ -337,14 +362,16 @@ __global__ void __launch_bounds__(256) ext_kernel(
         if (st > 0) {
           if (st - 1 >= last_st && st - 1 <= last_en) {
             const int sl = (st - 1) & mask;
-            cx = X[sl], cx2 = X2[sl], cv = V[sl];
+            cx = X[sl], cv = V[sl];
+            if constexpr (!kExtzCell) cx2 = X2[sl];
           }
         } else {
           cv = ub;
         }
       } else if (t_lo <= en) {
         const int sl = (t_lo - 1) & mask;
-        cx = X[sl], cx2 = X2[sl], cv = V[sl];
+        cx = X[sl], cv = V[sl];
+        if constexpr (!kExtzCell) cx2 = X2[sl];
       }
       int hprev = 0;
       if (!approx_max && r > 0 && en0 >= t_lo && en0 <= t_hi)
@@ -374,11 +401,44 @@ __global__ void __launch_bounds__(256) ext_kernel(
         int8_t ut = U[sl], yt = Y[sl], y2t = 0, dn = 0, ac = 0;
         if constexpr (kSplice)
           dn = D[sl], ac = A[sl];
-        else
+        else if constexpr (!kExtzCell)
           y2t = Y2[sl];
         if (t == r) ut = ub, yt = init1, y2t = init2;
         const int8_t xt1 = cx, x2t1 = cx2, vt1 = cv;
-        cx = X[sl], cx2 = X2[sl], cv = V[sl];
+        cx = X[sl], cv = V[sl];
+        if constexpr (kExtzCell) {
+          // wm_extz's cell on the biased bytes (wm_ksw.cpp:1290-1329)
+          const uint8_t a = (uint8_t)(xt1 + vt1), bb = (uint8_t)(yt + ut);
+          int8_t zs = (int8_t)(z + 2 * qe);
+          uint8_t d;
+          if (!right) {
+            d = (int8_t)a > zs ? 1 : 0;
+            if ((int8_t)a > zs) zs = (int8_t)a;
+            if ((int8_t)bb > zs) d = 2;
+          } else {
+            d = zs > (int8_t)a ? 0 : 1;
+            if ((int8_t)a > zs) zs = (int8_t)a;
+            if (!(zs > (int8_t)bb)) d = 2;
+          }
+          // b's max is unsigned (_mm_max_epu8), and so is the cap
+          uint8_t zu = (uint8_t)zs;
+          if (bb > zu) zu = bb;
+          if (zu > (uint8_t)P.max_sc) zu = (uint8_t)P.max_sc;
+          U[sl] = (int8_t)(uint8_t)(zu - (uint8_t)vt1);
+          V[sl] = (int8_t)(uint8_t)(zu - (uint8_t)ut);
+          const uint8_t zq = (uint8_t)(zu - (uint8_t)q);
+          const int8_t an = (int8_t)(uint8_t)(a - zq);
+          const int8_t bn = (int8_t)(uint8_t)(bb - zq);
+          const bool ax = right ? !(0 > an) : an > 0;
+          const bool bx = right ? !(0 > bn) : bn > 0;
+          X[sl] = ax ? an : 0;
+          Y[sl] = bx ? bn : 0;
+          if (ax) d |= 0x08;
+          if (bx) d |= 0x10;
+          if (with_cigar) drow[t - st] = d;
+          continue;
+        }
+        cx2 = X2[sl];
         const int8_t a = (int8_t)(xt1 + vt1);
         const int8_t bb = (int8_t)(yt + ut);
         const int8_t a2 = (int8_t)(x2t1 + vt1);
@@ -454,11 +514,11 @@ __global__ void __launch_bounds__(256) ext_kernel(
           const int sl = t & mask;
           int hn;
           if (r == 0)
-            hn = (int)V[sl] - qe;
+            hn = hd(V[sl]) - qe;
           else if (t == en0)
-            hn = hprev + (en0 > 0 ? (int)U[sl] : (int)V[sl]);
+            hn = hprev + hd(en0 > 0 ? U[sl] : V[sl]);
           else
-            hn = H[sl] + (int)V[sl];
+            hn = H[sl] + hd(V[sl]);
           H[sl] = hn;
           const long long key = row_key(hn, ord.rank(t));
           if (key > best) best = key;
@@ -476,22 +536,22 @@ __global__ void __launch_bounds__(256) ext_kernel(
         if (r > 0) {
           if (last_H0_t >= st0 && last_H0_t <= en0 && last_H0_t + 1 >= st0 &&
               last_H0_t + 1 <= en0) {
-            const int d0 = V[last_H0_t & mask];
-            const int d1 = U[(last_H0_t + 1) & mask];
+            const int d0 = hd(V[last_H0_t & mask]);
+            const int d1 = hd(U[(last_H0_t + 1) & mask]);
             if (d0 > d1)
               H0 += d0;
             else
               H0 += d1, ++last_H0_t;
           } else if (last_H0_t >= st0 && last_H0_t <= en0) {
-            H0 += V[last_H0_t & mask];
+            H0 += hd(V[last_H0_t & mask]);
           } else {
             ++last_H0_t;
-            H0 += U[last_H0_t & mask];
+            H0 += hd(U[last_H0_t & mask]);
           }
           if (approx_drop && apply_zdrop(zs, H0, r, last_H0_t, zdrop, e2))
             break;
         } else {
-          H0 = (int)V[0] - qe;
+          H0 = hd(V[0]) - qe;
           last_H0_t = 0;
         }
         if (r == qlen + tlen - 2 && en0 == tlen - 1) score = H0;
@@ -503,23 +563,23 @@ __global__ void __launch_bounds__(256) ext_kernel(
     store_result(res + (int64_t)b * 16, zs, mqe, mqe_t, mte, mte_q, score);
 }
 
-// Launches ext_kernel<kSplice> on `stream`, one block of `threads` per job;
+// Launches ext_kernel<kMode> on `stream`, one block of `threads` per job;
 // the ring takes dynamic shared memory when use_smem.  Returns the CUDA
 // error code (0 on success).
-template <bool kSplice>
+template <int kMode>
 int ext_launch(const void* qpool, const void* tpool, const void* jobs, int B,
                const void* dirs_off, const void* jpool, const void* joff,
                void* dirs, void* res, void* scratch, int cap, int use_smem,
                int threads, const ExtProf& P, void* stream) {
-  const size_t shm = use_smem ? (size_t)ring_bytes(cap, P.flag, kSplice) : 0;
+  const size_t shm = use_smem ? (size_t)ring_bytes(cap, P.flag, kMode) : 0;
   cudaError_t err = cudaSuccess;
   if (shm > 48 * 1024)
-    err = cudaFuncSetAttribute(ext_kernel<kSplice>,
+    err = cudaFuncSetAttribute(ext_kernel<kMode>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)shm);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0) return 0;
-  ext_kernel<kSplice><<<B, threads, shm, (cudaStream_t)stream>>>(
+  ext_kernel<kMode><<<B, threads, shm, (cudaStream_t)stream>>>(
       (const uint8_t*)qpool, (const uint8_t*)tpool, (const int64_t*)jobs,
       (const int64_t*)dirs_off, (const uint8_t*)jpool, (const int64_t*)joff,
       (uint8_t*)dirs, (int32_t*)res, (uint8_t*)scratch, cap, use_smem, P);

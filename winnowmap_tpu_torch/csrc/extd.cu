@@ -16,7 +16,7 @@ extern "C" int wm_extd_launch(const void* qpool, const void* tpool,
                               int flag, void* stream) {
   const ExtProf P{q,         e,         q2, e2, sc_mch, sc_mis, sc_n,
                   long_thres, long_diff, 0,  0,  flag,   dead};
-  return ext_launch<false>(qpool, tpool, jobs, B, dirs_off, nullptr, nullptr,
+  return ext_launch<kExtd>(qpool, tpool, jobs, B, dirs_off, nullptr, nullptr,
                            dirs, res, scratch, cap, use_smem, threads, P,
                            stream);
 }

@@ -21,6 +21,6 @@ extern "C" int wm_exts_launch(const void* qpool, const void* tpool,
   // the intron state has no extension cost: e2 = 0
   const ExtProf P{q,         e,         q2,     0,          sc_mch, sc_mis, sc_n,
                   long_thres, long_diff, noncan, junc_bonus, flag,   dead};
-  return ext_launch<true>(qpool, tpool, jobs, B, dirs_off, jpool, joff, dirs,
+  return ext_launch<kExts>(qpool, tpool, jobs, B, dirs_off, jpool, joff, dirs,
                           res, scratch, cap, use_smem, threads, P, stream);
 }

@@ -19,12 +19,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("extd.cu", "exts.cu", "traceback.cu")
+SOURCES = ("extd.cu", "exts.cu", "extz.cu", "traceback.cu")
 # headers the sources include: a change to one rebuilds every source
 HEADERS = ("ext_common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-# dynamic shared memory one extd or exts block may take for its band ring;
-# wider bands keep the ring in a global scratch slot
+# dynamic shared memory one extd, exts or extz block may take for its band
+# ring; wider bands keep the ring in a global scratch slot
 EXTD_SMEM_MAX = 100 * 1024
 
 _lock = threading.Lock()
@@ -98,6 +98,7 @@ def load():
         paths = build()
         extd = ctypes.CDLL(str(paths["extd.cu"]))
         exts = ctypes.CDLL(str(paths["exts.cu"]))
+        extz = ctypes.CDLL(str(paths["extz.cu"]))
         tb = ctypes.CDLL(str(paths["traceback.cu"]))
         vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         extd.wm_extd_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, ci,
@@ -109,6 +110,9 @@ def load():
         exts.wm_exts_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp,
                                         vp, ci, ci, ci] + [ci] * 12 + [vp]
         exts.wm_exts_launch.restype = ci
+        extz.wm_extz_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, ci,
+                                        ci, ci] + [ci] * 8 + [vp]
+        extz.wm_extz_launch.restype = ci
         tb.wm_traceback_launch.argtypes = [vp, vp, vp, vp, ci, vp, i64, vp,
                                            ci, vp]
         tb.wm_traceback_launch.restype = ci
@@ -116,9 +120,10 @@ def load():
         class _Api:
             wm_extd_launch = extd.wm_extd_launch
             wm_exts_launch = exts.wm_exts_launch
+            wm_extz_launch = extz.wm_extz_launch
             wm_traceback_launch = tb.wm_traceback_launch
             wm_cuda_error_string = extd.wm_cuda_error_string
-            libs = (extd, exts, tb)
+            libs = (extd, exts, extz, tb)
 
         _libs["api"] = _Api
         return _Api

@@ -1,5 +1,6 @@
-"""Random extd and spliced (exts) job batches, and K1/K3 with K2 held
-against their plain versions on the same device tensors.
+"""Random extd, extz and spliced (exts) job batches, and K1/K3/K4 with K2
+held against their plain versions on the same device tensors, and against
+the native oracle on a sample.
 
 Shared by the on-card tests (tests/test_torch_gpu.py) and chip_smoke.py.
 The kernels are integer DP, so every comparison is exact: the errors that
@@ -129,22 +130,27 @@ def mutate_rates(rng: np.random.Generator, t: np.ndarray, sub: float,
 class OnDevice:
     """One job batch's tensors on a device, laid out as DevCallPooled lays
     them out, with each kernel and its plain version on them.  gaps is
-    (q, e, q2, e2) for extd; with splice = (noncan, junc_bonus) it is
-    (q, e, q2) and the DP kernel is exts, with the optional per-job
-    junction bytes juncs."""
+    (q, e, q2, e2): the DP kernel is extz when q == q2 and e == e2, else
+    extd; with splice = (noncan, junc_bonus) it is (q, e, q2) and the DP
+    kernel is exts, with the optional per-job junction bytes juncs."""
 
     def __init__(self, device, qpool, tpool, jobs, mat, gaps, flag: int,
                  end_bonus, splice=None, juncs=None):
         dev = torch.device(device)
         self.flag = flag
+        self.mat, self.gaps, self.splice = mat, tuple(gaps), splice
         self.spliced = splice is not None
-        self.dp_name = "exts" if self.spliced else "extd"
+        self.min_intron = 0
         if self.spliced:
+            self.dp_name = "exts"
             self.prof = K.exts_profile(mat, *gaps, *splice)
             self.min_intron = self.prof.min_intron
+        elif gaps[0] == gaps[2] and gaps[1] == gaps[3]:
+            self.dp_name = "extz"
+            self.prof = K.extz_profile(mat, *gaps[:2])
         else:
+            self.dp_name = "extd"
             self.prof = K.extd_profile(mat, *gaps)
-            self.min_intron = 0
         self.geo = K.job_geometry(jobs, unbanded=self.spliced)
         ja = jobs.copy()
         ja[:, 6] = self.geo.w_eff
@@ -154,21 +160,22 @@ class OnDevice:
         self.jobs = torch.from_numpy(ja).to(dev)
         self.off = torch.from_numpy(self.geo.dirs_off).to(dev)
         self.ncol = torch.from_numpy(self.geo.ncol).to(dev)
-        self.eb = torch.from_numpy(
-            np.broadcast_to(np.asarray(end_bonus, np.int64),
-                            (len(jobs),)).copy()).to(dev)
+        self.eb_np = np.broadcast_to(np.asarray(end_bonus, np.int64),
+                                     (len(jobs),)).copy()
+        self.eb = torch.from_numpy(self.eb_np).to(dev)
         self.n_ops = max(4, (int(self.geo.rows.max()) + 3) // 4 * 4)
+        self.juncs = [None] * len(jobs) if juncs is None else juncs
         self.jpool, self.joff = K.junction_pool(juncs, dev)
 
     def k1(self):
-        """The DP kernel: K1 (extd) or K3 (exts)."""
+        """The DP kernel: K1 (extd), K3 (exts) or K4 (extz)."""
         if self.spliced:
             return K.exts_dp(self.qpool, self.tpool, self.jobs, self.off,
                              self.ncol, self.geo.cap, self.prof, self.flag,
                              self.geo.dirs_bytes, self.jpool, self.joff)
-        return K.extd_dp(self.qpool, self.tpool, self.jobs, self.off,
-                         self.ncol, self.geo.cap, self.prof, self.flag,
-                         self.geo.dirs_bytes)
+        fn = K.extz_dp if self.dp_name == "extz" else K.extd_dp
+        return fn(self.qpool, self.tpool, self.jobs, self.off, self.ncol,
+                  self.geo.cap, self.prof, self.flag, self.geo.dirs_bytes)
 
     def k1_plain(self):
         B = self.jobs.shape[0]
@@ -180,8 +187,10 @@ class OnDevice:
                             self.ncol, self.prof, self.flag, res, dirs,
                             self.jpool, self.joff)
         else:
-            K.extd_dp_plain(self.qpool, self.tpool, self.jobs, self.off,
-                            self.ncol, self.prof, self.flag, res, dirs)
+            fn = (K.extz_dp_plain if self.dp_name == "extz"
+                  else K.extd_dp_plain)
+            fn(self.qpool, self.tpool, self.jobs, self.off, self.ncol,
+               self.prof, self.flag, res, dirs)
         return res, dirs
 
     def starts(self, res):
@@ -215,6 +224,21 @@ class OnDevice:
             blob, off, ln = native.rle_ops_blob(
                 K.pack_ops(ops).cpu().numpy(), f[:, 0], f[:, 1], rev)
         return [blob[o:o + n] for o, n in zip(off, ln)]
+
+    def native(self, native, i: int, qseq, tseq):
+        """The native oracle (native.extd, native.extz or native.exts) on
+        job i, whose query and target are given as the DP reads them."""
+        jb = self.jobs_np[i]
+        if self.spliced:
+            return native.exts(qseq, tseq, self.mat, *self.gaps,
+                               self.splice[0], int(jb[7]), self.splice[1],
+                               self.flag, junc=self.juncs[i])
+        w, zd, eb = int(jb[6]), int(jb[7]), int(self.eb_np[i])
+        if self.dp_name == "extz":
+            return native.extz(qseq, tseq, self.mat, *self.gaps[:2], w, zd,
+                               eb, self.flag)
+        return native.extd(qseq, tseq, self.mat, *self.gaps, w, zd, eb,
+                           self.flag)
 
 
 def _max_abs(a, b) -> int:

@@ -7,12 +7,14 @@ own threads.  This module pumps it: every extension-DP job the engine
 exports goes to extend/kernels.DevCallPooled (the CUDA kernels on a card,
 their plain PyTorch versions on the CPU), and the results go back over the
 engine's flat deliver boundary.  Spliced profiles (MM_F_SPLICE) send every
-job to the exts kernel, unbanded; the others to extd.
+job to the exts kernel, unbanded; single-cost profiles (q == q2 and
+e == e2) to extz; the others to extd.
 
-Jobs the engine keeps on the host itself (local-buffer jobs, jobs longer
-than 32768, and jobs whose result the oracle's own refusal guards or
---cap-sw-mem decide; wm_engine.cpp device_eligible) are counted in
-STATS["eng_host_dp_calls"].  Chains stay on the engine's scalar DP.
+Every DP job the engine makes is exported, the inversion rescue's included;
+only jobs whose result the oracle's own refusal guards or --cap-sw-mem
+decide stay on the engine's host DP (wm_engine.cpp device_eligible), and
+they are counted in STATS["eng_host_dp_calls"].  Chains stay on the
+engine's scalar DP.
 """
 from __future__ import annotations
 
@@ -86,11 +88,6 @@ def check_ported(opt: MapOptions, mi=None) -> None:
             raise NotImplementedError(
                 "spliced mapping with junction annotations (--junc-bed) is "
                 "not ported yet")
-        return
-    if opt.q == opt.q2 and opt.e == opt.e2:
-        raise NotImplementedError(
-            "single-cost gap profiles (q == q2 and e == e2) need the extz "
-            "kernel, not ported yet")
 
 
 def _opts_to_c(opt: MapOptions) -> native.EngOptsC:

@@ -25,6 +25,7 @@
 #include <cstring>
 #include <chrono>
 #include <deque>
+#include <iterator>
 #include <memory>
 #include <mutex>
 #include <vector>
@@ -1103,18 +1104,12 @@ static void adjust_minier(const EngIndex& mi, const uint8_t* const qseq0[2],
 
 namespace weng {
 
-// ---- device-eligibility ------------------------------------------------
-static const int MAX_DEV_LEN = 32768;
-
 struct ExtJob {
   int64_t qoff;  // offset into qpool (start of the forward-order window)
   int32_t qlen, qrev;
   int64_t toff;  // offset into ref codes
   int32_t tlen, trev;
   int32_t w, zdrop, end_bonus, ezflag, prof;
-  // local-buffer jobs (inversion rescue) carry pointers instead of offsets
-  const uint8_t* qptr = nullptr;
-  const uint8_t* tptr = nullptr;
 };
 
 // ---- engine --------------------------------------------------------------
@@ -1313,10 +1308,7 @@ class Engine {
   }
 
   bool device_eligible(const ExtJob& j) const {
-    if (j.qptr) return false;  // local-buffer job
-    if (j.qlen == 0 || j.tlen == 0 || j.qlen > MAX_DEV_LEN ||
-        j.tlen > MAX_DEV_LEN)
-      return false;
+    if (j.qlen == 0 || j.tlen == 0) return false;
     const EngOpts& o = opts[j.prof];
     // the oracle's own refusal guards decide results, not placement: jobs
     // that wm_exts refuses, and --cap-sw-mem's dummy drop, stay on the host
@@ -1352,28 +1344,17 @@ class Engine {
     }
     // materialize operands (JobSeq semantics: reversed view when rev)
     std::vector<uint8_t> qbuf, tbuf;
-    const uint8_t* qp;
-    const uint8_t* tp;
-    if (j.qptr) {
-      qp = j.qptr;
-      tp = j.tptr;
-    } else {
-      const uint8_t* qsrc = qpool + j.qoff;
-      const uint8_t* tsrc = mi.codes + j.toff;
-      if (j.qrev) {
-        qbuf.resize(j.qlen);
-        for (int i = 0; i < j.qlen; ++i) qbuf[i] = qsrc[j.qlen - 1 - i];
-        qp = qbuf.data();
-      } else {
-        qp = qsrc;
-      }
-      if (j.trev) {
-        tbuf.resize(j.tlen);
-        for (int i = 0; i < j.tlen; ++i) tbuf[i] = tsrc[j.tlen - 1 - i];
-        tp = tbuf.data();
-      } else {
-        tp = tsrc;
-      }
+    const uint8_t* qp = qpool + j.qoff;
+    const uint8_t* tp = mi.codes + j.toff;
+    if (j.qrev) {
+      qbuf.assign(std::make_reverse_iterator(qp + j.qlen),
+                  std::make_reverse_iterator(qp));
+      qp = qbuf.data();
+    }
+    if (j.trev) {
+      tbuf.assign(std::make_reverse_iterator(tp + j.tlen),
+                  std::make_reverse_iterator(tp));
+      tp = tbuf.data();
     }
     if (o.flag & MM_F_SPLICE)
       wm_exts_fast(j.qlen, qp, j.tlen, tp, 5, mats[j.prof], (int8_t)o.q,
@@ -1964,11 +1945,8 @@ static bool align1_inv(Ctx& c, int qlen, const uint8_t* const q0[2],
   const int8_t* mat = c.mat();
   int64_t rid_off = mi.seq_off[r1.rid];
   const uint8_t* tseq = mi.codes + rid_off + r1.re;
-  std::vector<uint8_t> qseq(ql);
-  if (r1.rev)
-    std::memcpy(qseq.data(), q0[0] + r2.qe, ql);
-  else
-    std::memcpy(qseq.data(), q0[1] + (qlen - r2.qs), ql);
+  // the query is a slice of a read strand in the read pool
+  const uint8_t* qseq = r1.rev ? q0[0] + r2.qe : q0[1] + (qlen - r2.qs);
   std::vector<uint8_t> qr(ql), tr(tl);
   for (int64_t i = 0; i < ql; ++i) qr[i] = qseq[ql - 1 - i];
   for (int64_t i = 0; i < tl; ++i) tr[i] = tseq[tl - 1 - i];
@@ -1978,20 +1956,22 @@ static bool align1_inv(Ctx& c, int qlen, const uint8_t* const q0[2],
   if (sc < opt.min_dp_max) return false;
   q_off = (int)(ql - (q_off + 1));
   t_off = (int)(tl - (t_off + 1));
-  ExtJob j;
-  j.qptr = qseq.data() + q_off;
-  j.tptr = tseq + t_off;
+  // an ordinary pool job, exported to the device path like every other
+  std::vector<ExtJob> g(1);
+  ExtJob& j = g[0];
+  j.qoff = (qseq - c.eng->qpool) + q_off;
   j.qlen = (int32_t)(ql - q_off);
+  j.toff = rid_off + r1.re + t_off;
   j.tlen = (int32_t)(tl - t_off);
   j.qrev = j.trev = 0;
-  j.qoff = j.toff = 0;
   j.w = (int)((double)opt.bw * 1.5);
   j.zdrop = opt.zdrop;
   j.end_bonus = -1;
   j.ezflag = WM_EZ_EXTZ_ONLY;
   j.prof = c.prof;
-  wm_ext_result ez;
-  c.eng->run_host(j, &ez);
+  std::vector<wm_ext_result> ezs;
+  c.eng->submit(g, ezs);
+  wm_ext_result& ez = ezs[0];
   if (ez.n_cigar == 0) {
     free_ez(ez);
     return false;
@@ -2022,7 +2002,7 @@ static bool align1_inv(Ctx& c, int qlen, const uint8_t* const q0[2],
     io.rs = r_inv.rs;
     io.re = r_inv.re;
     io.rev = r_inv.rev ? 1 : 0;
-    wm_update_extra(qseq.data() + q_off, tseq + t_off, r_inv.p->cigar.data(),
+    wm_update_extra(qseq + q_off, tseq + t_off, r_inv.p->cigar.data(),
                     (int32_t)r_inv.p->cigar.size(), mat, opt.q, opt.e,
                     (opt.flag & MM_F_EQX) ? 1 : 0, &io);
     r_inv.qs = io.qs;
