@@ -17,8 +17,10 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      0x1C2 0x101 0x0, splice:hq at 0x508 0x600 0x318 0x1C2, and one long
      unbanded job (K3's ring in global scratch);
      results and CIGARs must be exactly equal to the plain versions and to
-     native.extd / native.extz / native.exts on a sample; kernel times from
-     CUDA events;
+     native.extd / native.extz / native.exts on a sample (K3's checks run
+     in a second process, beside K1's and K4's: the plain versions are
+     bound by the host's Python); then kernel times from CUDA events, with
+     the card to themselves;
   3. the port's CLI on the golden corpora (tests/data/golden): --sv-off
      byte-equal to golden_svoff.sam, sv-aware equal to golden_svon.sam up
      to the reference's uninitialised rep_len fields (at most 6 lines);
@@ -31,16 +33,27 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      genes and 5000 reads of their transcripts from both strands, made
      with numpy (seed 20261016); reads/s, STATS and launch counts;
   6. single-cost mapping (map-ont SV-aware with -O 4,4 -E 2,2 -a) of phase
-     4's corpus: every DP job through K4, none through K1.
+     4's corpus: every DP job through K4, none through K1;
+  7. the cost probes P1-P3 (csrc/probes.cu): every probe kernel exactly
+     equal to its plain version at a small shape (B=16, Wb=128, ROWS=32,
+     KR=3, numpy seed 20261016: every P1 body, every P2 case, P3 levels
+     0-6 under each dirs mode and the int32 state), and every case again
+     at the shape it is timed at (P3 with 8 jobs and ~320 rows), P3 level
+     6 once more at the full shape; then the P3 ladder (and again at 288
+     rows, where no job stops early) and its variants, the P2 cases and
+     the P1 bodies timed through their entry points, beside K1's row time
+     from phase 2.
 Phases 4-6 keep no DP job on the engine's host DP (eng_host_dp_calls 0).
 It prints a "kernels" JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -117,19 +130,6 @@ def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True)
 
 
-def cuda_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    z = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    z.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(z) / reps
-
-
 def band_cells(jobs_np, res_np):
     """Live band cells (wm_extd's [st0, en0] per computed row) and
     rounded-band cells (direction bytes written) this batch's data needs;
@@ -153,9 +153,9 @@ def band_cells(jobs_np, res_np):
 
 def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
            n_ragged=48):
-    """K1 and K4 against their plain versions at the main path's shape (B
-    jobs of length n, band w) and on a ragged batch; returns the K1, K2 and
-    K4 records, K1 and K4 timed on the same batch."""
+    """K1, K4 and K2 against their plain versions at the main path's shape
+    (B jobs of length n, band w) and on a ragged batch; returns the largest
+    errors and the main batch, for phase2_times."""
     rng = np.random.default_rng(20261016)
     main = check.random_jobs(rng, [n] * B, w, 400)
     ragged_lens = rng.integers(50, 1500, n_ragged - 1)
@@ -209,11 +209,17 @@ def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
         log(f"[phase 2] {name:6s} {dp} a={prof[0]} q={prof[2]} "
             f"flag={flag:#04x} B={len(jobs)}: {dp}, K2 == plain on every "
             f"job; == native.{dp} on a sample")
+    return max_err, main
 
-    # times at the main path's shape (map-ont, the bench's flag 0x18); K4
-    # on the same batch under -O 4,4 -E 2,2
+
+def phase2_times(K, check, torch, gen_simple_mat, max_err, main):
+    """K1 and K2, and K4, timed at the main path's shape (map-ont, the
+    bench's flag 0x18; K4 on the same batch under -O 4,4 -E 2,2); returns
+    their records and K1's launch there (ms, rows, jobs, threads, blocks per
+    SM) for phase 7."""
     qp, tp, jobs, _, _ = main
-    rec = []
+    shape = f"B={len(jobs)} len={jobs[0, 4]} w={jobs[0, 6]} flag=0x18"
+    rec, k1 = [], None
     for prof, ops, names in (
             (MAP_ONT, OPS_PER_CELL, (
                 ("extd_dp", "extd.cu",
@@ -226,26 +232,34 @@ def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
         c = check.OnDevice(DEVICE, qp, tp, jobs,
                            gen_simple_mat(prof[0], prof[1], 1), prof[2:],
                            0x18, 0)
-        rec += time_kernels(K, torch, c, max_err, ops, names,
-                            f"B={B} len={n} w={w} flag=0x18")
-    return rec
+        rec += time_kernels(K, torch, c, max_err, ops, names, shape)
+        if k1 is None:
+            # K1's launch at this batch, for its row time beside P3's
+            threads, blocks = K.extd_occupancy(c.geo.cap, 0x18)
+            k1 = {"ms": rec[0]["ms"], "rows": int(c.geo.rows.max()),
+                  "B": len(jobs), "threads": threads,
+                  "blocks_per_sm": blocks}
+    return rec, k1
 
 
 def time_kernels(K, torch, c, max_err, ops_per_cell, names, shape):
     """CUDA-event times of the DP kernel and, when names holds a second
     record, K2 on c's batch; their plain versions' host-clock times, and
     each one's bound from this batch's data; returns one record per name."""
+    from winnowmap_tpu_torch.tools import time_ms
+
+    dev = torch.device(DEVICE)
     saved = dict(K.LAUNCHES)
     res, dirs = c.k1()
     start = c.starts(res)
-    k1_ms = cuda_ms(torch, c.k1, 5)
+    k1_ms = time_ms(c.k1, dev, 5)
     t0 = time.perf_counter()
     c.k1_plain()
     torch.cuda.synchronize()
     k1_plain_ms = (time.perf_counter() - t0) * 1e3
     with_k2 = len(names) > 1
     if with_k2:
-        k2_ms = cuda_ms(torch, lambda: c.k2(dirs, start), 5)
+        k2_ms = time_ms(lambda: c.k2(dirs, start), dev, 5)
         t0 = time.perf_counter()
         c.k2_plain(dirs, start)
         torch.cuda.synchronize()
@@ -290,10 +304,19 @@ def time_kernels(K, torch, c, max_err, ops_per_cell, names, shape):
     return rec
 
 
-def phase2_splice(K, check, native, torch, gen_simple_mat, B=256):
+def phase2_splice(B=256):
     """K3 and K2's spliced form against their plain versions on B spliced
     jobs per flag and profile, and a long unbanded job against native.exts;
-    returns the kernel records, timed at the splice path's flag."""
+    returns the largest errors.  Runs in a second process while phase2
+    checks K1 and K4: the plain versions keep a host core busy and leave
+    the card idle, so the two overlap."""
+    import torch
+
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.extend import check
+    from winnowmap_tpu_torch.extend import kernels as K
+    from winnowmap_tpu_torch.map.align import gen_simple_mat
+
     rng = np.random.default_rng(20261016)
     batches = {rev: check.spliced_jobs(rng, B, rev=rev)
                for rev in (False, True)}
@@ -354,9 +377,15 @@ def phase2_splice(K, check, native, torch, gen_simple_mat, B=256):
         fail("the long unbanded job differs from native.exts")
     log(f"[phase 2] long spliced job {jobs[0, 1]} x {jobs[0, 4]} (ring "
         f"{c.geo.cap} lanes, global scratch) == native.exts")
+    return max_err
 
-    # timed as the engine calls it: no junction bytes
-    qp, tp, jobs, _, _, _ = batches[False]
+
+def phase2_splice_times(K, check, torch, gen_simple_mat, max_err, B=256):
+    """K3 and K2's spliced form timed as the engine calls them (flag 0x508,
+    no junction bytes) on phase2_splice's first batch; returns their
+    records."""
+    rng = np.random.default_rng(20261016)
+    qp, tp, jobs, _, _, _ = check.spliced_jobs(rng, B)
     c = check.OnDevice(DEVICE, qp, tp, jobs, gen_simple_mat(1, 2, 1),
                        SPLICE[2:5], 0x508, 0, splice=SPLICE[5:])
     return time_kernels(K, torch, c, max_err, OPS_PER_CELL_EXTS, (
@@ -673,6 +702,173 @@ def phase6(torch, K, options, batch, corpus):
     return launches
 
 
+# --------------------------------------------------------------------------
+# the cost probes
+# --------------------------------------------------------------------------
+
+# Integer operations per computed band cell of P3 level 6, counted from the
+# Pallas probe (tests/tools/probe_core.py:88-168): score 2 (compare,
+# select), the one-hot boundary 2, candidates a b a2 b2 4, max and
+# direction 12, clamp 1, u v 2, z-q z-q2 2, an bn a2n b2n 4, continue
+# tests 4, x y x2 y2 8 (select, subtract), direction bits 4; and per
+# computed row the H0 walk, 10 (two range tests, max, add, compare, two
+# selects, compare, subtract, compare).
+OPS_PER_CELL_P3 = 45
+OPS_PER_ROW_P3 = 10
+# the probes' default shape (B, Wb, ROWS, KR): the TPU scripts' own, and
+# about K1's phase-2 shape (512 jobs of 1000 bp at w = 500, 1,999 rows)
+PROBE_SHAPE = (512, 640, 32, 63)
+# the ladder once more at 9 steps (288 rows): at the timed inputs the first
+# job sets done at row 293 (level 6), and the band leaves the 640-lane
+# window near row 1640, so every level computes every row of this depth
+# and its time per row compares level with level
+PROBE_SHORT_KR = 9
+
+
+def probe_record(name, rep, launches, err, ms, plain_ms, nbytes, ops):
+    tb, to = nbytes / HBM_BPS * 1e3, ops / INT32_OPS * 1e3
+    return {"name": name, "route": "cuda",
+            "source": "winnowmap_tpu_torch/csrc/probes.cu", "replaces": rep,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": None}
+
+
+def host_ms(torch, fn):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase7(torch, k1):
+    """P1-P3 against their plain versions (every case at a small shape and
+    at the shape it is timed at, and P3 level 6 at the full shape), then
+    timed through their entry points; returns their records."""
+    from winnowmap_tpu_torch import tools
+    from winnowmap_tpu_torch.tools import check as PC
+    from winnowmap_tpu_torch.tools import probe_bisect as P1
+    from winnowmap_tpu_torch.tools import probe_core as P3
+    from winnowmap_tpu_torch.tools import probe_l0 as P2
+
+    dev = torch.device(DEVICE)
+    err = PC.check_all(dev)
+    torch.cuda.synchronize()
+    if any(err.values()):
+        fail(f"probe kernels != plain at the small shape: {err}")
+    log(f"[phase 7] B={PC.B} Wb={PC.WB} ROWS={PC.ROWS} KR={PC.KR}: "
+        f"{len(PC.core_cases())} P3 cases, {len(P2.cases)} P2 cases, "
+        f"{len(P1.variants)} P1 bodies: kernel == plain (res, state, "
+        f"defined dirs)")
+    timed = PC.check_timed(dev)
+    torch.cuda.synchronize()
+    if any(timed.values()):
+        fail(f"probe kernels != plain at the timed shapes: {timed}")
+    err = {k: max(v, timed[k]) for k, v in err.items()}
+    log(f"[phase 7] timed shapes, kernel == plain: "
+        f"{len(PC.timed_core_cases())} P3 levels and variants at "
+        f"Wb={PC.TIMED_WB} and their ROWS (B={PC.CORE_B}, "
+        f"~{PC.CORE_ROWS} rows); every P2 case at B={PC.TIMED_B} "
+        f"Wb={PC.TIMED_WB} KR=63/32/16; every P1 body at B={PC.TIMED_B} "
+        f"Wb={PC.TIMED_WB} ROWS={PC.TIMED_ROWS} KR={PC.TIMED_KR['bisect']}")
+    Bf, Wb, ROWS, KR = PROBE_SHAPE
+    qbuf, qlen = PC.small_inputs(dev, B=Bf, Wb=Wb, ROWS=ROWS, KR=KR)
+    err["probe_core"] = max(err["probe_core"], PC.check_core(
+        qbuf, qlen, 6, "u8", False, Wb=Wb, ROWS=ROWS, KR=KR))
+    torch.cuda.synchronize()
+    if err["probe_core"]:
+        fail(f"P3 level 6 != plain at B={Bf} Wb={Wb} KR*ROWS={KR * ROWS}")
+    log(f"[phase 7] P3 level 6 u8 at B={Bf} Wb={Wb} ROWS={ROWS} KR={KR} "
+        f"(half the jobs the timed inputs): kernel == plain")
+    # the plain versions at the timed inputs (qbuf zeros, qlen 1000)
+    zq = torch.zeros((Bf, Wb + 384), dtype=torch.uint8, device=dev)
+    qlen = PC.timed_qlen(dev)
+    plain = {
+        "probe_core": host_ms(torch, lambda: P3.core_plain(
+            6, zq, qlen, Wb=Wb, ROWS=ROWS, KR=KR)),
+        "probe_l0": host_ms(torch, lambda: P2.l0_plain(qlen, Wb=Wb, KR=KR)),
+        "probe_bisect": host_ms(torch, lambda: P1.bisect_plain(
+            P1.dirs_store, qlen, Wb=Wb, ROWS=ROWS, KR=16)),
+    }
+
+    # comparison launches are not counted
+    tools.reset_launches()
+    ladder = [P3.run_level(lv, device=DEVICE) for lv in P3.levels]
+    short = [P3.run_level(lv, KR=PROBE_SHORT_KR, device=DEVICE)
+             for lv in P3.levels]
+    variants = [(name, P3.run_level(**kv, device=DEVICE))
+                for name, kv in P3.variants]
+    l0 = {name: P2.run(**kv, device=DEVICE) for name, kv in P2.cases}
+    bis = {tag: P1.run(tag, body, **kv, device=DEVICE)
+           for tag, body, kv in P1.variants}
+    torch.cuda.synchronize()
+    launches = dict(tools.LAUNCHES)
+    log(f"[phase 7] launches {launches}")
+    if not all(launches.values()):
+        fail(f"a probe kernel was not launched: {launches}")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k1_waves = -(-k1["B"] // (k1["blocks_per_sm"] * sms))
+    k1_ns = k1["ms"] * 1e6 / (k1["rows"] * k1_waves)
+    log(f"[phase 7] K1 (phase 2, B={k1['B']}, {k1['threads']} threads, "
+        f"{k1['blocks_per_sm']} blocks/SM, {k1_waves} wave(s)): "
+        f"{k1['ms']:.3f} ms over {k1['rows']} rows = {k1_ns:.1f} ns/row")
+    prev = None
+    for o in ladder:
+        add = ("" if prev is None else
+               f", {o['ns_per_active_row'] - prev:+.1f} over the level below")
+        log(f"[phase 7] P3 L{o['level']} {P3.levels[o['level']].strip()}: "
+            f"{o['ms']:.3f} ms, {o['gcells_padded']:.2f} Gcells/s padded, "
+            f"{o['gcells_band']:.2f} band, {o['ns_per_row']:.1f} ns/row, "
+            f"{o['ns_per_active_row']:.1f} ns/active row "
+            f"({o['rows_active']} rows{add}); K1 {k1_ns:.1f} ns/row")
+        prev = o["ns_per_active_row"]
+    prev = None
+    for o in short:
+        add = ("" if prev is None else
+               f", {o['ns_per_row'] - prev:+.1f} over the level below")
+        log(f"[phase 7] P3 L{o['level']} at {o['KR'] * o['ROWS']} rows: "
+            f"{o['ms']:.4f} ms, {o['gcells_band']:.2f} Gcells/s band, "
+            f"{o['ns_per_row']:.1f} ns/row ({o['rows_active']} active{add})"
+            f"; K1 {k1_ns:.1f} ns/row")
+        prev = o["ns_per_row"]
+    for name, o in variants:
+        log(f"[phase 7] P3 {name.strip()}: {o['ms']:.3f} ms, "
+            f"{o['gcells_padded']:.2f} Gcells/s padded, {o['gcells_band']:.2f}"
+            f" band, {o['ns_per_active_row']:.1f} ns/active row")
+    for name, o in l0.items():
+        log(f"[phase 7] P2 {name.strip()}: {o['ms']:.4f} ms, "
+            f"{o['gcells_padded']:.2f} Gcells/s padded")
+    log("[phase 7] JSON " + json.dumps({
+        "k1": {**k1, "waves": k1_waves, "ns_per_row": k1_ns},
+        "ladder": ladder, "short": short, "variants": dict(variants),
+        "l0": l0,
+        "bisect": bis}))
+
+    top = ladder[6]
+    core_bytes = (Bf * (Wb + 384) + 4 * Bf + KR * ROWS * Bf * Wb
+                  + 7 * Bf * Wb + 64 * Bf)
+    core_ops = (top["cells_band"] * OPS_PER_CELL_P3
+                + top["rows_active"] * Bf * OPS_PER_ROW_P3)
+    l0_ms = l0[P2.cases[4][0]]["ms"]  # 7 state arrays (=L0)
+    ds = bis[P1.variants[4][0]]["ms"]  # 32x dirs row store, KR 16
+    return [
+        probe_record("probe_bisect", "tests/tools/probe_bisect.py:48",
+                     launches["probe_bisect"], err["probe_bisect"], ds,
+                     plain["probe_bisect"],
+                     16 * 32 * Bf * Wb + 7 * Bf * Wb + 64 * Bf,
+                     16 * 32 * Bf * Wb),
+        probe_record("probe_l0", "tests/tools/probe_l0.py:55",
+                     launches["probe_l0"], err["probe_l0"], l0_ms,
+                     plain["probe_l0"], 4 * Bf + 7 * Bf * Wb + 64 * Bf,
+                     KR * Bf * (Wb + 16)),
+        probe_record("probe_core", "tests/tools/probe_core.py:222",
+                     launches["probe_core"], err["probe_core"], top["ms"],
+                     plain["probe_core"], core_bytes, core_ops),
+    ]
+
+
 def main():
     import torch
 
@@ -699,18 +895,30 @@ def main():
     native.lib()
     log(f"[phase 1] native library: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    _build.build(_build.SOURCES + _build.PROBE_SOURCES)
     _build.load()
-    log(f"[phase 1] CUDA kernels: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc, in parallel)")
+    _build.load_probes()
+    log(f"[phase 1] CUDA kernels and probes: {time.perf_counter() - t0:.1f} "
+        f"s (nvcc, in parallel)")
     for src, info in _build.BUILD_INFO["ptxas"].items():
         log(f"[phase 1] {src}: " + " | ".join(info.splitlines()[-2:]))
 
+    # the checks of K1/K4 here and of K3 in a second process at once, then
+    # the timings alone on the card
     t0 = time.perf_counter()
-    records = phase2(K, check, native, torch, gen_simple_mat)
-    log(f"[phase 2] K1, K4: {time.perf_counter() - t0:.1f} s")
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        spliced = pool.submit(phase2_splice)
+        err, main_batch = phase2(K, check, native, torch, gen_simple_mat)
+        log(f"[phase 2] K1, K4 checks: {time.perf_counter() - t0:.1f} s")
+        s_err = spliced.result()
+    log(f"[phase 2] K3 checks (second process): "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    records += phase2_splice(K, check, native, torch, gen_simple_mat)
-    log(f"[phase 2] K3: {time.perf_counter() - t0:.1f} s")
+    records, k1 = phase2_times(K, check, torch, gen_simple_mat, err,
+                               main_batch)
+    records += phase2_splice_times(K, check, torch, gen_simple_mat, s_err)
+    log(f"[phase 2] times: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase3(cli)
     ont, corpus = phase4(torch, K, build, fastx, options, batch, seqcode)
@@ -727,6 +935,9 @@ def main():
     for rec, n in zip(records, (ont["extd"], ont["traceback"], ext["extz"],
                                 spl["exts"], spl["traceback"])):
         rec["launches"] = n
+    t0 = time.perf_counter()
+    records += phase7(torch, k1)
+    log(f"[phase 7] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: K1 (csrc/extd.cu), K3
-(csrc/exts.cu), K4 (csrc/extz.cu) and K2 (csrc/traceback.cu, plain and
-spliced) against their plain PyTorch versions on the same device tensors,
+(csrc/exts.cu), K4 (csrc/extz.cu), K2 (csrc/traceback.cu, plain and
+spliced) and the cost probes P1-P3 (csrc/probes.cu) against their plain
+PyTorch versions on the same device tensors,
 the pooled call on the card against the CPU, and map_batch on the card
 against the CPU, map-ont, single-cost and spliced.  Integer DP: every
 comparison is exact.
@@ -19,12 +20,15 @@ import numpy as np
 import pytest
 import torch
 
-from winnowmap_tpu_torch import native
+from winnowmap_tpu_torch import native, tools
 from winnowmap_tpu_torch.extend import _build
 from winnowmap_tpu_torch.extend import check
 from winnowmap_tpu_torch.extend import kernels as K
 from winnowmap_tpu_torch.index.build import MinimizerIndex
 from winnowmap_tpu_torch.map.align import gen_simple_mat
+from winnowmap_tpu_torch.tools import check as PC
+from winnowmap_tpu_torch.tools import probe_bisect as P1
+from winnowmap_tpu_torch.tools import probe_l0 as P2
 
 pytestmark = pytest.mark.gpu
 
@@ -433,3 +437,49 @@ def test_long_and_inversion_jobs_reach_the_card(cuda, monkeypatch):
     assert len(inv) == 1 and abs(inv[0].rs - 24000) < 8
     assert ((jobs[:, 0] >= len(reads[0]) * 2 + len(reads[1]))
             & (jobs[:, 3] == inv[0].rs)).any()
+
+
+# the cost probes P1-P3 (csrc/probes.cu) against their plain versions at
+# the small shape of chip_smoke.py's phase 7
+
+
+@pytest.mark.parametrize("level,dirs_mode,s32", PC.core_cases(),
+                         ids=[f"L{c[0]}-{c[1]}{'-s32' * c[2]}"
+                              for c in PC.core_cases()])
+def test_probe_core_kernel_matches_plain(cuda, level, dirs_mode, s32):
+    qbuf, qlen = PC.small_inputs(cuda)
+    before = tools.LAUNCHES["probe_core"]
+    assert PC.check_core(qbuf, qlen, level, dirs_mode, s32) == 0
+    assert tools.LAUNCHES["probe_core"] == before + 1
+
+
+def test_probe_l0_kernel_matches_plain(cuda):
+    _, qlen = PC.small_inputs(cuda)
+    assert max(PC.check_l0(qlen, kv) for _, kv in P2.cases) == 0
+
+
+def test_probe_bisect_kernel_matches_plain(cuda):
+    _, qlen = PC.small_inputs(cuda)
+    assert max(PC.check_bisect(qlen, body, kv)
+               for _, body, kv in P1.variants) == 0
+
+
+# the same at the shapes the entry points time (P3: every level and
+# variant at Wb 640 and its ROWS, 8 jobs, ~320 rows)
+
+
+@pytest.mark.parametrize("level,dirs_mode,s32,rows",
+                         [c[1:] for c in PC.timed_core_cases()],
+                         ids=[c[0] for c in PC.timed_core_cases()])
+def test_probe_core_kernel_matches_plain_at_timed_shape(cuda, level,
+                                                        dirs_mode, s32, rows):
+    assert PC.check_timed_core(cuda, level, dirs_mode, s32, rows) == 0
+
+
+def test_probe_l0_kernel_matches_plain_at_timed_shapes(cuda):
+    assert max(PC.check_timed_l0(cuda, kv) for _, kv in P2.cases) == 0
+
+
+def test_probe_bisect_kernel_matches_plain_at_timed_shape(cuda):
+    assert max(PC.check_timed_bisect(cuda, body, kv)
+               for _, body, kv in P1.variants) == 0

@@ -21,6 +21,21 @@ extern "C" int wm_extd_launch(const void* qpool, const void* tpool,
                            stream);
 }
 
+// Blocks of K1 one SM holds when wm_extd_launch is given the same cap,
+// use_smem, threads and flag: the waves a batch takes.
+extern "C" int wm_extd_occupancy(int cap, int use_smem, int threads,
+                                 int flag, int* blocks) {
+  const size_t shm = use_smem ? (size_t)ring_bytes(cap, flag, kExtd) : 0;
+  cudaError_t err = cudaSuccess;
+  if (shm > 48 * 1024)
+    err = cudaFuncSetAttribute(ext_kernel<kExtd>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)shm);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ext_kernel<kExtd>, threads, shm);
+}
+
 extern "C" const char* wm_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

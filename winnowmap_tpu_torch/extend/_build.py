@@ -20,6 +20,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = ("extd.cu", "exts.cu", "extz.cu", "traceback.cu")
+# the cost probes (tools/), loaded on their own so that mapping never
+# waits on their build
+PROBE_SOURCES = ("probes.cu",)
 # headers the sources include: a change to one rebuilds every source
 HEADERS = ("ext_common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -59,13 +62,13 @@ def _target(src: str, nvcc_ver: str) -> Path:
     return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
+def build(sources=SOURCES) -> dict:
     """Compile every source not yet built (one nvcc each, in parallel);
     returns {source: path}."""
     nvcc = nvcc_path()
     ver = _nvcc_version(nvcc)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {s: _target(s, ver) for s in SOURCES}
+    targets = {s: _target(s, ver) for s in sources}
     procs = {}
     t0 = time.perf_counter()
     for src, out in targets.items():
@@ -105,6 +108,9 @@ def load():
                                         ci, ci, ci, ci, ci, ci, ci, ci, ci,
                                         ci, ci, ci, ci, vp]
         extd.wm_extd_launch.restype = ci
+        extd.wm_extd_occupancy.argtypes = [ci, ci, ci, ci,
+                                           ctypes.POINTER(ci)]
+        extd.wm_extd_occupancy.restype = ci
         extd.wm_cuda_error_string.argtypes = [ci]
         extd.wm_cuda_error_string.restype = ctypes.c_char_p
         exts.wm_exts_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp,
@@ -119,6 +125,7 @@ def load():
 
         class _Api:
             wm_extd_launch = extd.wm_extd_launch
+            wm_extd_occupancy = extd.wm_extd_occupancy
             wm_exts_launch = exts.wm_exts_launch
             wm_extz_launch = extz.wm_extz_launch
             wm_traceback_launch = tb.wm_traceback_launch
@@ -131,3 +138,30 @@ def load():
 
 def error_string(rc: int) -> str:
     return load().wm_cuda_error_string(rc).decode()
+
+
+def load_probes() -> ctypes.CDLL:
+    """The cost probes' library (csrc/probes.cu): P1-P3's C entry points."""
+    with _lock:
+        if "probes" in _libs:
+            return _libs["probes"]
+        lib = ctypes.CDLL(str(build(PROBE_SOURCES)["probes.cu"]))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.wm_probe_core_launch.argtypes = ([ci, ci, ci, vp, ci, vp, vp, vp,
+                                              vp, vp] + [ci] * 4 + [vp])
+        lib.wm_probe_core_occupancy.argtypes = [ci] * 4 + [
+            ctypes.POINTER(ci)]
+        lib.wm_probe_l0_launch.argtypes = [vp, vp] + [ci] * 6 + [vp]
+        lib.wm_probe_bisect_launch.argtypes = [ci, vp, vp, vp] + [ci] * 4 + [
+            vp]
+        for fn in (lib.wm_probe_core_launch, lib.wm_probe_core_occupancy,
+                   lib.wm_probe_l0_launch, lib.wm_probe_bisect_launch):
+            fn.restype = ci
+        lib.wm_probe_error_string.argtypes = [ci]
+        lib.wm_probe_error_string.restype = ctypes.c_char_p
+        _libs["probes"] = lib
+        return lib
+
+
+def probe_error_string(rc: int) -> str:
+    return load_probes().wm_probe_error_string(rc).decode()

@@ -665,20 +665,43 @@ def _dp_outputs(jobs, flag: int, dirs_bytes: int):
     return res, dirs
 
 
-def _ring_scratch(jobs, cap: int, ring_rows: int, flag: int):
-    """Where a DP kernel keeps its band ring: ring_rows int8 rows of cap
-    lanes (plus an int32 H row for the exact max) in shared memory when
-    they fit, else in a global scratch slot per block.  Returns (scratch,
-    use_smem, threads)."""
+def _ring_geometry(cap: int, ring_rows: int, flag: int):
+    """A DP kernel's band ring: ring_rows int8 rows of cap lanes (plus an
+    int32 H row for the exact max), in shared memory when it fits, else in
+    a global scratch slot per block.  Returns (ring bytes, use_smem,
+    threads a block)."""
     from . import _build
 
+    ring = cap * (ring_rows + (0 if flag & EZ_APPROX_MAX else 4))
+    return ring, ring <= _build.EXTD_SMEM_MAX, 128 if cap <= 2048 else 256
+
+
+def _ring_scratch(jobs, cap: int, ring_rows: int, flag: int):
+    """The ring's global scratch (one byte when it lies in shared memory).
+    Returns (scratch, use_smem, threads)."""
     if jobs.dtype != torch.int64 or jobs.shape[1:] != (8,):
         raise ValueError("jobs must be (B, 8) int64")
-    ring = cap * (ring_rows + (0 if flag & EZ_APPROX_MAX else 4))
-    use_smem = ring <= _build.EXTD_SMEM_MAX
+    ring, use_smem, threads = _ring_geometry(cap, ring_rows, flag)
     scratch = torch.empty(1 if use_smem else jobs.shape[0] * ring,
                           dtype=torch.uint8, device=jobs.device)
-    return scratch, use_smem, 128 if cap <= 2048 else 256
+    return scratch, use_smem, threads
+
+
+def extd_occupancy(cap: int, flag: int) -> tuple[int, int]:
+    """K1's launch at (cap, flag) as extd_dp makes it: (threads a block,
+    blocks one SM holds at once)."""
+    import ctypes
+
+    from . import _build
+
+    _, use_smem, threads = _ring_geometry(cap, 7, flag)
+    n = ctypes.c_int(0)
+    rc = _build.load().wm_extd_occupancy(cap, int(use_smem), threads, flag,
+                                         ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"extd occupancy query failed: cudaError {rc} "
+                           f"({_build.error_string(rc)})")
+    return threads, n.value
 
 
 def extd_dp(qpool, tpool, jobs, dirs_off, ncol, cap, prof: ExtdProfile,
