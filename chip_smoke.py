@@ -15,10 +15,13 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      1-3 canonical introns of 100-1500 bases, junction bytes on a third),
      splice profile at flags 0x508 (the splice path's) 0x500 0x600 0x318
      0x1C2 0x101 0x0, splice:hq at 0x508 0x600 0x318 0x1C2, and one long
-     unbanded job (K3's ring in global scratch);
+     unbanded job (K3's large-band path, its slot state in global
+     scratch); and K3's other launches (256 threads x 1 slot, 512 x 1,
+     512 x 4, the slot state in shared memory) on batches of 32 spliced
+     jobs whose widest band takes each, at flags 0x508 and 0x5C2;
      results and CIGARs must be exactly equal to the plain versions and to
      native.extd / native.extz / native.exts on a sample (K3's checks run
-     in a second process, beside K1's and K4's: the plain versions are
+     in two more processes, beside K1's and K4's: the plain versions are
      bound by the host's Python); then kernel times from CUDA events, with
      the card to themselves;
   3. the port's CLI on the golden corpora (tests/data/golden): --sv-off
@@ -31,7 +34,12 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      reads/s, STATS and kernel launch counts of the run;
   5. spliced mapping (-x splice -a) at a real size: a 4 Mbp genome with 400
      genes and 5000 reads of their transcripts from both strands, made
-     with numpy (seed 20261016); reads/s, STATS and launch counts;
+     with numpy (seed 20261016); reads/s, STATS and launch counts; every
+     K3 and traceback launch timed by CUDA events recorded around its C
+     launch entry (their summed device time and share of the wall, K3's
+     launches by flag and by launch, jobs and longest rows per call);
+     then, for each launch K3 took, one of its calls run again through
+     K3 and K2 and through their plain versions, exactly equal;
   6. single-cost mapping (map-ont SV-aware with -O 4,4 -E 2,2 -a) of phase
      4's corpus: every DP job through K4, none through K1;
   7. the cost probes P1-P3 (csrc/probes.cu): every probe kernel exactly
@@ -357,8 +365,8 @@ def phase2_splice(B=256):
                 f"== plain on every job; == native.exts on a sample")
     if n_intron == 0:
         fail("no sampled spliced job has an intron")
-    # one long job: shorter side above 8192 lanes, K3's ring in global
-    # scratch
+    # one long job: shorter side above 8192 lanes, K3's slot state in
+    # global scratch (the large-band path)
     a, b, q, e, q2, noncan, jb = SPLICE
     mat = gen_simple_mat(a, b, 1)
     qp, tp, jobs, qs, ts, _ = check.spliced_jobs(
@@ -375,8 +383,55 @@ def phase2_splice(B=256):
                                h.mqe, h.mqe_t, h.mte, h.mte_q, h.score] \
             or not np.array_equal(c.cigars(native, ops, fin)[0], h.cigar):
         fail("the long unbanded job differs from native.exts")
-    log(f"[phase 2] long spliced job {jobs[0, 1]} x {jobs[0, 4]} (ring "
-        f"{c.geo.cap} lanes, global scratch) == native.exts")
+    log(f"[phase 2] long spliced job {jobs[0, 1]} x {jobs[0, 4]} (K3 "
+        f"{c.k3.path}, ring {c.k3.ring} lanes) == native.exts")
+    return max_err
+
+
+# K3's launches besides those of phase2_splice's batches (512 x 2) and
+# long job (the memory path in global scratch), each with the exon total
+# (check.spliced_jobs) whose widest band needs it: bands up to 192, 448,
+# 1984 and 4032 lanes take rings of 256, 512, 2048 and 4096
+K3_LAUNCH_BATCHES = (("reg256x1", (100, 170)), ("reg512x1", (260, 420)),
+                     ("reg512x4", (1100, 1900)), ("mem-smem", (2200, 3000)))
+
+
+def phase2_splice_launches(B=32):
+    """K3 and K2's spliced form against their plain versions at each of
+    K3's launches in K3_LAUNCH_BATCHES: B spliced jobs of 2-3 exons
+    (introns of 80-400 bases, junction bytes on a third) at flags 0x508
+    (the splice path's) and 0x5C2 (the exact max, right-aligned reversed
+    extensions); returns the largest errors.  Runs in a process of its
+    own, beside phase2 and phase2_splice."""
+    import torch
+
+    from winnowmap_tpu_torch.extend import check
+    from winnowmap_tpu_torch.extend import kernels as K
+    from winnowmap_tpu_torch.map.align import gen_simple_mat
+
+    rng = np.random.default_rng(20261017)
+    a, b, q, e, q2, noncan, jb = SPLICE
+    mat = gen_simple_mat(a, b, 1)
+    max_err = {"exts": 0, "traceback": 0}
+    for path, exon_total in K3_LAUNCH_BATCHES:
+        for flag in (0x508, 0x5C2):
+            qp, tp, jobs, _, _, js = check.spliced_jobs(
+                rng, B, rev=bool(flag & K.EZ_REV_CIGAR),
+                exon_total=exon_total, n_exons=(2, 3), intron_len=(80, 400))
+            c = check.OnDevice(DEVICE, qp, tp, jobs, mat, (q, e, q2), flag,
+                               0, splice=(noncan, jb), juncs=js)
+            if c.k3.path != path:
+                fail(f"the batch for K3's {path} launch took {c.k3.path}")
+            err, _, _, _ = check.check_against_plain(c)
+            torch.cuda.synchronize()
+            for k in max_err:
+                max_err[k] = max(max_err[k], err[k])
+            if err["exts"] or err["traceback"]:
+                fail(f"spliced kernels != plain at K3 {path} flag "
+                     f"{flag:#x}: max abs err {err}")
+            log(f"[phase 2] K3 {path:9s} flag={flag:#05x} B={B} (ring "
+                f"{c.k3.ring}, {int(c.geo.rows.max())} rows): K3, K2 == "
+                f"plain on every job")
     return max_err
 
 
@@ -615,6 +670,138 @@ def splice_corpus(check, ref: Path, reads: Path, seed: int = 20261016,
                     + "\n")
 
 
+class LaunchTimer:
+    """While the block runs: CUDA events recorded on the current stream just
+    around each call of K3's and K2's C launch entries (wm_exts_launch,
+    wm_traceback_launch), and each K.exts_dp call's arguments by name (the
+    pools are shared), to count launches by flag and by launch and to run
+    one call of each launch again after the block."""
+
+    ENTRIES = ("wm_exts_launch", "wm_traceback_launch")
+
+    def __init__(self, K, torch):
+        import inspect
+
+        from winnowmap_tpu_torch.extend import _build
+
+        self.K, self.torch = K, torch
+        self.api = _build.load()
+        self.exts_dp = K.exts_dp
+        self.sig = inspect.signature(K.exts_dp)
+        self.entry = {name: getattr(self.api, name) for name in self.ENTRIES}
+        self.events = {name: [] for name in self.ENTRIES}
+        self.calls = []
+
+    def __enter__(self):
+        for name in self.ENTRIES:
+            setattr(self.api, name, self._timed(name))
+        self.K.exts_dp = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.K.exts_dp = self.exts_dp
+        for name, fn in self.entry.items():
+            setattr(self.api, name, fn)
+
+    def _timed(self, name):
+        fn, events, torch = self.entry[name], self.events[name], self.torch
+
+        def timed(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+            rc = fn(*args)
+            z.record()
+            events.append((a, z))
+            return rc
+        return timed
+
+    def _record(self, *args, **kw):
+        call = self.sig.bind(*args, **kw)
+        call.apply_defaults()
+        self.calls.append(call.arguments)
+        return self.exts_dp(*args, **kw)
+
+    def summary(self, wall_s):
+        """Summed device ms and share of the wall of K3 and K2s, K3's
+        launches by flag and by launch, jobs per call and the longest
+        job's rows per call."""
+        self.torch.cuda.synchronize()
+        k3, k2 = ([a.elapsed_time(z) for a, z in self.events[name]]
+                  for name in self.ENTRIES)
+        flags, paths, jobs, rows = {}, {}, [], []
+        for c in self.calls:
+            ja = c["jobs"].cpu().numpy()
+            f, g = f"{c['flag']:#x}", c["geo"].path
+            flags[f] = flags.get(f, 0) + 1
+            paths[g] = paths.get(g, 0) + 1
+            jobs.append(len(ja))
+            rows.append(int((ja[:, 1] + ja[:, 4] - 1).max()) if len(ja) else 0)
+        self.rows = rows
+        return {
+            "k3_ms": float(sum(k3)), "k3_launches": len(k3),
+            "k3_share": sum(k3) / 1e3 / wall_s,
+            "k2s_ms": float(sum(k2)), "k2s_launches": len(k2),
+            "k2s_share": sum(k2) / 1e3 / wall_s,
+            "k3_by_flag": flags, "k3_by_path": paths,
+            "jobs_per_call": [min(jobs), float(np.median(jobs)), max(jobs)],
+            "rows_per_call": [float(np.median(rows)), max(rows)]}
+
+    def hold_to_plain(self):
+        """For each launch K3 took, its call at the median of that launch's
+        longest rows, run again through K3 and K2 and through their plain
+        versions on the same arguments: the results and the traceback of
+        the direction bytes must be exactly equal.  Returns {launch:
+        [flag, jobs, rows]} of the calls held."""
+        K, torch = self.K, self.torch
+        by_path = {}
+        for c, r in zip(self.calls, self.rows):
+            by_path.setdefault(c["geo"].path, []).append((r, c))
+        saved = dict(K.LAUNCHES)
+        out = {}
+        for p, cs in sorted(by_path.items()):
+            cs.sort(key=lambda x: x[0])
+            r, c = cs[len(cs) // 2]
+            jobs, flag, prof = c["jobs"], c["flag"], c["prof"]
+            B = jobs.shape[0]
+            res_k, dirs_k = K.exts_dp(**c)
+            res_p = torch.zeros((B, 16), dtype=torch.int32,
+                                device=jobs.device)
+            dirs_p = torch.zeros(max(1, c["dirs_bytes"]), dtype=torch.uint8,
+                                 device=jobs.device)
+            K.exts_dp_plain(c["qpool"], c["tpool"], jobs, c["dirs_off"],
+                            c["ncol"], prof, flag, res_p, dirs_p, c["jpool"],
+                            c["joff"])
+            same = bool((res_k[:, :9] == res_p[:, :9]).all())
+            if not flag & K.EZ_SCORE_ONLY:
+                eb = torch.zeros(B, dtype=torch.int64, device=jobs.device)
+                n_ops = max(4, (r + 3) // 4 * 4)
+                walks = []
+                for res, dirs in ((res_k, dirs_k), (res_p, dirs_p)):
+                    start = K.select_starts(res, jobs, eb,
+                                            bool(flag & K.EZ_EXTZ_ONLY),
+                                            prof.dead, True)
+                    walks.append((dirs, start))
+                ops_k, fin_k = K.traceback(
+                    walks[0][0], c["dirs_off"], jobs, c["ncol"], walks[0][1],
+                    n_ops, prof.min_intron)
+                ops_p = torch.empty((B, n_ops), dtype=torch.uint8,
+                                    device=jobs.device)
+                fin_p = torch.empty((B, 2), dtype=torch.int32,
+                                    device=jobs.device)
+                K.traceback_plain(walks[1][0], c["dirs_off"], jobs,
+                                  c["ncol"], walks[1][1], ops_p, fin_p,
+                                  prof.min_intron)
+                same = (same and bool((ops_k == ops_p).all())
+                        and bool((fin_k == fin_p).all()))
+            if not same:
+                fail(f"phase 5's K3 call at {p} (flag {flag:#x}, {B} jobs, "
+                     f"{r} rows) != plain")
+            out[p] = [f"{flag:#x}", B, r]
+        K.LAUNCHES.update(saved)
+        return out
+
+
 def phase5(torch, K, check, build, fastx, options, batch, seqcode):
     """Spliced mapping (-x splice -a) of 5000 transcript reads against a
     4 Mbp genome of 400 genes."""
@@ -645,12 +832,30 @@ def phase5(torch, K, check, build, fastx, options, batch, seqcode):
     torch.cuda.synchronize()
     batch.STATS.clear()
     K.reset_launches()
-    t0 = time.perf_counter()
-    results = batch.map_batch(mi, mo, seqs, names)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with LaunchTimer(K, torch) as timer:
+        t0 = time.perf_counter()
+        results = batch.map_batch(mi, mo, seqs, names)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     st = {k: round(float(v), 6) for k, v in batch.STATS.items()}
+    dev = timer.summary(dt)
+    log(f"[phase 5] device time: K3 {dev['k3_ms']:.3f} ms over "
+        f"{dev['k3_launches']} launches ({100 * dev['k3_share']:.2f}% of the "
+        f"wall), K2s {dev['k2s_ms']:.3f} ms over {dev['k2s_launches']} "
+        f"({100 * dev['k2s_share']:.2f}%); K3 by flag {dev['k3_by_flag']}, "
+        f"by launch {dev['k3_by_path']}; jobs per call (min, median, max) "
+        f"{dev['jobs_per_call']}; longest job's rows per call (median, max) "
+        f"{dev['rows_per_call']}")
+    t1 = time.perf_counter()
+    held = timer.hold_to_plain()
+    log(f"[phase 5] K3 and K2 == plain on one call of each launch K3 took "
+        f"(launch: flag, jobs, rows) {held} ({time.perf_counter() - t1:.1f} "
+        f"s)")
+    log("[phase 5] JSON " + json.dumps({
+        "wall_s": dt, "reads_per_s": len(seqs) / dt,
+        "dispatch_s": st.get("dispatch_s"), "device": dev,
+        "held_to_plain": held}))
     mapped = [r for r in results if r.regs]
     n_spliced = sum(1 for r in mapped if any(
         g.p is not None and ((g.p.cigar & 15) == 3).any() for g in r.regs))
@@ -901,18 +1106,28 @@ def main():
     log(f"[phase 1] CUDA kernels and probes: {time.perf_counter() - t0:.1f} "
         f"s (nvcc, in parallel)")
     for src, info in _build.BUILD_INFO["ptxas"].items():
-        log(f"[phase 1] {src}: " + " | ".join(info.splitlines()[-2:]))
+        lines = info.splitlines()
+        if src in ("exts.cu", "traceback.cu"):
+            # every K3 variant: its entry, registers, spills
+            lines = [ln for ln in lines if any(
+                w in ln for w in ("entry function", "registers", "spill"))]
+            for ln in lines:
+                log(f"[phase 1] {src}: {ln}")
+        else:
+            log(f"[phase 1] {src}: " + " | ".join(lines[-2:]))
 
-    # the checks of K1/K4 here and of K3 in a second process at once, then
-    # the timings alone on the card
+    # the checks of K1/K4 here and of K3 in two more processes at once,
+    # then the timings alone on the card
     t0 = time.perf_counter()
     spawn = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
-        spliced = pool.submit(phase2_splice)
+    with concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn) as pool:
+        spliced = [pool.submit(phase2_splice),
+                   pool.submit(phase2_splice_launches)]
         err, main_batch = phase2(K, check, native, torch, gen_simple_mat)
         log(f"[phase 2] K1, K4 checks: {time.perf_counter() - t0:.1f} s")
-        s_err = spliced.result()
-    log(f"[phase 2] K3 checks (second process): "
+        s_err = {k: max(f.result()[k] for f in spliced)
+                 for k in ("exts", "traceback")}
+    log(f"[phase 2] K3 checks (two more processes): "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     records, k1 = phase2_times(K, check, torch, gen_simple_mat, err,

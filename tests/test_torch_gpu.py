@@ -191,18 +191,129 @@ def test_exts_kernels_match_plain(cuda, profile, flag):
 
 @pytest.mark.parametrize("flag", (0x300 | 0x18, 0x100 | 0x400))
 def test_exts_kernel_global_ring_matches_plain(cuda, flag, monkeypatch):
-    monkeypatch.setattr(_build, "EXTD_SMEM_MAX", 0)
+    """K3's large-band path with its slot state in global scratch, forced
+    on bands the register variants would hold."""
+    monkeypatch.setattr(K, "K3_VARIANTS", {})
+    monkeypatch.setattr(K, "K3_SMEM_MAX", 0)
     c, _, _, _ = _spliced_on_card(cuda, "splice", flag, B=12)
+    assert c.k3.path == "mem-global"
     _check_kernels_against_plain(c)
 
 
+# every launch K3's geometry can choose: (threads, slots a thread); 0 slots
+# is the large-band path, its state in shared memory or global scratch
+K3_LAUNCHES = [(nt, spt) for nt, spts in sorted(K.K3_VARIANTS.items())
+               for spt in spts] + [(K.K3_MEM_THREADS, 0, "smem"),
+                                   (K.K3_MEM_THREADS, 0, "global")]
+
+
+@pytest.mark.parametrize("flag", (0x508, 0x100 | 0x40 | 0x02 | 0x80),
+                         ids=lambda f: f"flag{f:#05x}")
+@pytest.mark.parametrize("launch", K3_LAUNCHES,
+                         ids=lambda v: "-".join(map(str, v)))
+def test_exts_kernel_launches_match_plain(cuda, launch, flag, monkeypatch):
+    """K3 at each launch it can take, on jobs whose targets are longer
+    than the ring (the band wraps it), against the plain version; the
+    memory path is forced on a ring of 2048 lanes."""
+    nt, spt = launch[:2]
+    ring = nt * spt if spt else 2048
+    if spt == 0:
+        monkeypatch.setattr(K, "K3_VARIANTS", {})
+        if launch[2] == "global":
+            monkeypatch.setattr(K, "K3_SMEM_MAX", 0)
+    # bands up to ring - 64 lanes; introns up to 700 bases or ring / 2
+    c, _, _, _ = _spliced_on_card(cuda, "splice", flag, B=8, seed=spt + nt,
+                                  exon_total=(120, min(800, ring - 80)),
+                                  intron_len=(100, max(700, ring // 2)))
+    assert c.geo.cap <= ring and (c.jobs_np[:, 4] > ring).any()
+    g = K.exts_geometry(ring, c.geo.qlen_max)
+    assert (g.threads, g.spt, g.ring) == (nt, spt, ring)
+    if spt == 0:
+        assert g.mem_smem == (launch[2] == "smem")
+    c.k3 = g
+    _check_kernels_against_plain(c)
+
+
+def test_exts_kernel_query_from_pool_matches_plain(cuda, monkeypatch):
+    """A query longer than K3 stages in shared memory is read from the
+    pool in every cell."""
+    monkeypatch.setattr(K, "K3_QSTAGE_MAX", 256)
+    c, _, _, _ = _spliced_on_card(cuda, "splice:hq", 0x300 | 0x18, B=12)
+    assert c.k3.qstage == 256 and c.geo.qlen_max > 256
+    _check_kernels_against_plain(c)
+
+
+def _pair_jobs(pairs, w, zdrop=-1):
+    """Pools and job rows of (query, target) pairs, one band for all."""
+    qs, ts = [p[0] for p in pairs], [p[1] for p in pairs]
+    jobs = np.zeros((len(pairs), 8), np.int64)
+    jobs[:, 0] = np.cumsum([0] + [len(x) for x in qs])[:-1]
+    jobs[:, 1] = [len(x) for x in qs]
+    jobs[:, 3] = np.cumsum([0] + [len(x) for x in ts])[:-1]
+    jobs[:, 4] = [len(x) for x in ts]
+    jobs[:, 6] = w
+    jobs[:, 7] = zdrop
+    return (np.concatenate(qs + [np.zeros(16, np.uint8)]),
+            np.concatenate(ts + [np.zeros(16, np.uint8)]), jobs)
+
+
+def _window_pairs(case, rng):
+    """Pairs whose traceback leaves K2's 32-row window at its edges: long
+    insertion (I) runs, M runs that climb the lane offset of a narrow
+    band, and short jobs whose walk starts below and just above r = 32
+    and r = 64."""
+    out = []
+    for n in (200, 700, 1100):
+        t = rng.integers(0, 4, n).astype(np.uint8)
+        if case == "long-I":
+            k = int(rng.integers(20, n - 20))
+            ins = rng.integers(0, 4, int(rng.integers(33, 200)))
+            out.append((np.concatenate([t[:k], ins, t[k:]]).astype(np.uint8),
+                        t))
+        elif case == "M-climb":
+            out.append((check.mutate(rng, t, 0.01), t))
+        else:
+            for m in (1, 2, 5, 17, 31, 33, 63, 65):
+                tt = rng.integers(0, 4, m).astype(np.uint8)
+                out.append((check.mutate(rng, tt, 0.1) if m > 2 else tt, tt))
+    return out
+
+
+@pytest.mark.parametrize("flag", (0x0, 0x18, 0xC2))
+@pytest.mark.parametrize("case", ("long-I", "M-climb", "short"))
+def test_traceback_windows_match_plain(cuda, case, flag):
+    """K2 against the plain traceback on paths that leave its window at
+    the edges (map-ont, banded w = 64 and full band)."""
+    rng = np.random.default_rng(17)
+    pairs = _window_pairs(case, rng)
+    for w in (64, -1):
+        qpool, tpool, jobs = _pair_jobs(pairs, w)
+        c = _on_card(cuda, qpool, tpool, jobs, "map-ont", flag, 0)
+        _check_kernels_against_plain(c)
+
+
+@pytest.mark.parametrize("flag", (0x508, 0x100 | 0x40 | 0x02 | 0x80, 0x0),
+                         ids=lambda f: f"flag{f:#05x}")
+def test_spliced_traceback_long_introns_matches_plain(cuda, flag):
+    """K2's spliced form on long N runs through introns of about 1,500
+    bases, and the D runs of the profile without splice sites (flag 0)."""
+    c, _, _, _ = _spliced_on_card(cuda, "splice", flag, B=8, seed=19,
+                                  intron_len=(1450, 1550))
+    _check_kernels_against_plain(c)
+    res, dirs = c.k1_plain()
+    ops, _ = c.k2_plain(dirs, c.starts(res))
+    if flag & 0x300:
+        assert int((ops == 3).sum()) >= 1400
+
+
 def test_long_unbanded_exts_job_matches_native(cuda):
-    """One spliced job whose unbanded band passes 8192 lanes (the K3 ring in
-    global scratch) against native.exts."""
+    """One spliced job whose unbanded band passes 8192 lanes (K3's
+    large-band path, its slot state in global scratch) against
+    native.exts."""
     c, qs, ts, _ = _spliced_on_card(
         cuda, "splice", 0x100 | 0x400, B=1, seed=5, junc_frac=0,
         exon_total=(8600, 8600), n_exons=(4, 4))
-    assert c.geo.cap > 8192
+    assert c.geo.cap > 8192 and c.k3.path == "mem-global"
     res, dirs = c.k1()
     ops, fin = c.k2(dirs, c.starts(res))
     a, b, q, e, q2, noncan, jb = SPLICE["splice"]

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel _build_extd_kernel
 // (winnowmap_tpu/extend/pallas_kernel.py:124, pallas_call at :863).
 // Semantics are wm_extd's (native/src/wm_ksw.cpp, reference
-// src/ksw2_extd2_sse.c).  The kernel body, ext_kernel<false>, is shared
-// with K3 and lives in ext_common.cuh with its design notes.
+// src/ksw2_extd2_sse.c).  The kernel body, ext_kernel<kExtd>, is shared
+// with K4 and lives in ext_common.cuh with its design notes.
 #include "ext_common.cuh"
 
 extern "C" int wm_extd_launch(const void* qpool, const void* tpool,
@@ -16,7 +16,7 @@ extern "C" int wm_extd_launch(const void* qpool, const void* tpool,
                               int flag, void* stream) {
   const ExtProf P{q,         e,         q2, e2, sc_mch, sc_mis, sc_n,
                   long_thres, long_diff, 0,  0,  flag,   dead};
-  return ext_launch<kExtd>(qpool, tpool, jobs, B, dirs_off, nullptr, nullptr,
+  return ext_launch<kExtd>(qpool, tpool, jobs, B, dirs_off,
                            dirs, res, scratch, cap, use_smem, threads, P,
                            stream);
 }

@@ -22,7 +22,7 @@ extern "C" int wm_extz_launch(const void* qpool, const void* tpool,
   // one gap cost: q2 = q, and z-drop's gap term e2 = e
   const ExtProf P{q, e, q, e,    sc_mch, sc_mis, sc_n, 0,
                   0, 0, 0, flag, dead,   max_sc};
-  return ext_launch<kExtz>(qpool, tpool, jobs, B, dirs_off, nullptr, nullptr,
+  return ext_launch<kExtz>(qpool, tpool, jobs, B, dirs_off,
                            dirs, res, scratch, cap, use_smem, threads, P,
                            stream);
 }

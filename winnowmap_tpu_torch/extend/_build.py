@@ -26,8 +26,9 @@ PROBE_SOURCES = ("probes.cu",)
 # headers the sources include: a change to one rebuilds every source
 HEADERS = ("ext_common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-# dynamic shared memory one extd, exts or extz block may take for its band
-# ring; wider bands keep the ring in a global scratch slot
+# dynamic shared memory one extd or extz block may take for its band ring;
+# wider bands keep the ring in a global scratch slot (K3's limits are in
+# kernels.py)
 EXTD_SMEM_MAX = 100 * 1024
 
 _lock = threading.Lock()
@@ -86,7 +87,8 @@ def build(sources=SOURCES) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{so}\n{se}")
         BUILD_INFO["ptxas"][src] = "\n".join(
-            ln for ln in (so + se).splitlines() if "ptxas" in ln)
+            ln for ln in (so + se).splitlines()
+            if "ptxas" in ln or "spill" in ln)
         os.replace(tmp, out)
     if procs:
         BUILD_INFO["seconds"] = time.perf_counter() - t0
@@ -114,7 +116,7 @@ def load():
         extd.wm_cuda_error_string.argtypes = [ci]
         extd.wm_cuda_error_string.restype = ctypes.c_char_p
         exts.wm_exts_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp,
-                                        vp, ci, ci, ci] + [ci] * 12 + [vp]
+                                        vp] + [ci] * 19 + [vp]
         exts.wm_exts_launch.restype = ci
         extz.wm_extz_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, ci,
                                         ci, ci] + [ci] * 8 + [vp]

@@ -152,6 +152,8 @@ class OnDevice:
             self.dp_name = "extd"
             self.prof = K.extd_profile(mat, *gaps)
         self.geo = K.job_geometry(jobs, unbanded=self.spliced)
+        # K3's launch (exts_geometry); a test may set another
+        self.k3 = K.exts_geometry(self.geo.cap, self.geo.qlen_max)
         ja = jobs.copy()
         ja[:, 6] = self.geo.w_eff
         self.jobs_np = ja
@@ -171,7 +173,7 @@ class OnDevice:
         """The DP kernel: K1 (extd), K3 (exts) or K4 (extz)."""
         if self.spliced:
             return K.exts_dp(self.qpool, self.tpool, self.jobs, self.off,
-                             self.ncol, self.geo.cap, self.prof, self.flag,
+                             self.ncol, self.k3, self.prof, self.flag,
                              self.geo.dirs_bytes, self.jpool, self.joff)
         fn = K.extz_dp if self.dp_name == "extz" else K.extd_dp
         return fn(self.qpool, self.tpool, self.jobs, self.off, self.ncol,

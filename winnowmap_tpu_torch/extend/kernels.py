@@ -173,6 +173,7 @@ class JobGeometry:
     dirs_off: np.ndarray  # (B,) int64
     dirs_bytes: int
     cap: int  # power of two >= widest band + 64
+    qlen_max: int  # the longest query (K3 stages it in shared memory)
 
 
 def job_geometry(ja: np.ndarray, unbanded: bool = False) -> JobGeometry:
@@ -194,7 +195,8 @@ def job_geometry(ja: np.ndarray, unbanded: bool = False) -> JobGeometry:
     while cap < band_max + 64:
         cap *= 2
     return JobGeometry(w_eff, ncol, rows, nbytes, np.cumsum(nbytes) - nbytes,
-                       int(nbytes.sum()), cap)
+                       int(nbytes.sum()), cap,
+                       int(ql.max()) if len(ql) else 0)
 
 
 # --------------------------------------------------------------------------
@@ -666,7 +668,7 @@ def _dp_outputs(jobs, flag: int, dirs_bytes: int):
 
 
 def _ring_geometry(cap: int, ring_rows: int, flag: int):
-    """A DP kernel's band ring: ring_rows int8 rows of cap lanes (plus an
+    """K1's or K4's band ring: ring_rows int8 rows of cap lanes (plus an
     int32 H row for the exact max), in shared memory when it fits, else in
     a global scratch slot per block.  Returns (ring bytes, use_smem,
     threads a block)."""
@@ -704,6 +706,68 @@ def extd_occupancy(cap: int, flag: int) -> tuple[int, int]:
     return threads, n.value
 
 
+# K3's launch variants (csrc/exts.cu WM_K3_VARIANTS lists the same):
+# threads a block, and the ring slots a thread keeps in registers, none of
+# which spills (chip_smoke.py's phase 1 prints ptxas's registers).  A ring
+# none of them holds keeps its slot state in memory (spt 0) at
+# K3_MEM_THREADS threads.
+K3_VARIANTS = {256: (1,), 512: (1, 2, 4)}
+K3_MEM_THREADS = 512
+# the longest query K3 stages in shared memory; a longer one is read from
+# the device pool in every cell
+K3_QSTAGE_MAX = 64 * 1024
+# dynamic shared memory a K3 block may take with its slot state in memory;
+# wider rings keep that state in a global scratch slot per block
+K3_SMEM_MAX = 200 * 1024
+# csrc/exts.cu's layout, which its launch checks these sizes against: the
+# double-buffered row exchange (2 x 528 bytes), and the memory path's slot
+# state (nine int8 rows and an int32 H row)
+_K3_XCH_BYTES = 1056
+_K3_MEM_BYTES = 13
+
+
+@dataclass(frozen=True)
+class ExtsGeometry:
+    """K3's launch: threads a block, ring slots a thread in registers (0:
+    the slot state in memory), the ring's lanes (a power of two >= the
+    call's cap), the query bytes staged in shared memory, and where the
+    memory path's state lies."""
+
+    threads: int
+    spt: int
+    ring: int
+    qstage: int
+    mem_smem: bool
+    smem: int  # dynamic shared bytes a block
+    scratch: int  # global scratch bytes a block
+
+    @property
+    def path(self) -> str:
+        if self.spt:
+            return f"reg{self.threads}x{self.spt}"
+        return "mem-smem" if self.mem_smem else "mem-global"
+
+
+def exts_geometry(cap: int, qlen_max: int) -> ExtsGeometry:
+    """K3's launch for a call whose widest band needs `cap` ring lanes and
+    whose longest query is qlen_max: the threads follow the band, cap
+    clipped to 256-512, and a thread takes the slots that fill the ring.
+    A ring no register variant holds takes the memory path (the slot state
+    in shared memory when it fits, else in global scratch)."""
+    nt = min(512, max(256, cap))
+    spt = max(1, cap // nt)
+    if spt not in K3_VARIANTS.get(nt, ()):
+        nt, spt = K3_MEM_THREADS, 0
+    ring = nt * spt if spt else max(cap, nt)
+    qstage = min((qlen_max + 15) // 16 * 16, K3_QSTAGE_MAX)
+    smem = _K3_XCH_BYTES + 2 * (ring // 32) * 8 + qstage
+    mem = ring * _K3_MEM_BYTES if spt == 0 else 0
+    mem_smem = spt == 0 and smem + mem <= K3_SMEM_MAX
+    return ExtsGeometry(nt, spt, ring, qstage, mem_smem,
+                        smem + (mem if mem_smem else 0),
+                        0 if mem_smem else mem)
+
+
 def extd_dp(qpool, tpool, jobs, dirs_off, ncol, cap, prof: ExtdProfile,
             flag: int, dirs_bytes: int):
     """K1.  Returns (res (B, 16) int32, dirs (dirs_bytes,) uint8) on the
@@ -737,13 +801,14 @@ def extd_dp(qpool, tpool, jobs, dirs_off, ncol, cap, prof: ExtdProfile,
     return res, dirs
 
 
-def exts_dp(qpool, tpool, jobs, dirs_off, ncol, cap, prof: ExtsProfile,
-            flag: int, dirs_bytes: int, jpool=None, joff=None):
-    """K3.  Returns (res (B, 16) int32, dirs (dirs_bytes,) uint8) on the
-    device of `jobs`; jobs carry w = qlen + tlen (unbanded) for K2, which
-    the kernel ignores.  jpool/joff: optional junction bytes per job (null
-    on the engine path).  CUDA tensors launch csrc/exts.cu; CPU tensors
-    run exts_dp_plain."""
+def exts_dp(qpool, tpool, jobs, dirs_off, ncol, geo: ExtsGeometry,
+            prof: ExtsProfile, flag: int, dirs_bytes: int, jpool=None,
+            joff=None):
+    """K3 at the launch `geo` (exts_geometry).  Returns (res (B, 16) int32,
+    dirs (dirs_bytes,) uint8) on the device of `jobs`; jobs carry w = qlen
+    + tlen (unbanded) for K2, which the kernel ignores.  jpool/joff:
+    optional junction bytes per job (null on the engine path).  CUDA
+    tensors launch csrc/exts.cu; CPU tensors run exts_dp_plain."""
     dev = jobs.device
     res, dirs = _dp_outputs(jobs, flag, dirs_bytes)
     if dev.type == "cpu":
@@ -755,16 +820,20 @@ def exts_dp(qpool, tpool, jobs, dirs_off, ncol, cap, prof: ExtsProfile,
         _check_kernel_args(jpool, joff)
     from . import _build
 
-    scratch, use_smem, threads = _ring_scratch(jobs, cap, 8, flag)
+    if jobs.dtype != torch.int64 or jobs.shape[1:] != (8,):
+        raise ValueError("jobs must be (B, 8) int64")
+    B = jobs.shape[0]
+    scratch = torch.empty(max(1, B * geo.scratch), dtype=torch.uint8,
+                          device=dev)
     res.zero_()
     lib = _build.load()
-    B = jobs.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.wm_exts_launch(
         qpool.data_ptr(), tpool.data_ptr(), jobs.data_ptr(), B,
         dirs_off.data_ptr(), jpool.data_ptr() if jpool is not None else None,
         joff.data_ptr() if jpool is not None else None, dirs.data_ptr(),
-        res.data_ptr(), scratch.data_ptr(), cap, int(use_smem), threads,
+        res.data_ptr(), scratch.data_ptr(), geo.ring, geo.threads, geo.spt,
+        geo.qstage, int(geo.mem_smem), geo.smem, geo.scratch,
         prof.q, prof.e, prof.q2, prof.sc_mch, prof.sc_mis, prof.sc_n,
         prof.long_thres, prof.long_diff, prof.noncan, prof.junc_bonus,
         int(prof.dead), flag, stream)
@@ -1015,8 +1084,8 @@ class DevCallPooled:
             self.min_intron = prof.min_intron
             jpool, joff = junction_pool(juncs, dev)
             res, dirs = exts_dp(pools.qpool, pools.ref, jobs_t, off_t, ncol_t,
-                                geo.cap, prof, flag, geo.dirs_bytes, jpool,
-                                joff)
+                                exts_geometry(geo.cap, geo.qlen_max),
+                                prof, flag, geo.dirs_bytes, jpool, joff)
         elif q == q2 and e == e2:
             prof = extz_profile(mat, q, e)
             self.min_intron = 0

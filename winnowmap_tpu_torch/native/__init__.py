@@ -63,6 +63,9 @@ def _lib_path() -> Path:
 
 
 def _build() -> Path:
+    """Compile the library unless it is cached.  g++ writes a per-process
+    temporary name and os.replace puts it on the cached name, so another
+    process that finds the cached name always finds a whole library."""
     out = _lib_path()
     if out.exists():
         return out
@@ -70,13 +73,15 @@ def _build() -> Path:
     san = _san_mode()
     opt = (["-O1", f"-fsanitize={san}", "-fno-omit-frame-pointer"]
            if san else ["-O3", "-march=native", "-funroll-loops"])
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = (
         ["g++", *opt, "-g", "-fPIC",
-         "-shared", "-std=c++17", "-pthread", "-o", str(out)]
+         "-shared", "-std=c++17", "-pthread", "-o", str(tmp)]
         + [str(_SRC_DIR / s) for s in _SOURCES]
         + ["-lz", "-lpthread"]
     )
     subprocess.run(cmd, check=True, capture_output=True, text=True)
+    os.replace(tmp, out)
     return out
 
 
