@@ -4,13 +4,18 @@
 
 Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
   1. card and toolchain: name and power limit, nvcc/g++ versions, build
-     time of the native library and of the CUDA kernels;
+     time of the native library and of the CUDA kernels, ptxas's
+     registers and spills of every K1, K3, K4 and K2 instantiation;
   2. each kernel against its plain PyTorch version on the card:
      K1 extd DP and K2 traceback at the map-ont path's shape (B=512 jobs of
      length 1000, w=500) and on a ragged batch, map-ont and asm5 profiles,
      flags 0x18 0x0 0xC2 0x40 0x01; K4 extz DP and K2 on the same two
      batches under two single-cost profiles (-O 4,4 -E 2,2, and q = 61,
-     e = 2, whose biased score byte wraps: max_sc = 128); K3 exts DP and
+     e = 2, whose biased score byte wraps: max_sc = 128); K1's and K4's
+     other launches (128 threads x 1-4 and 6-8 slots, the slot state in
+     shared memory) on batches of 32 jobs whose span takes each, at flags
+     0x18 and 0x0, and one long full-band job each (the slot state in
+     global scratch) against native.extd / native.extz; K3 exts DP and
      K2's spliced form on B=256 spliced jobs (2-4 exons, 300-800 bases,
      1-3 canonical introns of 100-1500 bases, junction bytes on a third),
      splice profile at flags 0x508 (the splice path's) 0x500 0x600 0x318
@@ -20,10 +25,10 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      512 x 4, the slot state in shared memory) on batches of 32 spliced
      jobs whose widest band takes each, at flags 0x508 and 0x5C2;
      results and CIGARs must be exactly equal to the plain versions and to
-     native.extd / native.extz / native.exts on a sample (K3's checks run
-     in two more processes, beside K1's and K4's: the plain versions are
-     bound by the host's Python); then kernel times from CUDA events, with
-     the card to themselves;
+     native.extd / native.extz / native.exts on a sample (K3's checks and
+     K1's and K4's other launches run in three more processes, beside the
+     main K1/K4 checks: the plain versions are bound by the host's Python);
+     then kernel times from CUDA events, with the card to themselves;
   3. the port's CLI on the golden corpora (tests/data/golden): --sv-off
      byte-equal to golden_svoff.sam, sv-aware equal to golden_svon.sam up
      to the reference's uninitialised rep_len fields (at most 6 lines);
@@ -31,7 +36,9 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      (--cs), and to golden_splice.sam apart from @PG;
   4. map-ont SV-aware mapping at real read length: a 1 Mbp genome and 1000
      reads of 15 +- 5 kb at 8% error (tests/tools/make_testdata.py, seed 7),
-     reads/s, STATS and kernel launch counts of the run;
+     reads/s, STATS and kernel launch counts of the run, and K1's summed
+     device time (CUDA events around its C launch entry) with its launches
+     by launch and ring;
   5. spliced mapping (-x splice -a) at a real size: a 4 Mbp genome with 400
      genes and 5000 reads of their transcripts from both strands, made
      with numpy (seed 20261016); reads/s, STATS and launch counts; every
@@ -41,7 +48,8 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      then, for each launch K3 took, one of its calls run again through
      K3 and K2 and through their plain versions, exactly equal;
   6. single-cost mapping (map-ont SV-aware with -O 4,4 -E 2,2 -a) of phase
-     4's corpus: every DP job through K4, none through K1;
+     4's corpus: every DP job through K4, none through K1; K4's device time
+     and launches as K1's in phase 4;
   7. the cost probes P1-P3 (csrc/probes.cu): every probe kernel exactly
      equal to its plain version at a small shape (B=16, Wb=128, ROWS=32,
      KR=3, numpy seed 20261016: every P1 body, every P2 case, P3 levels
@@ -215,8 +223,9 @@ def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
                 fail(f"CIGAR != native.{dp} on {name} {prof} flag "
                      f"{flag:#x} job {i}")
         log(f"[phase 2] {name:6s} {dp} a={prof[0]} q={prof[2]} "
-            f"flag={flag:#04x} B={len(jobs)}: {dp}, K2 == plain on every "
-            f"job; == native.{dp} on a sample")
+            f"flag={flag:#04x} B={len(jobs)} ({c.ext.path}, ring "
+            f"{c.ext.ring}): {dp}, K2 == plain on every job; == native.{dp} "
+            f"on a sample")
     return max_err, main
 
 
@@ -243,10 +252,10 @@ def phase2_times(K, check, torch, gen_simple_mat, max_err, main):
         rec += time_kernels(K, torch, c, max_err, ops, names, shape)
         if k1 is None:
             # K1's launch at this batch, for its row time beside P3's
-            threads, blocks = K.extd_occupancy(c.geo.cap, 0x18)
             k1 = {"ms": rec[0]["ms"], "rows": int(c.geo.rows.max()),
-                  "B": len(jobs), "threads": threads,
-                  "blocks_per_sm": blocks}
+                  "B": len(jobs), "launch": c.ext.path, "ring": c.ext.ring,
+                  "threads": c.ext.threads,
+                  "blocks_per_sm": K.extd_occupancy(c.ext)}
     return rec, k1
 
 
@@ -310,6 +319,84 @@ def time_kernels(K, torch, c, max_err, ops_per_cell, names, shape):
         log(f"[phase 2] {names[1][0]}: {k2_ms:.3f} ms ({steps} steps); "
             f"plain {k2_plain_ms:.1f} ms; bound {rec[1]['bound_ms']:.5f} ms")
     return rec
+
+
+# K1's and K4's launches besides the main batch's (128 x 5), each with the
+# job lengths and band widths whose span takes it (rings of 128 x 1-4 and
+# 6-8 lanes, and full bands of 1100-1400 bp: the memory path, its slot
+# state in shared memory)
+EXT_LAUNCH_BATCHES = (("reg128x1", (150, 320), (33, 64)),
+                      ("reg128x2", (300, 520), (97, 150)),
+                      ("reg128x3", (450, 700), (220, 300)),
+                      ("reg128x4", (550, 800), (350, 440)),
+                      ("reg128x6", (850, 1100), (600, 700)),
+                      ("reg128x7", (1000, 1250), (730, 820)),
+                      ("reg128x8", (1100, 1400), (860, 950)),
+                      ("mem-smem", (1100, 1400), (-1,)))
+
+
+def phase2_ext_launches(B=32):
+    """K1 (map-ont) and K4 (-O 4,4 -E 2,2) with K2 against their plain
+    versions at each launch of EXT_LAUNCH_BATCHES on B jobs at flags 0x18
+    and 0x0, and one long full-band job each (16800 bp: the slot state in
+    global scratch) against native.extd / native.extz; returns the largest
+    errors.  Runs in a process of its own, beside phase2."""
+    import torch
+
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.extend import check
+    from winnowmap_tpu_torch.extend import kernels as K
+    from winnowmap_tpu_torch.map.align import gen_simple_mat
+
+    rng = np.random.default_rng(20261018)
+    max_err = {"extd": 0, "extz": 0, "traceback": 0}
+    for path, (lo, hi), ws in EXT_LAUNCH_BATCHES:
+        qp, tp, jobs, _, _ = check.random_jobs(
+            rng, rng.integers(lo, hi, B - 1), rng.choice(ws, B),
+            rng.choice([40, 200, 400], B), dissimilar=True)
+        for prof in (MAP_ONT, EXTZ):
+            for flag in (0x18, 0x0):
+                c = check.OnDevice(DEVICE, qp, tp, jobs,
+                                   gen_simple_mat(prof[0], prof[1], 1),
+                                   prof[2:], flag, rng.integers(0, 60, B))
+                if c.ext.path != path:
+                    fail(f"the batch for K1/K4's {path} launch took "
+                         f"{c.ext.path}")
+                err, _, _, _ = check.check_against_plain(c)
+                torch.cuda.synchronize()
+                for k in err:
+                    max_err[k] = max(max_err[k], err[k])
+                if any(err.values()):
+                    fail(f"{c.dp_name}, K2 != plain at {path} flag "
+                         f"{flag:#x}: max abs err {err}")
+                log(f"[phase 2] {c.dp_name} {path:9s} flag={flag:#04x} B={B} "
+                    f"(ring {c.ext.ring}, {int(c.geo.rows.max())} rows): "
+                    f"{c.dp_name}, K2 == plain on every job")
+    # one long job: a full band of ~16800 lanes, the slot state in global
+    # scratch
+    t = rng.integers(0, 4, 16800).astype(np.uint8)
+    q = check.mutate(rng, t, 0.08)
+    qp = np.concatenate([q, np.zeros(16, np.uint8)])
+    tp = np.concatenate([t, np.zeros(16, np.uint8)])
+    jobs = np.array([[0, len(q), 0, 0, len(t), 0, -1, 400]], np.int64)
+    for prof in (MAP_ONT, EXTZ):
+        c = check.OnDevice(DEVICE, qp, tp, jobs,
+                           gen_simple_mat(prof[0], prof[1], 1), prof[2:],
+                           0x0, 0)
+        saved = dict(K.LAUNCHES)
+        res, dirs = c.k1()
+        ops, fin = c.k2(dirs, c.starts(res))
+        K.LAUNCHES.update(saved)
+        h = c.native(native, 0, q, t)
+        if c.ext.path != "mem-global" or res[0, :9].tolist() != [
+                h.max, int(h.zdropped), h.max_q, h.max_t, h.mqe, h.mqe_t,
+                h.mte, h.mte_q, h.score] or not np.array_equal(
+                    c.cigars(native, ops, fin)[0], h.cigar):
+            fail(f"the long full-band job differs from native.{c.dp_name} "
+                 f"({c.ext.path})")
+        log(f"[phase 2] long {c.dp_name} job {len(q)} x {len(t)} "
+            f"({c.ext.path}, ring {c.ext.ring}) == native.{c.dp_name}")
+    return max_err
 
 
 def phase2_splice(B=256):
@@ -552,6 +639,113 @@ def kmer_str(x: int, k: int) -> str:
     return "".join("ACGT"[(x >> (2 * (k - 1 - i))) & 3] for i in range(k))
 
 
+class EntryTimer:
+    """While the block runs: CUDA events recorded on the current stream just
+    around each call of the named C launch entries, patched on
+    `_build.load()`'s namespace, where the wrappers look them up."""
+
+    def __init__(self, torch, entries):
+        from winnowmap_tpu_torch.extend import _build
+
+        self.torch = torch
+        self.api = _build.load()
+        self.entry = {name: getattr(self.api, name) for name in entries}
+        self.events = {name: [] for name in entries}
+
+    def __enter__(self):
+        for name in self.entry:
+            setattr(self.api, name, self._timed(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.entry.items():
+            setattr(self.api, name, fn)
+
+    def _timed(self, name):
+        fn, events, torch = self.entry[name], self.events[name], self.torch
+
+        def timed(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+            rc = fn(*args)
+            z.record()
+            events.append((a, z))
+            return rc
+        return timed
+
+    def ms(self, name):
+        """The device ms of each timed call of entry `name`."""
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(z) for a, z in self.events[name]]
+
+
+class ExtTimer(EntryTimer):
+    """An EntryTimer around K1's (mode "extd") or K4's ("extz") C launch
+    entry, and each K.ext_launch call of that mode counted by its
+    ExtGeometry's launch and ring."""
+
+    def __init__(self, torch, K, mode):
+        import inspect
+
+        self.mode, self.name = mode, f"wm_{mode}_launch"
+        super().__init__(torch, (self.name,))
+        self.K, self.ext_launch = K, K.ext_launch
+        self.sig = inspect.signature(K.ext_launch)
+        self.launches = {}
+
+    def __enter__(self):
+        self.K.ext_launch = self._count
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self.K.ext_launch = self.ext_launch
+        super().__exit__(*exc)
+
+    def _count(self, *args, **kw):
+        call = self.sig.bind(*args, **kw).arguments
+        if call["mode"] == self.mode:
+            key = f"{call['geo'].path}/{call['geo'].ring}"
+            self.launches[key] = self.launches.get(key, 0) + 1
+        return self.ext_launch(*args, **kw)
+
+    def summary(self, wall_s):
+        """Summed device ms, launches, share of the wall, and launches by
+        launch/ring."""
+        ms = float(sum(self.ms(self.name)))
+        return {"ms": ms, "launches": len(self.events[self.name]),
+                "share": ms / 1e3 / wall_s, "by_launch": self.launches}
+
+
+def map_timed(torch, K, batch, mi, mo, seqs, names, mode):
+    """map_batch on the reads after a warm-up on eight, with the launch
+    counts and STATS zeroed first and the DP kernel (mode "extd" or
+    "extz") timed; returns (results, wall s, launches, STATS, the timer's
+    summary)."""
+    batch.map_batch(mi, mo, seqs[:8], names[:8])
+    torch.cuda.synchronize()
+    batch.STATS.clear()
+    K.reset_launches()
+    with ExtTimer(torch, K, mode) as timer:
+        t0 = time.perf_counter()
+        results = batch.map_batch(mi, mo, seqs, names)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = {k: round(float(v), 6) for k, v in batch.STATS.items()}
+    return results, dt, launches, st, timer.summary(dt)
+
+
+def log_device(phase, kname, dev, st):
+    log(f"[{phase}] {kname} device time: {dev['ms']:.3f} ms over "
+        f"{dev['launches']} launches ({100 * dev['share']:.2f}% of the "
+        f"wall; dispatch_s {st.get('dispatch_s')}, dev_wait_s "
+        f"{st.get('dev_wait_s')}); by launch/ring {dev['by_launch']}")
+    log(f"[{phase}] JSON " + json.dumps({
+        "kernel": kname, "device": dev, "dispatch_s": st.get("dispatch_s"),
+        "dev_wait_s": st.get("dev_wait_s")}))
+
+
 def phase4(torch, K, build, fastx, options, batch, seqcode):
     DATA.mkdir(exist_ok=True)
     pre = DATA / "wmbench2"
@@ -580,23 +774,15 @@ def phase4(torch, K, build, fastx, options, batch, seqcode):
         f" index {len(mi.keys)} keys ({time.perf_counter() - t0:.1f} s)")
     rs = fastx.read_all(str(reads))
     seqs, names = [r.seq for r in rs], [r.name for r in rs]
-    # warm the card (context, allocator) on a few reads
-    batch.map_batch(mi, mo, seqs[:8], names[:8])
-    torch.cuda.synchronize()
-    batch.STATS.clear()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    results = batch.map_batch(mi, mo, seqs, names)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    st = {k: (round(float(v), 6)) for k, v in batch.STATS.items()}
+    results, dt, launches, st, dev = map_timed(
+        torch, K, batch, mi, mo, seqs, names, "extd")
     n_mapped = sum(1 for r in results if r.regs)
     log(f"[phase 4] mapped {len(seqs)} reads ({sum(map(len, seqs))} bp) in "
         f"{dt:.3f} s -> {len(seqs) / dt:.3f} reads/s; {n_mapped} with hits")
     log(f"[phase 4] launches {launches}; dev_jobs {int(st['dev_jobs'])} vs "
         f"engine host-kept {int(st.get('eng_host_dp_calls', 0))}")
     log("[phase 4] STATS " + json.dumps(st, sort_keys=True))
+    log_device("phase 4", "K1", dev, st)
     if launches["extd"] == 0 or launches["traceback"] == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
     check_mapped("phase 4", st, results, len(seqs))
@@ -670,9 +856,8 @@ def splice_corpus(check, ref: Path, reads: Path, seed: int = 20261016,
                     + "\n")
 
 
-class LaunchTimer:
-    """While the block runs: CUDA events recorded on the current stream just
-    around each call of K3's and K2's C launch entries (wm_exts_launch,
+class LaunchTimer(EntryTimer):
+    """An EntryTimer around K3's and K2's C launch entries (wm_exts_launch,
     wm_traceback_launch), and each K.exts_dp call's arguments by name (the
     pools are shared), to count launches by flag and by launch and to run
     one call of each launch again after the block."""
@@ -682,39 +867,19 @@ class LaunchTimer:
     def __init__(self, K, torch):
         import inspect
 
-        from winnowmap_tpu_torch.extend import _build
-
-        self.K, self.torch = K, torch
-        self.api = _build.load()
+        super().__init__(torch, self.ENTRIES)
+        self.K = K
         self.exts_dp = K.exts_dp
         self.sig = inspect.signature(K.exts_dp)
-        self.entry = {name: getattr(self.api, name) for name in self.ENTRIES}
-        self.events = {name: [] for name in self.ENTRIES}
         self.calls = []
 
     def __enter__(self):
-        for name in self.ENTRIES:
-            setattr(self.api, name, self._timed(name))
         self.K.exts_dp = self._record
-        return self
+        return super().__enter__()
 
     def __exit__(self, *exc):
         self.K.exts_dp = self.exts_dp
-        for name, fn in self.entry.items():
-            setattr(self.api, name, fn)
-
-    def _timed(self, name):
-        fn, events, torch = self.entry[name], self.events[name], self.torch
-
-        def timed(*args):
-            a = torch.cuda.Event(enable_timing=True)
-            z = torch.cuda.Event(enable_timing=True)
-            a.record()
-            rc = fn(*args)
-            z.record()
-            events.append((a, z))
-            return rc
-        return timed
+        super().__exit__(*exc)
 
     def _record(self, *args, **kw):
         call = self.sig.bind(*args, **kw)
@@ -726,9 +891,7 @@ class LaunchTimer:
         """Summed device ms and share of the wall of K3 and K2s, K3's
         launches by flag and by launch, jobs per call and the longest
         job's rows per call."""
-        self.torch.cuda.synchronize()
-        k3, k2 = ([a.elapsed_time(z) for a, z in self.events[name]]
-                  for name in self.ENTRIES)
+        k3, k2 = (self.ms(name) for name in self.ENTRIES)
         flags, paths, jobs, rows = {}, {}, [], []
         for c in self.calls:
             ja = c["jobs"].cpu().numpy()
@@ -882,16 +1045,8 @@ def phase6(torch, K, options, batch, corpus):
     mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
     mo.q2, mo.e2 = mo.q, mo.e
     options.update_mid_occ(mo, mi)
-    batch.map_batch(mi, mo, seqs[:8], names[:8])
-    torch.cuda.synchronize()
-    batch.STATS.clear()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    results = batch.map_batch(mi, mo, seqs, names)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    st = {k: round(float(v), 6) for k, v in batch.STATS.items()}
+    results, dt, launches, st, dev = map_timed(
+        torch, K, batch, mi, mo, seqs, names, "extz")
     n_mapped = sum(1 for r in results if r.regs)
     log(f"[phase 6] -O {mo.q},{mo.q2} -E {mo.e},{mo.e2}: mapped {len(seqs)} "
         f"reads in {dt:.3f} s -> {len(seqs) / dt:.3f} reads/s; {n_mapped} "
@@ -899,6 +1054,7 @@ def phase6(torch, K, options, batch, corpus):
     log(f"[phase 6] launches {launches}; dev_jobs {int(st['dev_jobs'])}; "
         f"engine host-kept {int(st.get('eng_host_dp_calls', 0))}")
     log("[phase 6] STATS " + json.dumps(st, sort_keys=True))
+    log_device("phase 6", "K4", dev, st)
     if launches["extz"] == 0 or launches["traceback"] == 0:
         fail(f"a single-cost kernel was not launched: {launches}")
     if launches["extd"] != 0:
@@ -1016,8 +1172,9 @@ def phase7(torch, k1):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k1_waves = -(-k1["B"] // (k1["blocks_per_sm"] * sms))
     k1_ns = k1["ms"] * 1e6 / (k1["rows"] * k1_waves)
-    log(f"[phase 7] K1 (phase 2, B={k1['B']}, {k1['threads']} threads, "
-        f"{k1['blocks_per_sm']} blocks/SM, {k1_waves} wave(s)): "
+    log(f"[phase 7] K1 (phase 2, B={k1['B']}, {k1['launch']}, ring "
+        f"{k1['ring']}, {k1['blocks_per_sm']} blocks/SM, {k1_waves} "
+        f"wave(s)): "
         f"{k1['ms']:.3f} ms over {k1['rows']} rows = {k1_ns:.1f} ns/row")
     prev = None
     for o in ladder:
@@ -1107,8 +1264,8 @@ def main():
         f"s (nvcc, in parallel)")
     for src, info in _build.BUILD_INFO["ptxas"].items():
         lines = info.splitlines()
-        if src in ("exts.cu", "traceback.cu"):
-            # every K3 variant: its entry, registers, spills
+        if src != "probes.cu":
+            # every K1, K3 and K4 variant and K2: entry, registers, spills
             lines = [ln for ln in lines if any(
                 w in ln for w in ("entry function", "registers", "spill"))]
             for ln in lines:
@@ -1116,18 +1273,21 @@ def main():
         else:
             log(f"[phase 1] {src}: " + " | ".join(lines[-2:]))
 
-    # the checks of K1/K4 here and of K3 in two more processes at once,
-    # then the timings alone on the card
+    # the checks of K1/K4 here, and of K3 and K1/K4's other launches in
+    # three more processes at once, then the timings alone on the card
     t0 = time.perf_counter()
     spawn = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn) as pool:
+    with concurrent.futures.ProcessPoolExecutor(3, mp_context=spawn) as pool:
         spliced = [pool.submit(phase2_splice),
                    pool.submit(phase2_splice_launches)]
+        launches = pool.submit(phase2_ext_launches)
         err, main_batch = phase2(K, check, native, torch, gen_simple_mat)
         log(f"[phase 2] K1, K4 checks: {time.perf_counter() - t0:.1f} s")
         s_err = {k: max(f.result()[k] for f in spliced)
                  for k in ("exts", "traceback")}
-    log(f"[phase 2] K3 checks (two more processes): "
+        for k, v in launches.result().items():
+            err[k] = max(err[k], v)
+    log(f"[phase 2] K3 checks and K1/K4 launches (three more processes): "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     records, k1 = phase2_times(K, check, torch, gen_simple_mat, err,

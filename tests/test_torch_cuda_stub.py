@@ -1,0 +1,103 @@
+"""K1 (csrc/extd.cu) and K4 (csrc/extz.cu), the CUDA sources themselves,
+run on the CPU against their plain PyTorch versions: the sources are
+compiled by g++ against the stub CUDA runtime of
+winnowmap_tpu_torch/tools/cuda_stub (one fiber per CUDA thread) and
+launched through kernels.ext_launch, the marshalling extd_dp and extz_dp
+use on the card.  Integer DP: every result field and every direction byte
+must be equal.
+
+Each case is about four jobs of 100-400 bases, at one launch of
+kernels.ext_geometry: 128 threads with 1-8 ring slots a thread (rings of
+128 and 256 lanes wrap, the band passing the ring's end; 384-1024 are
+rings wider than the band), and the memory path at 512 threads with the
+slot state in shared memory or global scratch (its ring wraps too).
+"""
+import numpy as np
+import pytest
+import torch
+
+from winnowmap_tpu_torch.extend import check
+from winnowmap_tpu_torch.extend import kernels as K
+from winnowmap_tpu_torch.map.align import gen_simple_mat
+from winnowmap_tpu_torch.tools import cuda_stub
+
+torch.set_num_threads(1)
+
+# (a, b, q, e, q2, e2): map-ont and asm5 (extd; asm5's q2 = 81 drives int8
+# wraps), one gap cost and the profile whose biased score byte wraps (q + e
+# = 63, max_sc = 128; extz)
+PROFILES = {"map-ont": (2, 4, 4, 2, 24, 1), "asm5": (1, 19, 39, 3, 81, 1),
+            "single": (2, 4, 4, 2, 4, 2), "wrap": (2, 4, 61, 2, 61, 2)}
+FLAGS = (0x0, 0x18, 0x02 | 0x80, 0x01)
+# slots a thread -> (job lengths, band widths w): bands whose span takes a
+# ring of 128 and 256 lanes under targets longer than the ring; rings of
+# 384-1024 lanes forced on jobs of 100-300 bases (span <= 337)
+LAUNCHES = {1: ((150, 320), (33, 64)), 2: ((250, 400), (97, 150))}
+SHORT = ((100, 300), (-1, 200))
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    if cuda_stub.gxx_path() is None:
+        pytest.skip("needs g++ to build the CUDA sources against the stub "
+                    "runtime")
+    d = tmp_path_factory.mktemp("cuda_stub")
+    return {m: cuda_stub.load(f"{m}.cu", d) for m in ("extd", "extz")}
+
+
+def _batch(profile, flag, lens, ws, seed):
+    rng = np.random.default_rng(seed)
+    n = rng.integers(lens[0], lens[1], 3)
+    zdrop = -1 if profile == "wrap" else rng.choice([40, 200], 4)
+    qp, tp, jobs, _, _ = check.random_jobs(rng, n, rng.choice(ws, 4), zdrop,
+                                           dissimilar=True)
+    a, b, q, e, q2, e2 = PROFILES[profile]
+    return check.OnDevice("cpu", qp, tp, jobs, gen_simple_mat(a, b, 1),
+                          (q, e, q2, e2), flag, rng.integers(0, 60, 4))
+
+
+def _run_stub(libs, c: check.OnDevice, geo: K.ExtGeometry):
+    """The source's kernel at `geo` and the plain version on c's jobs:
+    every result field and direction byte equal."""
+    res_p, dirs_p = c.k1_plain()
+    res = torch.zeros_like(res_p)
+    dirs = torch.zeros_like(dirs_p)
+    assert geo.ring >= c.geo.span
+    rc = K.ext_launch(libs[c.dp_name], c.dp_name, geo, c.prof, c.flag,
+                      c.qpool, c.tpool, c.jobs, c.off, dirs, res, None)
+    assert rc == 0
+    assert torch.equal(res[:, :9], res_p[:, :9])
+    assert torch.equal(dirs, dirs_p)
+
+
+CASES = [(p, f, i % 8 + 1) for i, (p, f) in
+         enumerate((p, f) for p in PROFILES for f in FLAGS)]
+
+
+@pytest.mark.parametrize("profile,flag,spt", CASES,
+                         ids=[f"{p}-flag{f:#04x}-x{n}" for p, f, n in CASES])
+def test_ext_source_matches_plain(libs, profile, flag, spt):
+    """Every profile at every flag, each at one register launch: 128
+    threads with 1-8 slots, each launch twice."""
+    lens, ws = LAUNCHES.get(spt, SHORT)
+    c = _batch(profile, flag, lens, ws, seed=7 * spt + len(profile))
+    geo = c.ext if spt <= 2 else K.ext_geometry(128 * spt, c.geo.qlen_max)
+    assert (geo.threads, geo.spt, geo.ring) == (128, spt, 128 * spt)
+    if spt <= 2:
+        assert (c.jobs_np[:, 4] > geo.ring).any()  # the band wraps the ring
+    _run_stub(libs, c, geo)
+
+
+@pytest.mark.parametrize("profile,flag,path", [
+    ("map-ont", 0x0, "mem-global"), ("wrap", 0x18, "mem-smem")])
+def test_ext_source_memory_path_matches_plain(libs, profile, flag, path,
+                                              monkeypatch):
+    """The memory path (no register variant), its slot state in global
+    scratch or shared memory, for each cell."""
+    monkeypatch.setattr(K, "EXT_VARIANTS", {})
+    if path == "mem-global":
+        monkeypatch.setattr(K, "EXT_SMEM_MAX", 0)
+    c = _batch(profile, flag, (540, 640), (97, 150), seed=3)
+    assert c.ext.path == path and c.ext.threads == K.EXT_MEM_THREADS
+    assert (c.jobs_np[:, 4] > c.ext.ring).any()
+    _run_stub(libs, c, c.ext)

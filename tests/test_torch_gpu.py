@@ -21,7 +21,6 @@ import pytest
 import torch
 
 from winnowmap_tpu_torch import native, tools
-from winnowmap_tpu_torch.extend import _build
 from winnowmap_tpu_torch.extend import check
 from winnowmap_tpu_torch.extend import kernels as K
 from winnowmap_tpu_torch.index.build import MinimizerIndex
@@ -88,26 +87,30 @@ def test_kernels_match_plain(cuda, profile, flag):
 
 @pytest.mark.parametrize("flag", (0x18, 0x0), ids=("flag0x18", "flag0x00"))
 def test_extd_kernel_global_ring_matches_plain(cuda, flag, monkeypatch):
-    """The band ring in global scratch (bands too wide for shared memory)
-    computes what the shared-memory ring does."""
-    monkeypatch.setattr(_build, "EXTD_SMEM_MAX", 0)
+    """K1's memory path with its slot state in global scratch (rings too
+    wide for shared memory), forced on bands the register launches would
+    hold, computes what they do."""
+    monkeypatch.setattr(K, "EXT_VARIANTS", {})
+    monkeypatch.setattr(K, "EXT_SMEM_MAX", 0)
     qpool, tpool, jobs, eb = _batch(11, B=12)
-    _check_kernels_against_plain(
-        _on_card(cuda, qpool, tpool, jobs, "map-ont", flag, eb))
+    c = _on_card(cuda, qpool, tpool, jobs, "map-ont", flag, eb)
+    assert c.ext.path == "mem-global"
+    _check_kernels_against_plain(c)
 
 
 def test_long_full_band_job_matches_native(cuda):
-    """One job whose full band (w = -1) needs the 256-thread, global-ring
-    launch, against the native oracle."""
+    """One job whose full band (w = -1) needs K1's memory path with its
+    slot state in global scratch, against the native oracle."""
     rng = np.random.default_rng(5)
-    t = rng.integers(0, 4, 8400).astype(np.uint8)
+    t = rng.integers(0, 4, 16800).astype(np.uint8)
     q = check.mutate(rng, t, 0.08)
     a, b, qo, e, q2, e2 = PROFILES["map-ont"]
     mat = gen_simple_mat(a, b, 1)
     mi = MinimizerIndex(w=10, k=15, codes=t)
     pools = K.PoolContext(q, mi, cuda)
     jobs = np.array([[0, len(q), 0, 0, len(t), 0, -1, 400]], np.int64)
-    assert K.job_geometry(jobs).cap > 8192
+    geo = K.job_geometry(jobs)
+    assert K.ext_geometry(geo.span, geo.qlen_max).path == "mem-global"
     res9, blob, off, ln, _ = K.DevCallPooled(
         pools, jobs, mat, qo, e, q2, e2, 0, 0x0).collect_blob()
     h = native.extd(q, t, mat, qo, e, q2, e2, -1, 400, 0, 0x0)
@@ -433,6 +436,10 @@ def _extz_on_card(dev, profile, flag, seed=7, B=24):
     qpool, tpool, jobs, eb = _batch(seed, B=B)
     if profile == "wrap":
         jobs[:, 7] = -1
+    return _extz_with(dev, qpool, tpool, jobs, profile, flag, eb)
+
+
+def _extz_with(dev, qpool, tpool, jobs, profile, flag, eb):
     a, b, q, e, q2, e2 = EXTZ[profile]
     c = check.OnDevice(dev, qpool, tpool, jobs, gen_simple_mat(a, b, 1),
                        (q, e, q2, e2), flag, eb)
@@ -448,22 +455,73 @@ def test_extz_kernels_match_plain(cuda, profile, flag):
 
 @pytest.mark.parametrize("flag", (0x18, 0x0), ids=("flag0x18", "flag0x00"))
 def test_extz_kernel_global_ring_matches_plain(cuda, flag, monkeypatch):
-    monkeypatch.setattr(_build, "EXTD_SMEM_MAX", 0)
-    _check_kernels_against_plain(_extz_on_card(cuda, "single", flag, 11,
-                                               B=12))
+    monkeypatch.setattr(K, "EXT_VARIANTS", {})
+    monkeypatch.setattr(K, "EXT_SMEM_MAX", 0)
+    c = _extz_on_card(cuda, "single", flag, 11, B=12)
+    assert c.ext.path == "mem-global"
+    _check_kernels_against_plain(c)
+
+
+# every launch K1's and K4's geometry can choose: 128 threads x 1-8 slots,
+# and the memory path (slot state in shared memory or global scratch) at
+# 512 threads; the job lengths and band widths whose span takes each ring
+# (128 x slots lanes; 512 for the memory path, forced), with targets
+# longer than the ring
+EXT_LAUNCHES = [(nt, spt) for nt, spts in sorted(K.EXT_VARIANTS.items())
+                for spt in spts] + [(K.EXT_MEM_THREADS, 0, "smem"),
+                                    (K.EXT_MEM_THREADS, 0, "global")]
+EXT_LAUNCH_JOBS = {1: ((150, 320), (33, 64)), 2: ((300, 520), (97, 150)),
+                   3: ((450, 700), (220, 300)), 4: ((550, 800), (350, 440)),
+                   5: ((700, 1000), (480, 560)), 6: ((850, 1100), (600, 700)),
+                   7: ((1000, 1250), (730, 820)),
+                   8: ((1100, 1400), (860, 950)), 0: ((560, 800), (97, 150))}
+
+
+@pytest.mark.parametrize("flag", (0x18, 0xC2), ids=lambda f: f"flag{f:#04x}")
+@pytest.mark.parametrize("profile", ("map-ont", "wrap"))
+@pytest.mark.parametrize("launch", EXT_LAUNCHES,
+                         ids=lambda v: "-".join(map(str, v)))
+def test_ext_kernel_launches_match_plain(cuda, launch, profile, flag,
+                                         monkeypatch):
+    """K1 (map-ont) and K4 (the wrap profile) at each launch they can
+    take, on jobs whose targets are longer than the ring (the band wraps
+    it), against the plain versions; the memory path is forced on a ring
+    of 512 lanes."""
+    nt, spt = launch[:2]
+    if spt == 0:
+        monkeypatch.setattr(K, "EXT_VARIANTS", {})
+        if launch[2] == "global":
+            monkeypatch.setattr(K, "EXT_SMEM_MAX", 0)
+    (lo, hi), ws = EXT_LAUNCH_JOBS[spt]
+    rng = np.random.default_rng(nt + spt)
+    qpool, tpool, jobs, _, _ = check.random_jobs(
+        rng, rng.integers(lo, hi, 7), rng.choice(ws, 8),
+        -1 if profile == "wrap" else 200, dissimilar=True)
+    eb = rng.integers(0, 60, 8)
+    if profile == "wrap":
+        c = _extz_with(cuda, qpool, tpool, jobs, "wrap", flag, eb)
+    else:
+        c = _on_card(cuda, qpool, tpool, jobs, profile, flag, eb)
+    g = c.ext
+    assert (g.threads, g.spt) == (nt, spt)
+    assert g.ring >= c.geo.span and (c.jobs_np[:, 4] > g.ring).any()
+    if spt == 0:
+        assert g.mem_smem == (launch[2] == "smem")
+    _check_kernels_against_plain(c)
 
 
 def test_long_full_band_extz_job_matches_native(cuda):
-    """One single-cost job whose full band needs the 256-thread,
-    global-ring launch, against native.extz."""
+    """One single-cost job whose full band needs K4's memory path with its
+    slot state in global scratch, against native.extz."""
     rng = np.random.default_rng(5)
-    t = rng.integers(0, 4, 8400).astype(np.uint8)
+    t = rng.integers(0, 4, 16800).astype(np.uint8)
     q = check.mutate(rng, t, 0.08)
     mat = gen_simple_mat(2, 4, 1)
     mi = MinimizerIndex(w=10, k=15, codes=t)
     pools = K.PoolContext(q, mi, cuda)
     jobs = np.array([[0, len(q), 0, 0, len(t), 0, -1, 400]], np.int64)
-    assert K.job_geometry(jobs).cap > 8192
+    geo = K.job_geometry(jobs)
+    assert K.ext_geometry(geo.span, geo.qlen_max).path == "mem-global"
     n0 = K.LAUNCHES["extz"]
     res9, blob, off, ln, _ = K.DevCallPooled(
         pools, jobs, mat, 4, 2, 4, 2, 0, 0x0).collect_blob()

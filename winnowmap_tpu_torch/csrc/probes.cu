@@ -6,10 +6,11 @@
 // Their outputs are those probes' outputs, exactly; the plain versions are
 // in winnowmap_tpu_torch/tools/probe_{bisect,l0,core}.py.
 //
-// What they measure: not bytes nor arithmetic but the fixed costs of K1's
-// row structure (csrc/ext_common.cuh ext_kernel): one block of 128 threads
-// per job, the state rows in shared memory, a carry read, a barrier, the
-// cells of each thread's segment of consecutive lanes, a second barrier.
+// What they measure: not bytes nor arithmetic but the fixed costs of the
+// row structure K1 first had (before ext_kernel kept its ring slots in
+// registers): one block of 128 threads per job, the state rows in shared
+// memory, a carry read, a barrier, the cells of each thread's segment of
+// consecutive lanes, a second barrier.
 // The TPU grid's sequential step axis (KR steps of ROWS rows) is a loop
 // inside the block; TB, the TPU's tile height, has no counterpart.  Every
 // probe writes its final state to a device output (the TPU's VMEM scratch),

@@ -26,10 +26,6 @@ PROBE_SOURCES = ("probes.cu",)
 # headers the sources include: a change to one rebuilds every source
 HEADERS = ("ext_common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-# dynamic shared memory one extd or extz block may take for its band ring;
-# wider bands keep the ring in a global scratch slot (K3's limits are in
-# kernels.py)
-EXTD_SMEM_MAX = 100 * 1024
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -95,6 +91,30 @@ def build(sources=SOURCES) -> dict:
     return targets
 
 
+def bind(lib) -> None:
+    """Declares the argument and result types of each C entry of the
+    kernel sources that `lib` exports (ctypes would pass a pointer as a
+    32-bit int without them)."""
+    vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    entries = {
+        "wm_extd_launch": [vp, vp, vp, ci, vp, vp, vp, vp] + [ci] * 18
+        + [vp],
+        "wm_extd_occupancy": [ci, ci, ci, ctypes.POINTER(ci)],
+        "wm_exts_launch": [vp, vp, vp, ci, vp, vp, vp, vp, vp, vp]
+        + [ci] * 19 + [vp],
+        "wm_extz_launch": [vp, vp, vp, ci, vp, vp, vp, vp] + [ci] * 15
+        + [vp],
+        "wm_traceback_launch": [vp, vp, vp, vp, ci, vp, i64, vp, ci, vp],
+    }
+    for name, args in entries.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ci
+    if hasattr(lib, "wm_cuda_error_string"):
+        lib.wm_cuda_error_string.argtypes = [ci]
+        lib.wm_cuda_error_string.restype = ctypes.c_char_p
+
+
 def load():
     """The loaded kernel libraries, as one namespace of C entry points."""
     with _lock:
@@ -105,25 +125,8 @@ def load():
         exts = ctypes.CDLL(str(paths["exts.cu"]))
         extz = ctypes.CDLL(str(paths["extz.cu"]))
         tb = ctypes.CDLL(str(paths["traceback.cu"]))
-        vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        extd.wm_extd_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, ci,
-                                        ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                                        ci, ci, ci, ci, vp]
-        extd.wm_extd_launch.restype = ci
-        extd.wm_extd_occupancy.argtypes = [ci, ci, ci, ci,
-                                           ctypes.POINTER(ci)]
-        extd.wm_extd_occupancy.restype = ci
-        extd.wm_cuda_error_string.argtypes = [ci]
-        extd.wm_cuda_error_string.restype = ctypes.c_char_p
-        exts.wm_exts_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp,
-                                        vp] + [ci] * 19 + [vp]
-        exts.wm_exts_launch.restype = ci
-        extz.wm_extz_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, ci,
-                                        ci, ci] + [ci] * 8 + [vp]
-        extz.wm_extz_launch.restype = ci
-        tb.wm_traceback_launch.argtypes = [vp, vp, vp, vp, ci, vp, i64, vp,
-                                           ci, vp]
-        tb.wm_traceback_launch.restype = ci
+        for lib in (extd, exts, extz, tb):
+            bind(lib)
 
         class _Api:
             wm_extd_launch = extd.wm_extd_launch

@@ -152,8 +152,10 @@ class OnDevice:
             self.dp_name = "extd"
             self.prof = K.extd_profile(mat, *gaps)
         self.geo = K.job_geometry(jobs, unbanded=self.spliced)
-        # K3's launch (exts_geometry); a test may set another
+        # K3's launch (exts_geometry) and K1's or K4's (ext_geometry); a
+        # test may set others
         self.k3 = K.exts_geometry(self.geo.cap, self.geo.qlen_max)
+        self.ext = K.ext_geometry(self.geo.span, self.geo.qlen_max)
         ja = jobs.copy()
         ja[:, 6] = self.geo.w_eff
         self.jobs_np = ja
@@ -177,7 +179,7 @@ class OnDevice:
                              self.geo.dirs_bytes, self.jpool, self.joff)
         fn = K.extz_dp if self.dp_name == "extz" else K.extd_dp
         return fn(self.qpool, self.tpool, self.jobs, self.off, self.ncol,
-                  self.geo.cap, self.prof, self.flag, self.geo.dirs_bytes)
+                  self.ext, self.prof, self.flag, self.geo.dirs_bytes)
 
     def k1_plain(self):
         B = self.jobs.shape[0]

@@ -163,8 +163,9 @@ def extz_profile(mat, q, e) -> ExtzProfile:
 @dataclass
 class JobGeometry:
     """Host-side per-job layout of one call: the effective band w, the
-    direction buffer (rows of ncol bytes, nbytes per job at dirs_off), and
-    the ring capacity K1 needs for the band state."""
+    direction buffer (rows of ncol bytes, nbytes per job at dirs_off), the
+    ring capacity K3 needs for the band state and the ring span K1 and K4
+    need."""
 
     w_eff: np.ndarray  # (B,) int64
     ncol: np.ndarray  # (B,) int64, wm_extd's n_col
@@ -172,8 +173,30 @@ class JobGeometry:
     nbytes: np.ndarray  # (B,) int64, rows * ncol
     dirs_off: np.ndarray  # (B,) int64
     dirs_bytes: int
-    cap: int  # power of two >= widest band + 64
-    qlen_max: int  # the longest query (K3 stages it in shared memory)
+    cap: int  # K3: power of two >= widest band + 64
+    span: int  # K1, K4: ring lanes every row touches (ring_span)
+    qlen_max: int  # the longest query (staged in shared memory)
+
+
+def ring_span(band):
+    """The ring lanes K1's and K4's rows touch at most, for jobs whose
+    banded rows hold at most `band` = min(qlen, tlen, w + 1) lanes: every
+    row's [last_st - 1, max(en, g + 15)] fits in 16 * ((band - 1) // 16)
+    + 49 lanes.
+
+    Proof.  Row r holds [st0, en0] with d = en0 - st0 <= band - 1 (en0 <=
+    min(r, (r + w) >> 1, tlen - 1) and st0 >= max(r - qlen + 1, (r - w + 1)
+    >> 1, 0), and (r + w) >> 1 - (r - w + 1) >> 1 <= w).  With st0 = 16a +
+    i (i < 16): st = 16a, en = 16 * ((i + d) // 16) + 16a + 15, so en - st
+    <= 16 * ((d + 15) // 16) + 15 <= 16 * (d // 16) + 31; and g + 15 =
+    st0 + 16 * (d // 16) + 15, so g + 15 - st <= 16 * (d // 16) + 30.
+    st0 grows by at most one a row, so st by 0 or 16: last_st >= st - 16,
+    and the span hi - (last_st - 1) + 1 <= 16 * (d // 16) + 31 + 18.  Row
+    0 (last_st = -1) touches [-2, 15], 18 lanes.  The ring only needs
+    [st - 1, hi] of each row distinct and a lane leaving on the left
+    replaced by one no row has touched, which the span of the row and of
+    the row before it ensure."""
+    return 16 * ((np.asarray(band, np.int64) - 1) // 16) + 49
 
 
 def job_geometry(ja: np.ndarray, unbanded: bool = False) -> JobGeometry:
@@ -195,7 +218,7 @@ def job_geometry(ja: np.ndarray, unbanded: bool = False) -> JobGeometry:
     while cap < band_max + 64:
         cap *= 2
     return JobGeometry(w_eff, ncol, rows, nbytes, np.cumsum(nbytes) - nbytes,
-                       int(nbytes.sum()), cap,
+                       int(nbytes.sum()), cap, int(ring_span(band_max)),
                        int(ql.max()) if len(ql) else 0)
 
 
@@ -667,43 +690,118 @@ def _dp_outputs(jobs, flag: int, dirs_bytes: int):
     return res, dirs
 
 
-def _ring_geometry(cap: int, ring_rows: int, flag: int):
-    """K1's or K4's band ring: ring_rows int8 rows of cap lanes (plus an
-    int32 H row for the exact max), in shared memory when it fits, else in
-    a global scratch slot per block.  Returns (ring bytes, use_smem,
-    threads a block)."""
-    from . import _build
-
-    ring = cap * (ring_rows + (0 if flag & EZ_APPROX_MAX else 4))
-    return ring, ring <= _build.EXTD_SMEM_MAX, 128 if cap <= 2048 else 256
-
-
-def _ring_scratch(jobs, cap: int, ring_rows: int, flag: int):
-    """The ring's global scratch (one byte when it lies in shared memory).
-    Returns (scratch, use_smem, threads)."""
-    if jobs.dtype != torch.int64 or jobs.shape[1:] != (8,):
-        raise ValueError("jobs must be (B, 8) int64")
-    ring, use_smem, threads = _ring_geometry(cap, ring_rows, flag)
-    scratch = torch.empty(1 if use_smem else jobs.shape[0] * ring,
-                          dtype=torch.uint8, device=jobs.device)
-    return scratch, use_smem, threads
+# K1's and K4's launch variants (csrc/ext_common.cuh WM_EXT_VARIANTS lists
+# the same): threads a block, and the ring slots a thread keeps in
+# registers, four blocks an SM.  A ring none of them holds keeps its slot
+# state in memory (spt 0) at EXT_MEM_THREADS threads.
+EXT_VARIANTS = {128: (1, 2, 3, 4, 5, 6, 7, 8)}
+EXT_MEM_THREADS = 512
+# the longest query K1 and K4 stage in shared memory; a longer one is read
+# from the device pool in every cell
+EXT_QSTAGE_MAX = 64 * 1024
+# dynamic shared memory a K1 or K4 block may take with its slot state in
+# memory; wider rings keep that state in a global scratch slot per block
+EXT_SMEM_MAX = 200 * 1024
+# csrc/ext_common.cuh's layout, which its launch checks these sizes
+# against: the double-buffered row exchange (2 x 528 bytes), and the memory
+# path's slot state (three 32-bit words a slot)
+_EXT_XCH_BYTES = 1056
+_EXT_MEM_BYTES = 12
 
 
-def extd_occupancy(cap: int, flag: int) -> tuple[int, int]:
-    """K1's launch at (cap, flag) as extd_dp makes it: (threads a block,
-    blocks one SM holds at once)."""
+@dataclass(frozen=True)
+class ExtGeometry:
+    """A launch of K1, K4 (ext_geometry) or K3 (exts_geometry): threads a
+    block, ring slots a thread in registers (0: the slot state in memory),
+    the ring's lanes, the query bytes staged in shared memory, and where
+    the memory path's state lies.  K1's and K4's layout serves both cells
+    and both row-max modes."""
+
+    threads: int
+    spt: int
+    ring: int
+    qstage: int
+    mem_smem: bool
+    smem: int  # dynamic shared bytes a block
+    scratch: int  # global scratch bytes a block
+
+    @property
+    def path(self) -> str:
+        if self.spt:
+            return f"reg{self.threads}x{self.spt}"
+        return "mem-smem" if self.mem_smem else "mem-global"
+
+
+def ext_geometry(span: int, qlen_max: int) -> ExtGeometry:
+    """K1's and K4's launch for a call whose rows touch `span` ring lanes
+    (JobGeometry.span) and whose longest query is qlen_max: 128 threads
+    keep ceil(span / 128) slots each in registers, the ring their 128 x
+    slots lanes; a span no register variant holds takes the memory path at
+    EXT_MEM_THREADS threads, the ring a multiple of them (the slot state in
+    shared memory when it fits, else in global scratch)."""
+    nt = 128
+    spt = max(1, -(-span // nt))
+    if spt not in EXT_VARIANTS.get(nt, ()):
+        nt, spt = EXT_MEM_THREADS, 0
+    ring = nt * (spt or max(1, -(-span // nt)))
+    qstage = min((qlen_max + 15) // 16 * 16, EXT_QSTAGE_MAX)
+    return _launch(nt, spt, ring, qstage, _EXT_XCH_BYTES, _EXT_MEM_BYTES,
+                   EXT_SMEM_MAX)
+
+
+def _launch(nt, spt, ring, qstage, xch_bytes, mem_bytes, smem_max):
+    """The ExtGeometry of a launch in the layout K1, K3 and K4 share: the
+    row exchange (xch_bytes), the warp edges (an 8-byte word a warp of the
+    ring, double-buffered) and the staged query in dynamic shared
+    memory, plus, on the memory path (spt 0), mem_bytes a slot in shared
+    memory up to smem_max bytes a block, else in global scratch."""
+    smem = xch_bytes + 2 * (ring // 32) * 8 + qstage
+    mem = ring * mem_bytes if spt == 0 else 0
+    mem_smem = spt == 0 and smem + mem <= smem_max
+    return ExtGeometry(nt, spt, ring, qstage, mem_smem,
+                       smem + (mem if mem_smem else 0),
+                       0 if mem_smem else mem)
+
+
+def extd_occupancy(geo: ExtGeometry) -> int:
+    """Blocks of K1 one SM holds at once at the launch `geo`."""
     import ctypes
 
     from . import _build
 
-    _, use_smem, threads = _ring_geometry(cap, 7, flag)
     n = ctypes.c_int(0)
-    rc = _build.load().wm_extd_occupancy(cap, int(use_smem), threads, flag,
+    rc = _build.load().wm_extd_occupancy(geo.threads, geo.spt, geo.smem,
                                          ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"extd occupancy query failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    return threads, n.value
+    return n.value
+
+
+def ext_launch(lib, mode: str, geo: ExtGeometry, prof, flag: int, qpool,
+               tpool, jobs, dirs_off, dirs, res, stream) -> int:
+    """Calls K1's (mode "extd") or K4's ("extz") C launch entry of `lib`
+    at the launch `geo` on contiguous tensors, with the global scratch the
+    launch needs; returns the entry's CUDA error code.  extd_dp and extz_dp
+    call it with the card's library; the CPU tests with the same sources
+    built against a stub runtime (tools/cuda_stub)."""
+    if jobs.dtype != torch.int64 or jobs.shape[1:] != (8,):
+        raise ValueError("jobs must be (B, 8) int64")
+    B = jobs.shape[0]
+    scratch = torch.empty(max(1, B * geo.scratch), dtype=torch.uint8,
+                          device=jobs.device)
+    launch = (qpool.data_ptr(), tpool.data_ptr(), jobs.data_ptr(), B,
+              dirs_off.data_ptr(), dirs.data_ptr(), res.data_ptr(),
+              scratch.data_ptr(), geo.ring, geo.threads, geo.spt,
+              geo.qstage, int(geo.mem_smem), geo.smem, geo.scratch)
+    if mode == "extd":
+        return lib.wm_extd_launch(
+            *launch, prof.q, prof.e, prof.q2, prof.e2, prof.sc_mch,
+            prof.sc_mis, prof.sc_n, prof.long_thres, prof.long_diff,
+            int(prof.dead), flag, stream)
+    return lib.wm_extz_launch(
+        *launch, prof.q, prof.e, prof.sc_mch, prof.sc_mis, prof.sc_n,
+        prof.max_sc, int(prof.dead), flag, stream)
 
 
 # K3's launch variants (csrc/exts.cu WM_K3_VARIANTS lists the same):
@@ -726,29 +824,7 @@ _K3_XCH_BYTES = 1056
 _K3_MEM_BYTES = 13
 
 
-@dataclass(frozen=True)
-class ExtsGeometry:
-    """K3's launch: threads a block, ring slots a thread in registers (0:
-    the slot state in memory), the ring's lanes (a power of two >= the
-    call's cap), the query bytes staged in shared memory, and where the
-    memory path's state lies."""
-
-    threads: int
-    spt: int
-    ring: int
-    qstage: int
-    mem_smem: bool
-    smem: int  # dynamic shared bytes a block
-    scratch: int  # global scratch bytes a block
-
-    @property
-    def path(self) -> str:
-        if self.spt:
-            return f"reg{self.threads}x{self.spt}"
-        return "mem-smem" if self.mem_smem else "mem-global"
-
-
-def exts_geometry(cap: int, qlen_max: int) -> ExtsGeometry:
+def exts_geometry(cap: int, qlen_max: int) -> ExtGeometry:
     """K3's launch for a call whose widest band needs `cap` ring lanes and
     whose longest query is qlen_max: the threads follow the band, cap
     clipped to 256-512, and a thread takes the slots that fill the ring.
@@ -760,48 +836,42 @@ def exts_geometry(cap: int, qlen_max: int) -> ExtsGeometry:
         nt, spt = K3_MEM_THREADS, 0
     ring = nt * spt if spt else max(cap, nt)
     qstage = min((qlen_max + 15) // 16 * 16, K3_QSTAGE_MAX)
-    smem = _K3_XCH_BYTES + 2 * (ring // 32) * 8 + qstage
-    mem = ring * _K3_MEM_BYTES if spt == 0 else 0
-    mem_smem = spt == 0 and smem + mem <= K3_SMEM_MAX
-    return ExtsGeometry(nt, spt, ring, qstage, mem_smem,
-                        smem + (mem if mem_smem else 0),
-                        0 if mem_smem else mem)
+    return _launch(nt, spt, ring, qstage, _K3_XCH_BYTES, _K3_MEM_BYTES,
+                   K3_SMEM_MAX)
 
 
-def extd_dp(qpool, tpool, jobs, dirs_off, ncol, cap, prof: ExtdProfile,
-            flag: int, dirs_bytes: int):
-    """K1.  Returns (res (B, 16) int32, dirs (dirs_bytes,) uint8) on the
-    device of `jobs`.  CUDA tensors launch csrc/extd.cu; CPU tensors run
-    extd_dp_plain."""
+def extd_dp(qpool, tpool, jobs, dirs_off, ncol, geo: ExtGeometry,
+            prof: ExtdProfile, flag: int, dirs_bytes: int):
+    """K1 at the launch `geo` (ext_geometry).  Returns (res (B, 16) int32,
+    dirs (dirs_bytes,) uint8) on the device of `jobs`.  CUDA tensors launch
+    csrc/extd.cu; CPU tensors run extd_dp_plain."""
+    return _ext_dp("extd", qpool, tpool, jobs, dirs_off, ncol, geo, prof,
+                   flag, dirs_bytes)
+
+
+def _ext_dp(mode, qpool, tpool, jobs, dirs_off, ncol, geo, prof, flag,
+            dirs_bytes):
     dev = jobs.device
     res, dirs = _dp_outputs(jobs, flag, dirs_bytes)
     if dev.type == "cpu":
-        extd_dp_plain(qpool, tpool, jobs, dirs_off, ncol, prof, flag, res,
-                      dirs)
+        plain = extd_dp_plain if mode == "extd" else extz_dp_plain
+        plain(qpool, tpool, jobs, dirs_off, ncol, prof, flag, res, dirs)
         return res, dirs
     _check_kernel_args(qpool, tpool, jobs, dirs_off)
     from . import _build
 
-    scratch, use_smem, threads = _ring_scratch(jobs, cap, 7, flag)
     res.zero_()
-    lib = _build.load()
-    B = jobs.shape[0]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.wm_extd_launch(
-        qpool.data_ptr(), tpool.data_ptr(), jobs.data_ptr(), B,
-        dirs_off.data_ptr(), dirs.data_ptr(), res.data_ptr(),
-        scratch.data_ptr(), cap, int(use_smem), threads,
-        prof.q, prof.e, prof.q2, prof.e2, prof.sc_mch, prof.sc_mis,
-        prof.sc_n, prof.long_thres, prof.long_diff, int(prof.dead), flag,
-        stream)
+    rc = ext_launch(_build.load(), mode, geo, prof, flag, qpool, tpool,
+                    jobs, dirs_off, dirs, res,
+                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"extd kernel launch failed: cudaError {rc} "
+        raise RuntimeError(f"{mode} kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES["extd"] += 1
+    LAUNCHES[mode] += 1
     return res, dirs
 
 
-def exts_dp(qpool, tpool, jobs, dirs_off, ncol, geo: ExtsGeometry,
+def exts_dp(qpool, tpool, jobs, dirs_off, ncol, geo: ExtGeometry,
             prof: ExtsProfile, flag: int, dirs_bytes: int, jpool=None,
             joff=None):
     """K3 at the launch `geo` (exts_geometry).  Returns (res (B, 16) int32,
@@ -844,36 +914,13 @@ def exts_dp(qpool, tpool, jobs, dirs_off, ncol, geo: ExtsGeometry,
     return res, dirs
 
 
-def extz_dp(qpool, tpool, jobs, dirs_off, ncol, cap, prof: ExtzProfile,
-            flag: int, dirs_bytes: int):
-    """K4.  Returns (res (B, 16) int32, dirs (dirs_bytes,) uint8) on the
-    device of `jobs`.  CUDA tensors launch csrc/extz.cu; CPU tensors run
-    extz_dp_plain."""
-    dev = jobs.device
-    res, dirs = _dp_outputs(jobs, flag, dirs_bytes)
-    if dev.type == "cpu":
-        extz_dp_plain(qpool, tpool, jobs, dirs_off, ncol, prof, flag, res,
-                      dirs)
-        return res, dirs
-    _check_kernel_args(qpool, tpool, jobs, dirs_off)
-    from . import _build
-
-    scratch, use_smem, threads = _ring_scratch(jobs, cap, 5, flag)
-    res.zero_()
-    lib = _build.load()
-    B = jobs.shape[0]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.wm_extz_launch(
-        qpool.data_ptr(), tpool.data_ptr(), jobs.data_ptr(), B,
-        dirs_off.data_ptr(), dirs.data_ptr(), res.data_ptr(),
-        scratch.data_ptr(), cap, int(use_smem), threads, prof.q, prof.e,
-        prof.sc_mch, prof.sc_mis, prof.sc_n, prof.max_sc, int(prof.dead),
-        flag, stream)
-    if rc != 0:
-        raise RuntimeError(f"extz kernel launch failed: cudaError {rc} "
-                           f"({_build.error_string(rc)})")
-    LAUNCHES["extz"] += 1
-    return res, dirs
+def extz_dp(qpool, tpool, jobs, dirs_off, ncol, geo: ExtGeometry,
+            prof: ExtzProfile, flag: int, dirs_bytes: int):
+    """K4 at the launch `geo` (ext_geometry).  Returns (res (B, 16) int32,
+    dirs (dirs_bytes,) uint8) on the device of `jobs`.  CUDA tensors launch
+    csrc/extz.cu; CPU tensors run extz_dp_plain."""
+    return _ext_dp("extz", qpool, tpool, jobs, dirs_off, ncol, geo, prof,
+                   flag, dirs_bytes)
 
 
 # --------------------------------------------------------------------------
@@ -1090,12 +1137,14 @@ class DevCallPooled:
             prof = extz_profile(mat, q, e)
             self.min_intron = 0
             res, dirs = extz_dp(pools.qpool, pools.ref, jobs_t, off_t,
-                                ncol_t, geo.cap, prof, flag, geo.dirs_bytes)
+                                ncol_t, ext_geometry(geo.span, geo.qlen_max),
+                                prof, flag, geo.dirs_bytes)
         else:
             prof = extd_profile(mat, q, e, q2, e2)
             self.min_intron = 0
             res, dirs = extd_dp(pools.qpool, pools.ref, jobs_t, off_t,
-                                ncol_t, geo.cap, prof, flag, geo.dirs_bytes)
+                                ncol_t, ext_geometry(geo.span, geo.qlen_max),
+                                prof, flag, geo.dirs_bytes)
         if self.with_cigar:
             eb = torch.from_numpy(self.end_bonus).to(dev)
             start = select_starts(res, jobs_t, eb, self.extz_only, prof.dead,
