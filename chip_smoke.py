@@ -6,28 +6,30 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
   1. card and toolchain: name and power limit, nvcc/g++ versions, build
      time of the native library and of the CUDA kernels, ptxas's
      registers and spills of every K1, K3, K4 and K2 instantiation;
-  2. each kernel against its plain PyTorch version on the card:
-     K1 extd DP and K2 traceback at the map-ont path's shape (B=512 jobs of
-     length 1000, w=500) and on a ragged batch, map-ont and asm5 profiles,
-     flags 0x18 0x0 0xC2 0x40 0x01; K4 extz DP and K2 on the same two
-     batches under two single-cost profiles (-O 4,4 -E 2,2, and q = 61,
-     e = 2, whose biased score byte wraps: max_sc = 128); K1's and K4's
-     other launches (128 threads x 1-4 and 6-8 slots, the slot state in
-     shared memory) on batches of 32 jobs whose span takes each, at flags
-     0x18 and 0x0, and one long full-band job each (the slot state in
-     global scratch) against native.extd / native.extz; K3 exts DP and
-     K2's spliced form on B=256 spliced jobs (2-4 exons, 300-800 bases,
-     1-3 canonical introns of 100-1500 bases, junction bytes on a third),
-     splice profile at flags 0x508 (the splice path's) 0x500 0x600 0x318
-     0x1C2 0x101 0x0, splice:hq at 0x508 0x600 0x318 0x1C2, and one long
-     unbanded job (K3's large-band path, its slot state in global
-     scratch); and K3's other launches (256 threads x 1 slot, 512 x 1,
-     512 x 4, the slot state in shared memory) on batches of 32 spliced
-     jobs whose widest band takes each, at flags 0x508 and 0x5C2;
-     results and CIGARs must be exactly equal to the plain versions and to
-     native.extd / native.extz / native.exts on a sample (K3's checks and
-     K1's and K4's other launches run in three more processes, beside the
-     main K1/K4 checks: the plain versions are bound by the host's Python);
+  2. each kernel against its plain PyTorch version on the card, at every
+     launch the default geometry takes, each on a batch whose widest job
+     takes that launch with about the fewest rows (the plain versions'
+     time follows rows, the launch the band): K1 extd DP and K4 extz DP
+     with K2 traceback at 128 threads x 1-8 slots and the shared-memory
+     path on 32 jobs, map-ont and -O 4,4 -E 2,2 at flags 0x18 and 0x0;
+     at 128 x 5 (the main path's launch) on 48 ragged jobs under map-ont,
+     asm5, -O 4,4 -E 2,2 and q = 61, e = 2 (whose biased score byte wraps:
+     max_sc = 128), flags 0x18 0x0 0xC2 0x40 0x01; K3 exts DP and K2's
+     spliced form at 512 x 2 on 32 spliced jobs (2-3 exons, introns of
+     80-120 bases, junction bytes on a third), splice profile at flags
+     0x508 (the splice path's) 0x500 0x600 0x318 0x1C2 0x101 0x0,
+     splice:hq at 0x508 0x600 0x318 0x1C2, and at 256 x 1, 512 x 1,
+     512 x 4 and the shared-memory path at flags 0x508 and 0x5C2; each
+     also against native.extd / native.extz / native.exts on a sample,
+     where the K3 checks of each process must meet an N op; K1 and K4 with
+     K2 on the main batch (512 jobs of length 1000 at w = 500, flag 0x18
+     with no end bonus, the timed inputs, and flag 0x0), every job against
+     the plain versions; these checks run in worker processes (the plain
+     versions are bound by the host's Python).  Meanwhile every job of the
+     timed batches (the main batch; K3 with K2 on 256 spliced jobs of 2-4
+     exons with introns of 100-1500 bases at 0x508) and one long job each
+     of K1, K4 (a full band of 16800 lanes) and K3 (8600 exon bases), their
+     slot state in global scratch, against the native oracle, by digest;
      then kernel times from CUDA events, with the card to themselves;
   3. the port's CLI on the golden corpora (tests/data/golden): --sv-off
      byte-equal to golden_svoff.sam, sv-aware equal to golden_svon.sam up
@@ -36,17 +38,15 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      (--cs), and to golden_splice.sam apart from @PG;
   4. map-ont SV-aware mapping at real read length: a 1 Mbp genome and 1000
      reads of 15 +- 5 kb at 8% error (tests/tools/make_testdata.py, seed 7),
-     reads/s, STATS and kernel launch counts of the run, and K1's summed
-     device time (CUDA events around its C launch entry) with its launches
-     by launch and ring;
+     reads/s, STATS and kernel launch counts of the run, and K1's and K2's
+     summed device time (CUDA events around their C launch entries), K1's
+     launches by flag and by launch, jobs and longest rows per call;
   5. spliced mapping (-x splice -a) at a real size: a 4 Mbp genome with 400
      genes and 5000 reads of their transcripts from both strands, made
      with numpy (seed 20261016); reads/s, STATS and launch counts; every
      K3 and traceback launch timed by CUDA events recorded around its C
      launch entry (their summed device time and share of the wall, K3's
      launches by flag and by launch, jobs and longest rows per call);
-     then, for each launch K3 took, one of its calls run again through
-     K3 and K2 and through their plain versions, exactly equal;
   6. single-cost mapping (map-ont SV-aware with -O 4,4 -E 2,2 -a) of phase
      4's corpus: every DP job through K4, none through K1; K4's device time
      and launches as K1's in phase 4;
@@ -59,6 +59,20 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      rows, where no job stops early) and its variants, the P2 cases and
      the P1 bodies timed through their entry points, beside K1's row time
      from phase 2.
+  8. the generator mapping path (--junc-bed, -X, -D, --for-only,
+     --rev-only, --sr: map/batch.map_batch_generator) on the card: -x
+     splice --junc-bed byte-equal to golden_splice_junc.paf; the generator
+     entry with --sv-off -a byte-equal to golden_svoff.sam apart from @PG;
+     annotated spliced mapping (-x splice --junc-bed -a) of phase 5's
+     reads against its genome with a BED12 of its genes; all-vs-all
+     overlap (-X -c) of 200 of phase 4's reads; for both, reads/s, calls,
+     jobs a call, host and device seconds and launches, and on the host
+     just the jobs that the oracle's refusal guards refuse, counted apart.
+Every DP kernel call of phases 4, 5, 6 and 8 (c), (d) is recorded; for each
+launch a run took, its call at the median of that launch's longest rows
+(in 8 (c) one that carries junction bytes) is run again at the end through
+the kernel and K2 and through their plain versions, in worker processes,
+and must be exactly equal.
 Phases 4-6 keep no DP job on the engine's host DP (eng_host_dp_calls 0).
 It prints a "kernels" JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -80,6 +94,9 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 GOLD = REPO / "tests" / "data" / "golden"
 DATA = REPO / "smoke_data"
+# phase 5's genome, reads and gene BED (splice_corpus)
+SPLICE_CORPUS = (DATA / "splice_ref.fa", DATA / "splice_reads.fa",
+                 DATA / "splice_genes.bed")
 DEVICE = "cuda"
 MAP_ONT = (2, 4, 4, 2, 24, 1)  # a, b, q, e, q2, e2
 ASM5 = (1, 19, 39, 3, 81, 1)
@@ -89,6 +106,10 @@ ASM5 = (1, 19, 39, 3, 81, 1)
 EXTZ = (2, 4, 4, 2, 4, 2)
 EXTZ_WRAP = (2, 4, 61, 2, 61, 2)
 FLAGS = (0x18, 0x0, 0xC2, 0x40, 0x01)
+# processes that hold the kernels to their plain versions in phase 2
+PHASE2_WORKERS = 6
+# a worker process's CUDA context and what its cache keeps between calls
+HOLD_CONTEXT_BYTES = 1 << 30
 # splice and splice:hq (a, b, q, e, q2, noncan, junc_bonus); the splice
 # path's gap-filling jobs carry 0x508 (forward strand, flank, approx max)
 SPLICE = (1, 2, 2, 1, 32, 9, 9)
@@ -167,66 +188,126 @@ def band_cells(jobs_np, res_np):
     return live, wide
 
 
-def phase2(K, check, native, torch, gen_simple_mat, B=512, n=1000, w=500,
-           n_ragged=48):
-    """K1, K4 and K2 against their plain versions at the main path's shape
-    (B jobs of length n, band w) and on a ragged batch; returns the largest
-    errors and the main batch, for phase2_times."""
+def check_case(K, check, native, torch, c, name, qs, ts):
+    """The DP kernel of OnDevice c and K2 against their plain versions on
+    every job, and against the native oracle on a sample of 16; returns
+    the largest errors and how many sampled jobs' CIGARs hold an N op."""
+    dp = c.dp_name
+    err, res_k, ops_k, fin_k = check.check_against_plain(c)
+    torch.cuda.synchronize()
+    if any(err.values()):
+        fail(f"{dp}, K2 != plain on {name}: max abs err {err}")
+    res_np = res_k.cpu().numpy()
+    cig = None if c.flag & K.EZ_SCORE_ONLY else c.cigars(native, ops_k,
+                                                         fin_k)
+    B = len(c.jobs_np)
+    n_intron = 0
+    for i in range(0, B, max(1, B // 16)):
+        h = c.native(native, i, *c_seqs(c, i, qs, ts))
+        if res_np[i, :9].tolist() != native_fields(h) or (
+                cig is not None and not np.array_equal(cig[i], h.cigar)):
+            fail(f"{dp} != native.{dp} on {name} job {i}")
+        n_intron += int(((h.cigar & 15) == 3).any())
+    return err, n_intron
+
+
+def c_seqs(c, i, qs, ts):
+    """Job i's query and target as the DP reads them (spliced batches hold
+    them so already)."""
+    if c.spliced:
+        return qs[i], ts[i]
+    jb = c.jobs_np[i]
+    return (qs[i][::-1] if jb[2] else qs[i]), (ts[i][::-1] if jb[5] else ts[i])
+
+
+def native_fields(h):
+    return [h.max, int(h.zdropped), h.max_q, h.max_t, h.mqe, h.mqe_t, h.mte,
+            h.mte_q, h.score]
+
+
+def native_digest(K, check, native, c, qs, ts):
+    """The kernel chain (DP kernel, start selection, K2, CIGAR decoding)
+    on every job of c against the native oracle: fails on any difference;
+    returns the sha256 of the results and CIGARs, equal for both."""
+    import hashlib
+
+    saved = dict(K.LAUNCHES)
+    res, dirs = c.k1()
+    ops, fin = c.k2(dirs, c.starts(res))
+    cig = c.cigars(native, ops, fin)
+    K.LAUNCHES.update(saved)
+    res_np = res.cpu().numpy()
+    hk, hn = hashlib.sha256(), hashlib.sha256()
+    for i in range(len(c.jobs_np)):
+        h = c.native(native, i, *c_seqs(c, i, qs, ts))
+        kv, nv = res_np[i, :9].astype(np.int64), np.array(native_fields(h))
+        hk.update(kv.tobytes() + cig[i].astype(np.uint32).tobytes())
+        hn.update(nv.tobytes() + h.cigar.astype(np.uint32).tobytes())
+        if not np.array_equal(kv, nv) or not np.array_equal(cig[i], h.cigar):
+            fail(f"{c.dp_name} chain != native.{c.dp_name} on job {i}")
+    if hk.digest() != hn.digest():
+        fail(f"{c.dp_name} digest != native's")
+    return hk.hexdigest()[:16]
+
+
+def main_batch(check, gen_simple_mat, B=512, n=1000, w=500):
+    """The main path's shape, B jobs of length n at band w, and the cases
+    held on it, (profile, flag, end bonus): K1 (map-ont) and K4 (-O 4,4 -E
+    2,2) at flag 0x18 with no end bonus (the inputs phase2_times times) and
+    at flag 0x0 with random end bonuses."""
     rng = np.random.default_rng(20261016)
     main = check.random_jobs(rng, [n] * B, w, 400)
-    ragged_lens = rng.integers(50, 1500, n_ragged - 1)
-    ragged_ws = rng.choice([64, 97, 500, 751, -1], n_ragged)
-    ragged = check.random_jobs(rng, ragged_lens, ragged_ws,
-                               rng.choice([40, 200, 400], n_ragged),
-                               dissimilar=True)
-    checks = []
-    for name, (qp, tp, jobs, qs, ts) in (("main", main), ("ragged", ragged)):
-        for prof in (MAP_ONT, ASM5, EXTZ, EXTZ_WRAP):
-            mat = gen_simple_mat(prof[0], prof[1], 1)
-            for flag in FLAGS:
-                if name == "main" and (prof in (ASM5, EXTZ_WRAP)
-                                       or flag not in (0x18, 0x0)):
-                    continue
-                pj = jobs
-                if prof is EXTZ_WRAP:
-                    pj = jobs.copy()
-                    pj[:, 7] = -1
-                eb = rng.integers(0, 60, len(jobs))
-                checks.append((name, prof, flag, qp, tp, pj, qs, ts, mat, eb))
-    max_err = {"extd": 0, "extz": 0, "traceback": 0}
-    for name, prof, flag, qp, tp, jobs, qs, ts, mat, eb in checks:
-        c = check.OnDevice(DEVICE, qp, tp, jobs, mat, prof[2:], flag, eb)
-        dp = c.dp_name
-        err, res_k, ops_k, fin_k = check.check_against_plain(c)
-        torch.cuda.synchronize()
-        for k in (dp, "traceback"):
-            max_err[k] = max(max_err[k], err[k])
-        if err[dp] or err["traceback"]:
-            fail(f"kernels != plain on {name} {prof} flag {flag:#x}: "
-                 f"max abs err {err}")
-        res_np = res_k.cpu().numpy()
-        if not (flag & K.EZ_SCORE_ONLY):
-            cig = c.cigars(native, ops_k, fin_k)
-        # the native oracle on a sample of jobs
-        sample = range(0, len(jobs), max(1, len(jobs) // 16))
-        for i in sample:
-            qq = qs[i][::-1] if jobs[i, 2] else qs[i]
-            tt = ts[i][::-1] if jobs[i, 5] else ts[i]
-            h = c.native(native, i, qq, tt)
-            hv = [h.max, int(h.zdropped), h.max_q, h.max_t, h.mqe, h.mqe_t,
-                  h.mte, h.mte_q, h.score]
-            if res_np[i, :9].tolist() != hv:
-                fail(f"{dp} kernel != native.{dp} on {name} {prof} flag "
-                     f"{flag:#x} job {i}: {res_np[i, :9].tolist()} vs {hv}")
-            if not (flag & K.EZ_SCORE_ONLY) and not np.array_equal(
-                    cig[i], h.cigar):
-                fail(f"CIGAR != native.{dp} on {name} {prof} flag "
-                     f"{flag:#x} job {i}")
-        log(f"[phase 2] {name:6s} {dp} a={prof[0]} q={prof[2]} "
+    cases = [(prof, flag, np.zeros(B, np.int64) if flag == 0x18
+              else rng.integers(0, 60, B))
+             for prof in (MAP_ONT, EXTZ) for flag in (0x18, 0x0)]
+    return main, cases
+
+
+def phase2_main(K, check, native, torch, gen_simple_mat):
+    """The main batch's four cases, every job against the native oracle,
+    by digest (check_main_batch holds them to the plain versions); returns
+    the batch for phase2_times."""
+    main, cases = main_batch(check, gen_simple_mat)
+    qp, tp, jobs, qs, ts = main
+    for prof, flag, eb in cases:
+        c = check.OnDevice(DEVICE, qp, tp, jobs,
+                           gen_simple_mat(prof[0], prof[1], 1), prof[2:],
+                           flag, eb)
+        d = native_digest(K, check, native, c, qs, ts)
+        log(f"[phase 2] main {c.dp_name} a={prof[0]} q={prof[2]} "
             f"flag={flag:#04x} B={len(jobs)} ({c.ext.path}, ring "
-            f"{c.ext.ring}): {dp}, K2 == plain on every job; == native.{dp} "
-            f"on a sample")
-    return max_err, main
+            f"{c.ext.ring}): == native.{c.dp_name} on every job (digest {d})")
+    return main
+
+
+def check_main_batch(pname):
+    """The main batch's cases of profile `pname` through K1 or K4 and K2
+    against their plain versions on every job; returns the largest errors.
+    Runs in a process of its own."""
+    import torch
+
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.extend import check
+    from winnowmap_tpu_torch.extend import kernels as K
+    from winnowmap_tpu_torch.map.align import gen_simple_mat
+
+    (qp, tp, jobs, qs, ts), cases = main_batch(check, gen_simple_mat)
+    max_err = {"extd": 0, "extz": 0, "traceback": 0}
+    for prof, flag, eb in cases:
+        if prof is not PROFILES[pname]:
+            continue
+        c = check.OnDevice(DEVICE, qp, tp, jobs,
+                           gen_simple_mat(prof[0], prof[1], 1), prof[2:],
+                           flag, eb)
+        err, _ = check_case(K, check, native, torch, c,
+                            f"main {pname} flag {flag:#x}", qs, ts)
+        for k in err:
+            max_err[k] = max(max_err[k], err[k])
+        log(f"[phase 2] main {c.dp_name} {pname} flag={flag:#04x} "
+            f"B={len(jobs)} ({c.ext.path}, ring {c.ext.ring}, "
+            f"{int(c.geo.rows.max())} rows): {c.dp_name}, K2 == plain on "
+            f"every job; == native on a sample")
+    return max_err
 
 
 def phase2_times(K, check, torch, gen_simple_mat, max_err, main):
@@ -321,26 +402,42 @@ def time_kernels(K, torch, c, max_err, ops_per_cell, names, shape):
     return rec
 
 
-# K1's and K4's launches besides the main batch's (128 x 5), each with the
-# job lengths and band widths whose span takes it (rings of 128 x 1-4 and
-# 6-8 lanes, and full bands of 1100-1400 bp: the memory path, its slot
-# state in shared memory)
-EXT_LAUNCH_BATCHES = (("reg128x1", (150, 320), (33, 64)),
-                      ("reg128x2", (300, 520), (97, 150)),
-                      ("reg128x3", (450, 700), (220, 300)),
-                      ("reg128x4", (550, 800), (350, 440)),
-                      ("reg128x6", (850, 1100), (600, 700)),
-                      ("reg128x7", (1000, 1250), (730, 820)),
-                      ("reg128x8", (1100, 1400), (860, 950)),
-                      ("mem-smem", (1100, 1400), (-1,)))
+# The launches the default geometry takes, each with the band (K1, K4:
+# min(qlen, tlen, w + 1); K3: min(qlen, tlen)) of the widest job of a batch
+# that takes it with few rows: 64 above the bottom of the launch's range
+# (the widest job's mutated query may be a few tens of bases short of its
+# target).  K1, K4: ring 128 x ceil(span / 128) lanes with span =
+# kernels.ring_span(band), the memory path above 1024 (its slot state in
+# shared memory here); K3: a ring of the power of two >= band + 64 lanes
+# (256 x 1, 512 x 1/2/4, the memory path from 4096).  The plain versions'
+# time follows rows (qlen + tlen - 1), the launch follows the band.
+EXT_LAUNCH_BANDS = (("reg128x1", 64), ("reg128x2", 145), ("reg128x3", 273),
+                    ("reg128x4", 401), ("reg128x5", 529), ("reg128x6", 657),
+                    ("reg128x7", 785), ("reg128x8", 913), ("mem-smem", 1041))
+K3_LAUNCH_BANDS = (("reg256x1", 160), ("reg512x1", 256), ("reg512x2", 512),
+                   ("reg512x4", 1024), ("mem-smem", 2048))
+PROFILES = {"map-ont": MAP_ONT, "asm5": ASM5, "extz": EXTZ,
+            "extz-wrap": EXTZ_WRAP, "splice": SPLICE, "splice:hq": SPLICE_HQ}
 
 
-def phase2_ext_launches(B=32):
-    """K1 (map-ont) and K4 (-O 4,4 -E 2,2) with K2 against their plain
-    versions at each launch of EXT_LAUNCH_BATCHES on B jobs at flags 0x18
-    and 0x0, and one long full-band job each (16800 bp: the slot state in
-    global scratch) against native.extd / native.extz; returns the largest
-    errors.  Runs in a process of its own, beside phase2."""
+def ext_launch_batch(check, rng, band, B):
+    """B jobs whose widest band is `band`: a full-band job of band bases
+    leads, B - 2 jobs of band/2 to band bases at mixed band widths (full,
+    or narrow up to half the band), and one unrelated pair (150 vs 140
+    bases) ends the batch."""
+    ws = [w for w in (33, 64, 97, band // 2, -1)
+          if (w == -1 and band >= 150) or 0 < w < band]
+    lens = np.concatenate([[band], rng.integers(band // 2, band + 1, B - 2)])
+    return check.random_jobs(
+        rng, lens, np.concatenate([[-1], rng.choice(ws, B - 1)]),
+        rng.choice([40, 200, 400], B), dissimilar=True)
+
+
+def check_ext_launches(seed, launches, cases, B=32):
+    """K1 or K4 (by profile) with K2 against their plain versions, at each
+    launch of `launches` (names of EXT_LAUNCH_BANDS) on a batch of B jobs
+    that takes it, for each (profile name, flag) of `cases`; returns the
+    largest errors.  Runs in a process of its own."""
     import torch
 
     import winnowmap_tpu_torch.native as native
@@ -348,32 +445,91 @@ def phase2_ext_launches(B=32):
     from winnowmap_tpu_torch.extend import kernels as K
     from winnowmap_tpu_torch.map.align import gen_simple_mat
 
-    rng = np.random.default_rng(20261018)
+    rng = np.random.default_rng(seed)
     max_err = {"extd": 0, "extz": 0, "traceback": 0}
-    for path, (lo, hi), ws in EXT_LAUNCH_BATCHES:
-        qp, tp, jobs, _, _ = check.random_jobs(
-            rng, rng.integers(lo, hi, B - 1), rng.choice(ws, B),
-            rng.choice([40, 200, 400], B), dissimilar=True)
-        for prof in (MAP_ONT, EXTZ):
-            for flag in (0x18, 0x0):
-                c = check.OnDevice(DEVICE, qp, tp, jobs,
-                                   gen_simple_mat(prof[0], prof[1], 1),
-                                   prof[2:], flag, rng.integers(0, 60, B))
-                if c.ext.path != path:
-                    fail(f"the batch for K1/K4's {path} launch took "
-                         f"{c.ext.path}")
-                err, _, _, _ = check.check_against_plain(c)
-                torch.cuda.synchronize()
-                for k in err:
-                    max_err[k] = max(max_err[k], err[k])
-                if any(err.values()):
-                    fail(f"{c.dp_name}, K2 != plain at {path} flag "
-                         f"{flag:#x}: max abs err {err}")
-                log(f"[phase 2] {c.dp_name} {path:9s} flag={flag:#04x} B={B} "
-                    f"(ring {c.ext.ring}, {int(c.geo.rows.max())} rows): "
-                    f"{c.dp_name}, K2 == plain on every job")
-    # one long job: a full band of ~16800 lanes, the slot state in global
-    # scratch
+    for path, band in EXT_LAUNCH_BANDS:
+        if path not in launches:
+            continue
+        qp, tp, jobs, qs, ts = ext_launch_batch(check, rng, band, B)
+        for pname, flag in cases:
+            prof = PROFILES[pname]
+            pj = jobs
+            if prof is EXTZ_WRAP:  # its scores fall at once: no z-drop
+                pj = jobs.copy()
+                pj[:, 7] = -1
+            c = check.OnDevice(DEVICE, qp, tp, pj,
+                               gen_simple_mat(prof[0], prof[1], 1), prof[2:],
+                               flag, rng.integers(0, 60, B))
+            if c.ext.path != path:
+                fail(f"the batch for K1/K4's {path} launch took {c.ext.path}")
+            err, _ = check_case(K, check, native, torch, c,
+                                f"{path} {pname} flag {flag:#x}", qs, ts)
+            for k in err:
+                max_err[k] = max(max_err[k], err[k])
+            log(f"[phase 2] {c.dp_name} {path:9s} {pname:9s} "
+                f"flag={flag:#04x} B={B} (ring {c.ext.ring}, "
+                f"{int(c.geo.rows.max())} rows): {c.dp_name}, K2 == plain on "
+                f"every job; == native on a sample")
+    return max_err
+
+
+def check_k3_launches(seed, launches, cases, B=32):
+    """K3 and K2's spliced form against their plain versions at each
+    launch of `launches` (names of K3_LAUNCH_BANDS) on B spliced jobs of
+    2-3 exons (introns of 80-120 bases, junction bytes on a third) that
+    take it, for each (profile name, flag) of `cases` (the flag's
+    rev_cigar bit picks a batch read reversed); returns the largest
+    errors.  Runs in a process of its own."""
+    import torch
+
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.extend import check
+    from winnowmap_tpu_torch.extend import kernels as K
+    from winnowmap_tpu_torch.map.align import gen_simple_mat
+
+    rng = np.random.default_rng(seed)
+    max_err = {"exts": 0, "traceback": 0}
+    n_intron = 0
+    for path, band in K3_LAUNCH_BANDS:
+        if path not in launches:
+            continue
+        batches = {rev: check.spliced_jobs(
+            rng, B, rev=rev, exon_total=(band, band + 16), n_exons=(2, 3),
+            intron_len=(80, 120)) for rev in (False, True)}
+        for pname, flag in cases:
+            a, b, q, e, q2, noncan, jb = PROFILES[pname]
+            qp, tp, jobs, qs, ts, js = batches[bool(flag & K.EZ_REV_CIGAR)]
+            c = check.OnDevice(DEVICE, qp, tp, jobs, gen_simple_mat(a, b, 1),
+                               (q, e, q2), flag, 0, splice=(noncan, jb),
+                               juncs=js)
+            if c.k3.path != path:
+                fail(f"the batch for K3's {path} launch took {c.k3.path}")
+            err, n = check_case(K, check, native, torch, c,
+                                f"K3 {path} {pname} flag {flag:#x}", qs, ts)
+            n_intron += n
+            for k in err:
+                max_err[k] = max(max_err[k], err[k])
+            log(f"[phase 2] K3 {path:9s} {pname:9s} flag={flag:#05x} B={B} "
+                f"(ring {c.k3.ring}, {int(c.geo.rows.max())} rows): K3, K2 "
+                f"== plain on every job; == native.exts on a sample ({n} "
+                f"with an N op)")
+    if n_intron == 0:
+        fail(f"no sampled spliced job of {launches} {cases} has an intron")
+    return max_err
+
+
+def check_long_jobs():
+    """One long job each through K1 and K4 (a full band of ~16800 lanes)
+    and K3 (shorter side above 8192), their slot state in global scratch,
+    against the native oracle; returns the largest errors (0: the native
+    oracle, not the plain versions, holds them).  Runs in a process of its
+    own."""
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.extend import check
+    from winnowmap_tpu_torch.extend import kernels as K
+    from winnowmap_tpu_torch.map.align import gen_simple_mat
+
+    rng = np.random.default_rng(20261018)
     t = rng.integers(0, 4, 16800).astype(np.uint8)
     q = check.mutate(rng, t, 0.08)
     qp = np.concatenate([q, np.zeros(16, np.uint8)])
@@ -383,153 +539,68 @@ def phase2_ext_launches(B=32):
         c = check.OnDevice(DEVICE, qp, tp, jobs,
                            gen_simple_mat(prof[0], prof[1], 1), prof[2:],
                            0x0, 0)
-        saved = dict(K.LAUNCHES)
-        res, dirs = c.k1()
-        ops, fin = c.k2(dirs, c.starts(res))
-        K.LAUNCHES.update(saved)
-        h = c.native(native, 0, q, t)
-        if c.ext.path != "mem-global" or res[0, :9].tolist() != [
-                h.max, int(h.zdropped), h.max_q, h.max_t, h.mqe, h.mqe_t,
-                h.mte, h.mte_q, h.score] or not np.array_equal(
-                    c.cigars(native, ops, fin)[0], h.cigar):
-            fail(f"the long full-band job differs from native.{c.dp_name} "
-                 f"({c.ext.path})")
+        if c.ext.path != "mem-global":
+            fail(f"the long {c.dp_name} job took {c.ext.path}")
+        native_digest(K, check, native, c, [q], [t])
         log(f"[phase 2] long {c.dp_name} job {len(q)} x {len(t)} "
             f"({c.ext.path}, ring {c.ext.ring}) == native.{c.dp_name}")
-    return max_err
-
-
-def phase2_splice(B=256):
-    """K3 and K2's spliced form against their plain versions on B spliced
-    jobs per flag and profile, and a long unbanded job against native.exts;
-    returns the largest errors.  Runs in a second process while phase2
-    checks K1 and K4: the plain versions keep a host core busy and leave
-    the card idle, so the two overlap."""
-    import torch
-
-    import winnowmap_tpu_torch.native as native
-    from winnowmap_tpu_torch.extend import check
-    from winnowmap_tpu_torch.extend import kernels as K
-    from winnowmap_tpu_torch.map.align import gen_simple_mat
-
-    rng = np.random.default_rng(20261016)
-    batches = {rev: check.spliced_jobs(rng, B, rev=rev)
-               for rev in (False, True)}
-    max_err = {"exts": 0, "traceback": 0}
-    n_intron = 0
-    for pname, prof, flags in (("splice", SPLICE, SPLICE_FLAGS),
-                               ("splice:hq", SPLICE_HQ, SPLICE_HQ_FLAGS)):
-        a, b, q, e, q2, noncan, jb = prof
-        mat = gen_simple_mat(a, b, 1)
-        for flag in flags:
-            qp, tp, jobs, qs, ts, js = batches[bool(flag & K.EZ_REV_CIGAR)]
-            c = check.OnDevice(DEVICE, qp, tp, jobs, mat, (q, e, q2), flag,
-                               0, splice=(noncan, jb), juncs=js)
-            err, res_k, ops_k, fin_k = check.check_against_plain(c)
-            torch.cuda.synchronize()
-            for k in max_err:
-                max_err[k] = max(max_err[k], err[k])
-            if err["exts"] or err["traceback"]:
-                fail(f"spliced kernels != plain on {pname} flag {flag:#x}: "
-                     f"max abs err {err}")
-            res_np = res_k.cpu().numpy()
-            cig = (None if flag & K.EZ_SCORE_ONLY
-                   else c.cigars(native, ops_k, fin_k))
-            for i in range(0, B, B // 16):
-                h = native.exts(qs[i], ts[i], mat, q, e, q2, noncan,
-                                int(jobs[i, 7]), jb, flag, junc=js[i])
-                hv = [h.max, int(h.zdropped), h.max_q, h.max_t, h.mqe,
-                      h.mqe_t, h.mte, h.mte_q, h.score]
-                if res_np[i, :9].tolist() != hv:
-                    fail(f"K3 != native.exts on {pname} flag {flag:#x} job "
-                         f"{i}: {res_np[i, :9].tolist()} vs {hv}")
-                if cig is not None:
-                    if not np.array_equal(cig[i], h.cigar):
-                        fail(f"spliced CIGAR != native.exts on {pname} flag "
-                             f"{flag:#x} job {i}")
-                    n_intron += int(((h.cigar & 15) == 3).any())
-            log(f"[phase 2] {pname:9s} flag={flag:#05x} B={B}: K3, K2 "
-                f"== plain on every job; == native.exts on a sample")
-    if n_intron == 0:
-        fail("no sampled spliced job has an intron")
-    # one long job: shorter side above 8192 lanes, K3's slot state in
-    # global scratch (the large-band path)
     a, b, q, e, q2, noncan, jb = SPLICE
-    mat = gen_simple_mat(a, b, 1)
     qp, tp, jobs, qs, ts, _ = check.spliced_jobs(
         rng, 1, junc_frac=0, exon_total=(8600, 8600), n_exons=(4, 4))
-    c = check.OnDevice(DEVICE, qp, tp, jobs, mat, (q, e, q2), 0x508, 0,
-                       splice=(noncan, jb))
-    saved = dict(K.LAUNCHES)
-    res, dirs = c.k1()
-    ops, fin = c.k2(dirs, c.starts(res))
-    K.LAUNCHES.update(saved)
-    h = native.exts(qs[0], ts[0], mat, q, e, q2, noncan, int(jobs[0, 7]), jb,
-                    0x508)
-    if res[0, :9].tolist() != [h.max, int(h.zdropped), h.max_q, h.max_t,
-                               h.mqe, h.mqe_t, h.mte, h.mte_q, h.score] \
-            or not np.array_equal(c.cigars(native, ops, fin)[0], h.cigar):
-        fail("the long unbanded job differs from native.exts")
+    c = check.OnDevice(DEVICE, qp, tp, jobs, gen_simple_mat(a, b, 1),
+                       (q, e, q2), 0x508, 0, splice=(noncan, jb))
+    if c.k3.path != "mem-global":
+        fail(f"the long spliced job took K3's {c.k3.path}")
+    native_digest(K, check, native, c, qs, ts)
     log(f"[phase 2] long spliced job {jobs[0, 1]} x {jobs[0, 4]} (K3 "
         f"{c.k3.path}, ring {c.k3.ring} lanes) == native.exts")
-    return max_err
+    return {}
 
 
-# K3's launches besides those of phase2_splice's batches (512 x 2) and
-# long job (the memory path in global scratch), each with the exon total
-# (check.spliced_jobs) whose widest band needs it: bands up to 192, 448,
-# 1984 and 4032 lanes take rings of 256, 512, 2048 and 4096
-K3_LAUNCH_BATCHES = (("reg256x1", (100, 170)), ("reg512x1", (260, 420)),
-                     ("reg512x4", (1100, 1900)), ("mem-smem", (2200, 3000)))
+def phase2_tasks():
+    """The kernel-against-plain checks, as (function, args) for the worker
+    processes, the longest first: the main batch's four cases (the timed
+    inputs among them); every K1/K4 launch at map-ont and -O 4,4 -E 2,2
+    under flags 0x18 and 0x0, and 128 x 5 (the main batch's launch) under
+    every profile and flag; K3 at 512 x 2 (the spliced batches' launch)
+    under every splice and splice:hq flag, and every other K3 launch at
+    flags 0x508 and 0x5C2; the long jobs."""
+    other = [p for p, _ in EXT_LAUNCH_BANDS if p != "reg128x5"]
+    k3_other = [p for p, _ in K3_LAUNCH_BANDS if p != "reg512x2"]
+    tasks = [(check_main_batch, (pname,)) for pname in ("map-ont", "extz")]
+    for i, (pname, flag) in enumerate((("map-ont", 0x18), ("map-ont", 0x0),
+                                       ("extz", 0x18), ("extz", 0x0))):
+        tasks.append((check_ext_launches, (20261020 + i, other,
+                                           [(pname, flag)])))
+    tasks.append((check_k3_launches, (20261017, ["reg512x2"],
+                                      [("splice", f) for f in SPLICE_FLAGS])))
+    for i, flag in enumerate((0x508, 0x5C2)):
+        tasks.append((check_k3_launches, (20261030 + i, k3_other,
+                                          [("splice", flag)])))
+    for i, pname in enumerate(("map-ont", "asm5", "extz", "extz-wrap")):
+        tasks.append((check_ext_launches, (20261024 + i, ["reg128x5"],
+                                           [(pname, f) for f in FLAGS], 48)))
+    tasks.append((check_k3_launches, (20261019, ["reg512x2"],
+                                      [("splice:hq", f)
+                                       for f in SPLICE_HQ_FLAGS])))
+    tasks.append((check_long_jobs, ()))
+    return tasks
 
 
-def phase2_splice_launches(B=32):
-    """K3 and K2's spliced form against their plain versions at each of
-    K3's launches in K3_LAUNCH_BATCHES: B spliced jobs of 2-3 exons
-    (introns of 80-400 bases, junction bytes on a third) at flags 0x508
-    (the splice path's) and 0x5C2 (the exact max, right-aligned reversed
-    extensions); returns the largest errors.  Runs in a process of its
-    own, beside phase2 and phase2_splice."""
-    import torch
-
-    from winnowmap_tpu_torch.extend import check
-    from winnowmap_tpu_torch.extend import kernels as K
-    from winnowmap_tpu_torch.map.align import gen_simple_mat
-
-    rng = np.random.default_rng(20261017)
-    a, b, q, e, q2, noncan, jb = SPLICE
-    mat = gen_simple_mat(a, b, 1)
-    max_err = {"exts": 0, "traceback": 0}
-    for path, exon_total in K3_LAUNCH_BATCHES:
-        for flag in (0x508, 0x5C2):
-            qp, tp, jobs, _, _, js = check.spliced_jobs(
-                rng, B, rev=bool(flag & K.EZ_REV_CIGAR),
-                exon_total=exon_total, n_exons=(2, 3), intron_len=(80, 400))
-            c = check.OnDevice(DEVICE, qp, tp, jobs, mat, (q, e, q2), flag,
-                               0, splice=(noncan, jb), juncs=js)
-            if c.k3.path != path:
-                fail(f"the batch for K3's {path} launch took {c.k3.path}")
-            err, _, _, _ = check.check_against_plain(c)
-            torch.cuda.synchronize()
-            for k in max_err:
-                max_err[k] = max(max_err[k], err[k])
-            if err["exts"] or err["traceback"]:
-                fail(f"spliced kernels != plain at K3 {path} flag "
-                     f"{flag:#x}: max abs err {err}")
-            log(f"[phase 2] K3 {path:9s} flag={flag:#05x} B={B} (ring "
-                f"{c.k3.ring}, {int(c.geo.rows.max())} rows): K3, K2 == "
-                f"plain on every job")
-    return max_err
-
-
-def phase2_splice_times(K, check, torch, gen_simple_mat, max_err, B=256):
-    """K3 and K2's spliced form timed as the engine calls them (flag 0x508,
-    no junction bytes) on phase2_splice's first batch; returns their
-    records."""
+def phase2_splice_times(K, check, native, torch, gen_simple_mat, max_err,
+                        B=256):
+    """K3 and K2's spliced form as the engine calls them (flag 0x508, no
+    junction bytes) on B spliced jobs of 2-4 exons with introns of 100-1500
+    bases: every job against native.exts by digest, then timed; returns
+    their records."""
     rng = np.random.default_rng(20261016)
-    qp, tp, jobs, _, _, _ = check.spliced_jobs(rng, B)
+    qp, tp, jobs, qs, ts, _ = check.spliced_jobs(rng, B)
     c = check.OnDevice(DEVICE, qp, tp, jobs, gen_simple_mat(1, 2, 1),
                        SPLICE[2:5], 0x508, 0, splice=SPLICE[5:])
+    d = native_digest(K, check, native, c, qs, ts)
+    log(f"[phase 2] timed spliced batch B={B} flag=0x508 ({c.k3.path}, "
+        f"{int(c.geo.rows.max())} rows): == native.exts on every job "
+        f"(digest {d})")
     return time_kernels(K, torch, c, max_err, OPS_PER_CELL_EXTS, (
         ("exts_dp", "exts.cu", "winnowmap_tpu/extend/pallas_kernel.py:879"),
         ("traceback_splice", "traceback.cu",
@@ -680,73 +751,98 @@ class EntryTimer:
         return [a.elapsed_time(z) for a, z in self.events[name]]
 
 
-class ExtTimer(EntryTimer):
-    """An EntryTimer around K1's (mode "extd") or K4's ("extz") C launch
-    entry, and each K.ext_launch call of that mode counted by its
-    ExtGeometry's launch and ring."""
-
-    def __init__(self, torch, K, mode):
-        import inspect
-
-        self.mode, self.name = mode, f"wm_{mode}_launch"
-        super().__init__(torch, (self.name,))
-        self.K, self.ext_launch = K, K.ext_launch
-        self.sig = inspect.signature(K.ext_launch)
-        self.launches = {}
-
-    def __enter__(self):
-        self.K.ext_launch = self._count
-        return super().__enter__()
-
-    def __exit__(self, *exc):
-        self.K.ext_launch = self.ext_launch
-        super().__exit__(*exc)
-
-    def _count(self, *args, **kw):
-        call = self.sig.bind(*args, **kw).arguments
-        if call["mode"] == self.mode:
-            key = f"{call['geo'].path}/{call['geo'].ring}"
-            self.launches[key] = self.launches.get(key, 0) + 1
-        return self.ext_launch(*args, **kw)
-
-    def summary(self, wall_s):
-        """Summed device ms, launches, share of the wall, and launches by
-        launch/ring."""
-        ms = float(sum(self.ms(self.name)))
-        return {"ms": ms, "launches": len(self.events[self.name]),
-                "share": ms / 1e3 / wall_s, "by_launch": self.launches}
-
-
 def map_timed(torch, K, batch, mi, mo, seqs, names, mode):
     """map_batch on the reads after a warm-up on eight, with the launch
-    counts and STATS zeroed first and the DP kernel (mode "extd" or
-    "extz") timed; returns (results, wall s, launches, STATS, the timer's
-    summary)."""
+    counts and STATS zeroed first, the DP kernel (mode "extd", "extz" or
+    "exts") and K2 timed and their calls recorded, and the jobs that the
+    refusal guards keep off the device counted (none on the engine path);
+    returns (results, wall s, launches, STATS, the timer, that count).  The
+    timer's `peak` is the most the run reserved on the card."""
     batch.map_batch(mi, mo, seqs[:8], names[:8])
     torch.cuda.synchronize()
     batch.STATS.clear()
     K.reset_launches()
-    with ExtTimer(torch, K, mode) as timer:
+    # the peak is this run's own, not what an earlier phase left cached
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with GuardCount(batch) as guard, LaunchTimer(K, torch, mode) as timer:
         t0 = time.perf_counter()
         results = batch.map_batch(mi, mo, seqs, names)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+    timer.peak = torch.cuda.max_memory_reserved()
     launches = dict(K.LAUNCHES)
     st = {k: round(float(v), 6) for k, v in batch.STATS.items()}
-    return results, dt, launches, st, timer.summary(dt)
+    return results, dt, launches, st, timer, guard.n
 
 
-def log_device(phase, kname, dev, st):
-    log(f"[{phase}] {kname} device time: {dev['ms']:.3f} ms over "
-        f"{dev['launches']} launches ({100 * dev['share']:.2f}% of the "
-        f"wall; dispatch_s {st.get('dispatch_s')}, dev_wait_s "
-        f"{st.get('dev_wait_s')}); by launch/ring {dev['by_launch']}")
+def refuses(job):
+    """Whether the reference's refusal guards keep a DP job off the device
+    (wm_engine.cpp device_eligible): an empty side, a DP matrix above
+    --cap-sw-mem, or a spliced profile that wm_exts refuses (q2 <= q + e,
+    or a mismatch or N score beyond 2(q + e))."""
+    from winnowmap_tpu_torch.options import MM_F_SPLICE
+
+    opt, qlen, tlen = job[0], len(job[1]), len(job[2])
+    if qlen == 0 or tlen == 0 or 0 < opt.max_sw_mat < qlen * tlen:
+        return True
+    qe = opt.q + opt.e
+    return bool(opt.flag & MM_F_SPLICE) and (
+        opt.q2 <= qe or max(abs(opt.b), abs(opt.sc_ambi)) > 2 * qe)
+
+
+class GuardCount:
+    """While the block runs: how many of the jobs that the generator path's
+    tasks yield refuses() keeps off the device, counted from each job's
+    options and sizes apart from the path's own test (align.refused)."""
+
+    def __init__(self, batch):
+        self.task, self.n = batch._Task, 0
+
+    def __enter__(self):
+        self.advance = advance = self.task.advance
+
+        def counted(t, send_val=None):
+            advance(t, send_val)
+            if t.job is not None:
+                jobs = t.job if isinstance(t.job, list) else [t.job]
+                self.n += sum(map(refuses, jobs))
+        self.task.advance = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.task.advance = self.advance
+
+
+def log_device(phase, timer, dt, n, launches, st):
+    """Log a timed run's reads/s, device time (summed ms and share of the
+    wall of the DP kernel and K2), the DP kernel's launches by flag and by
+    launch, jobs and longest rows per call, and the host's seconds; returns
+    the timer's summary."""
+    dev = timer.summary(dt)
+    a, b = LaunchTimer.NAMES[timer.mode]
+    A, B = a.upper(), b.upper()
+    log(f"[{phase}] {n} reads in {dt:.3f} s -> {n / dt:.3f} reads/s; "
+        f"launches {launches}")
+    log(f"[{phase}] device time: {A} {dev[f'{a}_ms']:.3f} ms over "
+        f"{dev[f'{a}_launches']} launches ({100 * dev[f'{a}_share']:.2f}% of "
+        f"the wall), {B} {dev[f'{b}_ms']:.3f} ms over "
+        f"{dev[f'{b}_launches']} ({100 * dev[f'{b}_share']:.2f}%); {A} by "
+        f"flag {dev[f'{a}_by_flag']}, by launch {dev[f'{a}_by_path']}; jobs "
+        f"per call (min, median, max) {dev['jobs_per_call']}; longest job's "
+        f"rows per call (median, max) {dev['rows_per_call']}; card memory "
+        f"reserved at most {dev['peak_reserved_gib']:.2f} GiB; host: "
+        f"dispatch_s {st.get('dispatch_s')}, dev_wait_s "
+        f"{st.get('dev_wait_s')}")
+    log(f"[{phase}] STATS " + json.dumps(st, sort_keys=True))
     log(f"[{phase}] JSON " + json.dumps({
-        "kernel": kname, "device": dev, "dispatch_s": st.get("dispatch_s"),
-        "dev_wait_s": st.get("dev_wait_s")}))
+        "reads": n, "wall_s": dt, "reads_per_s": n / dt, "device": dev,
+        "dispatch_s": st.get("dispatch_s"),
+        "dev_wait_s": st.get("dev_wait_s"), "launches": launches}))
+    return dev
 
 
-def phase4(torch, K, build, fastx, options, batch, seqcode):
+def phase4(torch, K, build, fastx, options, batch, seqcode, holds):
     DATA.mkdir(exist_ok=True)
     pre = DATA / "wmbench2"
     ref, reads = Path(f"{pre}_ref.fa"), Path(f"{pre}_reads.fa")
@@ -774,15 +870,14 @@ def phase4(torch, K, build, fastx, options, batch, seqcode):
         f" index {len(mi.keys)} keys ({time.perf_counter() - t0:.1f} s)")
     rs = fastx.read_all(str(reads))
     seqs, names = [r.seq for r in rs], [r.name for r in rs]
-    results, dt, launches, st, dev = map_timed(
+    results, dt, launches, st, timer, _ = map_timed(
         torch, K, batch, mi, mo, seqs, names, "extd")
     n_mapped = sum(1 for r in results if r.regs)
-    log(f"[phase 4] mapped {len(seqs)} reads ({sum(map(len, seqs))} bp) in "
-        f"{dt:.3f} s -> {len(seqs) / dt:.3f} reads/s; {n_mapped} with hits")
-    log(f"[phase 4] launches {launches}; dev_jobs {int(st['dev_jobs'])} vs "
-        f"engine host-kept {int(st.get('eng_host_dp_calls', 0))}")
-    log("[phase 4] STATS " + json.dumps(st, sort_keys=True))
-    log_device("phase 4", "K1", dev, st)
+    log(f"[phase 4] {n_mapped} of {len(seqs)} reads ({sum(map(len, seqs))} "
+        f"bp) with hits; dev_jobs {int(st['dev_jobs'])} vs engine host-kept "
+        f"{int(st.get('eng_host_dp_calls', 0))}")
+    log_device("phase 4", timer, dt, len(seqs), launches, st)
+    holds += timer.pick("phase 4")
     if launches["extd"] == 0 or launches["traceback"] == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
     check_mapped("phase 4", st, results, len(seqs))
@@ -808,19 +903,20 @@ def check_mapped(phase, st, results, n_reads):
                 fail(f"{phase}: malformed alignment record")
 
 
-def splice_corpus(check, ref: Path, reads: Path, seed: int = 20261016,
-                  genome_len: int = 4_000_000, n_genes: int = 400,
-                  n_reads: int = 5000):
+def splice_corpus(check, ref: Path, reads: Path, bed: Path,
+                  seed: int = 20261016, genome_len: int = 4_000_000,
+                  n_genes: int = 400, n_reads: int = 5000):
     """A genome of two chromosomes with n_genes genes, one per slot of
     genome_len / n_genes bases, half of them on the reverse strand: 4-12
     exons of 60-400 bases joined by canonical GT..AG introns of 80-8000
-    bases (log-uniform, scaled down to fit the slot); and n_reads reads,
-    each a transcript from either strand cut at its 5' end to 40-100% of
-    its length, at 4% substitutions and 2% indels."""
+    bases (log-uniform, scaled down to fit the slot); a BED12 of the genes
+    (one line a gene, its exons as blocks); and n_reads reads, each a
+    transcript from either strand cut at its 5' end to 40-100% of its
+    length, at 4% substitutions and 2% indels."""
     rng = np.random.default_rng(seed)
     g = rng.integers(0, 4, genome_len).astype(np.uint8)
     slot = genome_len // n_genes
-    tx = []
+    tx, genes = [], []
     for k in range(n_genes):
         ne = int(rng.integers(4, 13))
         exons = [rng.integers(0, 4, int(n)).astype(np.uint8)
@@ -835,16 +931,30 @@ def splice_corpus(check, ref: Path, reads: Path, seed: int = 20261016,
             intron[:2], intron[-2:] = (2, 3), (0, 2)
             parts += [intron, ex]
         gene = np.concatenate(parts)
+        starts = np.cumsum([0] + [len(x) for x in parts])[:-1:2]
+        sizes = [len(x) for x in exons]
+        strand = "+"
         if rng.random() < 0.5:  # reverse strand: CT..AC in the genome
             gene = (3 - gene)[::-1]
+            starts = (len(gene) - starts - sizes)[::-1]
+            sizes = sizes[::-1]
+            strand = "-"
         o = k * slot + 200
         g[o:o + len(gene)] = gene
         tx.append(np.concatenate(exons))
+        genes.append((o, len(gene), strand, starts, sizes))
     half = genome_len // 2
     with open(ref, "w") as f:
         for i, (a, b) in enumerate(((0, half), (half, genome_len))):
             f.write(f">chr{i + 1}\n")
             f.write("".join("ACGT"[c] for c in g[a:b].tolist()) + "\n")
+    with open(bed, "w") as f:
+        for k, (o, n, strand, starts, sizes) in enumerate(genes):
+            c, o = (1, o) if o < half else (2, o - half)
+            f.write(f"chr{c}\t{o}\t{o + n}\tgene{k}\t0\t{strand}\t{o}\t"
+                    f"{o + n}\t0\t{len(sizes)}\t"
+                    + "".join(f"{x}," for x in sizes) + "\t"
+                    + "".join(f"{x}," for x in starts) + "\n")
     with open(reads, "w") as f:
         for i in range(n_reads):
             t = tx[int(rng.integers(0, n_genes))]
@@ -857,122 +967,226 @@ def splice_corpus(check, ref: Path, reads: Path, seed: int = 20261016,
 
 
 class LaunchTimer(EntryTimer):
-    """An EntryTimer around K3's and K2's C launch entries (wm_exts_launch,
-    wm_traceback_launch), and each K.exts_dp call's arguments by name (the
-    pools are shared), to count launches by flag and by launch and to run
-    one call of each launch again after the block."""
+    """An EntryTimer around a DP kernel's and K2's C launch entries (mode
+    "extd": K1, wm_extd_launch; "extz": K4, wm_extz_launch; "exts": K3,
+    wm_exts_launch; and wm_traceback_launch), and each K.extd_dp,
+    K.extz_dp or K.exts_dp call's arguments by name (the pools are shared),
+    to count launches by flag and by launch and to pick one call of each
+    launch to hold to the plain versions."""
 
-    ENTRIES = ("wm_exts_launch", "wm_traceback_launch")
+    NAMES = {"extd": ("k1", "k2"), "extz": ("k4", "k2"),
+             "exts": ("k3", "k2s")}
 
-    def __init__(self, K, torch):
+    def __init__(self, K, torch, mode):
         import inspect
 
-        super().__init__(torch, self.ENTRIES)
+        self.mode = mode
+        self.entries = (f"wm_{mode}_launch", "wm_traceback_launch")
+        super().__init__(torch, self.entries)
         self.K = K
-        self.exts_dp = K.exts_dp
-        self.sig = inspect.signature(K.exts_dp)
+        self.fn_name = f"{mode}_dp"
+        self.dp = getattr(K, self.fn_name)
+        self.sig = inspect.signature(self.dp)
         self.calls = []
+        self.peak = 0
 
     def __enter__(self):
-        self.K.exts_dp = self._record
+        setattr(self.K, self.fn_name, self._record)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        self.K.exts_dp = self.exts_dp
+        setattr(self.K, self.fn_name, self.dp)
         super().__exit__(*exc)
 
     def _record(self, *args, **kw):
         call = self.sig.bind(*args, **kw)
         call.apply_defaults()
         self.calls.append(call.arguments)
-        return self.exts_dp(*args, **kw)
+        return self.dp(*args, **kw)
 
-    def summary(self, wall_s):
-        """Summed device ms and share of the wall of K3 and K2s, K3's
-        launches by flag and by launch, jobs per call and the longest
-        job's rows per call."""
-        k3, k2 = (self.ms(name) for name in self.ENTRIES)
-        flags, paths, jobs, rows = {}, {}, [], []
+    def sizes(self):
+        """Each recorded call's jobs and its longest job's rows, read after
+        the run (a read from the card would stall it)."""
+        out = []
         for c in self.calls:
             ja = c["jobs"].cpu().numpy()
+            out.append((len(ja), int((ja[:, 1] + ja[:, 4] - 1).max())
+                        if len(ja) else 0))
+        return out
+
+    def summary(self, wall_s):
+        """Summed device ms and share of the wall of the DP kernel and K2,
+        the DP kernel's launches by flag and by launch, jobs per call and
+        the longest job's rows per call."""
+        dp_ms, k2_ms = (self.ms(name) for name in self.entries)
+        flags, paths = {}, {}
+        for c in self.calls:
             f, g = f"{c['flag']:#x}", c["geo"].path
             flags[f] = flags.get(f, 0) + 1
             paths[g] = paths.get(g, 0) + 1
-            jobs.append(len(ja))
-            rows.append(int((ja[:, 1] + ja[:, 4] - 1).max()) if len(ja) else 0)
-        self.rows = rows
+        sizes = self.sizes() or [(0, 0)]
+        jobs = [n for n, _ in sizes]
+        rows = [r for _, r in sizes]
+        a, b = self.NAMES[self.mode]
         return {
-            "k3_ms": float(sum(k3)), "k3_launches": len(k3),
-            "k3_share": sum(k3) / 1e3 / wall_s,
-            "k2s_ms": float(sum(k2)), "k2s_launches": len(k2),
-            "k2s_share": sum(k2) / 1e3 / wall_s,
-            "k3_by_flag": flags, "k3_by_path": paths,
+            f"{a}_ms": float(sum(dp_ms)), f"{a}_launches": len(dp_ms),
+            f"{a}_share": sum(dp_ms) / 1e3 / wall_s,
+            f"{b}_ms": float(sum(k2_ms)), f"{b}_launches": len(k2_ms),
+            f"{b}_share": sum(k2_ms) / 1e3 / wall_s,
+            f"{a}_by_flag": flags, f"{a}_by_path": paths,
             "jobs_per_call": [min(jobs), float(np.median(jobs)), max(jobs)],
-            "rows_per_call": [float(np.median(rows)), max(rows)]}
+            "rows_per_call": [float(np.median(rows)), max(rows)],
+            "peak_reserved_gib": self.peak / 2**30}
 
-    def hold_to_plain(self):
-        """For each launch K3 took, its call at the median of that launch's
-        longest rows, run again through K3 and K2 and through their plain
-        versions on the same arguments: the results and the traceback of
-        the direction bytes must be exactly equal.  Returns {launch:
-        [flag, jobs, rows]} of the calls held."""
-        K, torch = self.K, self.torch
+    def pick(self, phase, juncs=False):
+        """For each launch the DP kernel took, the call at the median of
+        that launch's longest rows (with `juncs`, among the calls that
+        carry junction bytes, where the launch has one), as hold_call's
+        arguments with the tensors copied to the host."""
         by_path = {}
-        for c, r in zip(self.calls, self.rows):
+        for (_, r), c in zip(self.sizes(), self.calls):
             by_path.setdefault(c["geo"].path, []).append((r, c))
-        saved = dict(K.LAUNCHES)
-        out = {}
+        out = []
         for p, cs in sorted(by_path.items()):
+            if juncs and any(c["jpool"] is not None for _, c in cs):
+                cs = [x for x in cs if x[1]["jpool"] is not None]
             cs.sort(key=lambda x: x[0])
             r, c = cs[len(cs) // 2]
-            jobs, flag, prof = c["jobs"], c["flag"], c["prof"]
-            B = jobs.shape[0]
-            res_k, dirs_k = K.exts_dp(**c)
-            res_p = torch.zeros((B, 16), dtype=torch.int32,
-                                device=jobs.device)
-            dirs_p = torch.zeros(max(1, c["dirs_bytes"]), dtype=torch.uint8,
-                                 device=jobs.device)
-            K.exts_dp_plain(c["qpool"], c["tpool"], jobs, c["dirs_off"],
-                            c["ncol"], prof, flag, res_p, dirs_p, c["jpool"],
-                            c["joff"])
-            same = bool((res_k[:, :9] == res_p[:, :9]).all())
-            if not flag & K.EZ_SCORE_ONLY:
-                eb = torch.zeros(B, dtype=torch.int64, device=jobs.device)
-                n_ops = max(4, (r + 3) // 4 * 4)
-                walks = []
-                for res, dirs in ((res_k, dirs_k), (res_p, dirs_p)):
-                    start = K.select_starts(res, jobs, eb,
-                                            bool(flag & K.EZ_EXTZ_ONLY),
-                                            prof.dead, True)
-                    walks.append((dirs, start))
-                ops_k, fin_k = K.traceback(
-                    walks[0][0], c["dirs_off"], jobs, c["ncol"], walks[0][1],
-                    n_ops, prof.min_intron)
-                ops_p = torch.empty((B, n_ops), dtype=torch.uint8,
-                                    device=jobs.device)
-                fin_p = torch.empty((B, 2), dtype=torch.int32,
-                                    device=jobs.device)
-                K.traceback_plain(walks[1][0], c["dirs_off"], jobs,
-                                  c["ncol"], walks[1][1], ops_p, fin_p,
-                                  prof.min_intron)
-                same = (same and bool((ops_k == ops_p).all())
-                        and bool((fin_k == fin_p).all()))
-            if not same:
-                fail(f"phase 5's K3 call at {p} (flag {flag:#x}, {B} jobs, "
-                     f"{r} rows) != plain")
-            out[p] = [f"{flag:#x}", B, r]
-        K.LAUNCHES.update(saved)
+            args = {k: v.cpu().numpy() if hasattr(v, "cpu") else v
+                    for k, v in c.items()}
+            out.append((phase, self.mode, p, r, args))
         return out
 
 
-def phase5(torch, K, check, build, fastx, options, batch, seqcode):
+def hold_call(phase, mode, path, r, args):
+    """One recorded call (LaunchTimer.pick) run again on the card through
+    its DP kernel and K2 and through their plain versions on the same
+    arguments: the results and the walk of the direction bytes must be
+    exactly equal.  Returns (phase, mode, launch, [flag, jobs, rows,
+    junction bytes], the peak bytes the process reserved on the card).
+    Runs in a process of its own."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    held = _hold_call(torch, phase, mode, path, r, args)
+    peak = torch.cuda.max_memory_reserved()
+    # a worker runs several calls: its cache must not keep this one's peak
+    torch.cuda.empty_cache()
+    return phase, mode, path, held, peak
+
+
+def _hold_call(torch, phase, mode, path, r, args):
+    from winnowmap_tpu_torch.extend import kernels as K
+
+    c = {k: torch.from_numpy(v).to(DEVICE) if isinstance(v, np.ndarray)
+         else v for k, v in args.items()}
+    jobs, flag, prof = c["jobs"], c["flag"], c["prof"]
+    spliced = mode == "exts"
+    B = jobs.shape[0]
+    res_k, dirs_k = getattr(K, f"{mode}_dp")(**c)
+    res_p = torch.zeros((B, 16), dtype=torch.int32, device=jobs.device)
+    dirs_p = torch.zeros(max(1, c["dirs_bytes"]), dtype=torch.uint8,
+                         device=jobs.device)
+    plain = (c["qpool"], c["tpool"], jobs, c["dirs_off"], c["ncol"], prof,
+             flag, res_p, dirs_p)
+    if spliced:
+        plain += (c["jpool"], c["joff"])
+    getattr(K, f"{mode}_dp_plain")(*plain)
+    same = bool((res_k[:, :9] == res_p[:, :9]).all())
+    if not flag & K.EZ_SCORE_ONLY:
+        eb = torch.zeros(B, dtype=torch.int64, device=jobs.device)
+        n_ops = max(4, (r + 3) // 4 * 4)
+        min_intron = prof.min_intron if spliced else 0
+        walks = []
+        for res, dirs in ((res_k, dirs_k), (res_p, dirs_p)):
+            start = K.select_starts(res, jobs, eb,
+                                    bool(flag & K.EZ_EXTZ_ONLY), prof.dead,
+                                    spliced)
+            walks.append((dirs, start))
+        ops_k, fin_k = K.traceback(walks[0][0], c["dirs_off"], jobs,
+                                   c["ncol"], walks[0][1], n_ops, min_intron)
+        ops_p = torch.empty((B, n_ops), dtype=torch.uint8, device=jobs.device)
+        fin_p = torch.empty((B, 2), dtype=torch.int32, device=jobs.device)
+        K.traceback_plain(walks[1][0], c["dirs_off"], jobs, c["ncol"],
+                          walks[1][1], ops_p, fin_p, min_intron)
+        same = (same and bool((ops_k == ops_p).all())
+                and bool((fin_k == fin_p).all()))
+    if not same:
+        fail(f"{phase}: a {mode} call at {path} (flag {flag:#x}, {B} jobs, "
+             f"{r} rows) != plain")
+    return [f"{flag:#x}", B, r, c.get("jpool") is not None]
+
+
+def hold_bytes(h):
+    """A held call's device bytes, bounded from above: its arrays, the
+    kernel's and the plain version's direction bytes, and the plain
+    version's state by column with its row temporaries (kernels._dp_plain:
+    B x T int64 planes for u v x y x2 y2 s, the row max, the splice sites
+    and the gathers of a row; a call of 14,638 jobs reserved about 40 such
+    planes on an H100, so 64 are counted)."""
+    a = h[4]
+    jobs = a["jobs"]
+    T = int(jobs[:, 4].max()) + int(a["ncol"].max()) + 64
+    arrays = sum(v.nbytes for v in a.values() if isinstance(v, np.ndarray))
+    return arrays + 2 * a["dirs_bytes"] + 64 * 8 * len(jobs) * T
+
+
+def hold_all(torch, holds):
+    """Every picked call held to the plain versions (hold_call) in worker
+    processes, the longest first (the plain versions are bound by the
+    host's Python), as many at once as the card's free memory holds by
+    hold_bytes; logs each phase's calls."""
+    t0 = time.perf_counter()
+    log(f"[holds] this process reserved at most "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB on the card")
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    budget = free - (PHASE2_WORKERS + 1) * HOLD_CONTEXT_BYTES
+    log(f"[holds] {free / 2**30:.2f} GiB free on the card, "
+        f"{budget / 2**30:.2f} GiB for the held calls")
+    spawn = multiprocessing.get_context("spawn")
+    out, peaks = {}, []
+    pending = sorted(holds, key=lambda h: -h[3])
+    running = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            PHASE2_WORKERS, mp_context=spawn) as pool:
+        while pending or running:
+            for h in list(pending):
+                need = hold_bytes(h)
+                if len(running) == PHASE2_WORKERS:
+                    break
+                if running and sum(running.values()) + need > budget:
+                    continue
+                running[pool.submit(hold_call, *h)] = need
+                pending.remove(h)
+            done, _ = concurrent.futures.wait(
+                running, return_when=concurrent.futures.FIRST_COMPLETED)
+            for f in done:
+                need = running.pop(f)
+                phase, mode, path, held, peak = f.result()
+                out.setdefault((phase, mode), {})[path] = held
+                peaks.append((peak, need, phase, path))
+    for (phase, mode), held in sorted(out.items()):
+        a, b = LaunchTimer.NAMES[mode]
+        log(f"[{phase}] {a.upper()} and {b.upper()} == plain on the call at "
+            f"the median rows of each launch {a.upper()} took (launch: flag, "
+            f"jobs, rows, junction bytes) {dict(sorted(held.items()))}")
+    log("[holds] the largest held calls' peak GiB reserved against "
+        "hold_bytes: " + ", ".join(
+            f"{phase} {path} {peak / 2**30:.2f}/{need / 2**30:.2f}"
+            for peak, need, phase, path in sorted(peaks, reverse=True)[:6]))
+    log(f"[holds] {len(holds)} recorded calls held to the plain versions in "
+        f"{PHASE2_WORKERS} worker processes: {time.perf_counter() - t0:.1f} s")
+
+
+def phase5(torch, K, check, build, fastx, options, batch, seqcode, holds):
     """Spliced mapping (-x splice -a) of 5000 transcript reads against a
     4 Mbp genome of 400 genes."""
     DATA.mkdir(exist_ok=True)
-    ref, reads = DATA / "splice_ref.fa", DATA / "splice_reads.fa"
+    ref, reads, bed = SPLICE_CORPUS
     t0 = time.perf_counter()
-    if not (ref.exists() and reads.exists()):
-        splice_corpus(check, ref, reads)
+    if not (ref.exists() and reads.exists() and bed.exists()):
+        splice_corpus(check, ref, reads, bed)
     recs = fastx.read_all(str(ref))
     kmers, cnt = rep_kmers([seqcode.encode(r.seq) for r in recs], 15, 0.9998)
     rep = DATA / "splice_rep.txt"
@@ -991,43 +1205,16 @@ def phase5(torch, K, check, build, fastx, options, batch, seqcode):
         f"{len(seqs)} reads ({sum(map(len, seqs))} bp), {len(wset)} "
         f"repetitive 15-mers, index {len(mi.keys)} keys "
         f"({time.perf_counter() - t0:.1f} s)")
-    batch.map_batch(mi, mo, seqs[:8], names[:8])
-    torch.cuda.synchronize()
-    batch.STATS.clear()
-    K.reset_launches()
-    with LaunchTimer(K, torch) as timer:
-        t0 = time.perf_counter()
-        results = batch.map_batch(mi, mo, seqs, names)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    st = {k: round(float(v), 6) for k, v in batch.STATS.items()}
-    dev = timer.summary(dt)
-    log(f"[phase 5] device time: K3 {dev['k3_ms']:.3f} ms over "
-        f"{dev['k3_launches']} launches ({100 * dev['k3_share']:.2f}% of the "
-        f"wall), K2s {dev['k2s_ms']:.3f} ms over {dev['k2s_launches']} "
-        f"({100 * dev['k2s_share']:.2f}%); K3 by flag {dev['k3_by_flag']}, "
-        f"by launch {dev['k3_by_path']}; jobs per call (min, median, max) "
-        f"{dev['jobs_per_call']}; longest job's rows per call (median, max) "
-        f"{dev['rows_per_call']}")
-    t1 = time.perf_counter()
-    held = timer.hold_to_plain()
-    log(f"[phase 5] K3 and K2 == plain on one call of each launch K3 took "
-        f"(launch: flag, jobs, rows) {held} ({time.perf_counter() - t1:.1f} "
-        f"s)")
-    log("[phase 5] JSON " + json.dumps({
-        "wall_s": dt, "reads_per_s": len(seqs) / dt,
-        "dispatch_s": st.get("dispatch_s"), "device": dev,
-        "held_to_plain": held}))
+    results, dt, launches, st, timer, _ = map_timed(
+        torch, K, batch, mi, mo, seqs, names, "exts")
+    log_device("phase 5", timer, dt, len(seqs), launches, st)
+    holds += timer.pick("phase 5")
     mapped = [r for r in results if r.regs]
     n_spliced = sum(1 for r in mapped if any(
         g.p is not None and ((g.p.cigar & 15) == 3).any() for g in r.regs))
-    log(f"[phase 5] mapped {len(seqs)} reads in {dt:.3f} s -> "
-        f"{len(seqs) / dt:.3f} reads/s; {len(mapped)} with hits, "
-        f"{n_spliced} of them with an N op")
-    log(f"[phase 5] launches {launches}; dev_jobs {int(st['dev_jobs'])}; "
-        f"engine host-kept {int(st.get('eng_host_dp_calls', 0))}")
-    log("[phase 5] STATS " + json.dumps(st, sort_keys=True))
+    log(f"[phase 5] {len(mapped)} reads with hits, {n_spliced} of them with "
+        f"an N op; dev_jobs {int(st['dev_jobs'])}; engine host-kept "
+        f"{int(st.get('eng_host_dp_calls', 0))}")
     if launches["exts"] == 0 or launches["traceback"] == 0:
         fail(f"a spliced kernel was not launched: {launches}")
     check_mapped("phase 5", st, results, len(seqs))
@@ -1036,7 +1223,7 @@ def phase5(torch, K, check, build, fastx, options, batch, seqcode):
     return launches
 
 
-def phase6(torch, K, options, batch, corpus):
+def phase6(torch, K, options, batch, corpus, holds):
     """Single-cost mapping: phase 4's index and reads, map-ont SV-aware
     with one gap cost (-O 4,4 -E 2,2 -a), every DP job through K4."""
     mi, seqs, names = corpus
@@ -1045,22 +1232,169 @@ def phase6(torch, K, options, batch, corpus):
     mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
     mo.q2, mo.e2 = mo.q, mo.e
     options.update_mid_occ(mo, mi)
-    results, dt, launches, st, dev = map_timed(
+    results, dt, launches, st, timer, _ = map_timed(
         torch, K, batch, mi, mo, seqs, names, "extz")
     n_mapped = sum(1 for r in results if r.regs)
-    log(f"[phase 6] -O {mo.q},{mo.q2} -E {mo.e},{mo.e2}: mapped {len(seqs)} "
-        f"reads in {dt:.3f} s -> {len(seqs) / dt:.3f} reads/s; {n_mapped} "
-        f"with hits")
-    log(f"[phase 6] launches {launches}; dev_jobs {int(st['dev_jobs'])}; "
+    log(f"[phase 6] -O {mo.q},{mo.q2} -E {mo.e},{mo.e2}: {n_mapped} of "
+        f"{len(seqs)} reads with hits; dev_jobs {int(st['dev_jobs'])}; "
         f"engine host-kept {int(st.get('eng_host_dp_calls', 0))}")
-    log("[phase 6] STATS " + json.dumps(st, sort_keys=True))
-    log_device("phase 6", "K4", dev, st)
+    log_device("phase 6", timer, dt, len(seqs), launches, st)
+    holds += timer.pick("phase 6")
     if launches["extz"] == 0 or launches["traceback"] == 0:
         fail(f"a single-cost kernel was not launched: {launches}")
     if launches["extd"] != 0:
         fail(f"single-cost mapping launched K1: {launches}")
     check_mapped("phase 6", st, results, len(seqs))
     return launches
+
+
+# --------------------------------------------------------------------------
+# the generator path
+# --------------------------------------------------------------------------
+
+# phase 4's reads mapped against themselves in phase 8 (d)
+PHASE8_OVERLAP_READS = 200
+
+
+def phase8_goldens(cli, pipeline, batch):
+    """(a) -x splice --junc-bed byte-equal to golden_splice_junc.paf; (b)
+    the generator entry on t_reads.fa with --sv-off -a (map_file calling
+    map_batch_generator) byte-equal to golden_svoff.sam apart from @PG."""
+    argv = ["-x", "splice", "--junc-bed", str(GOLD / "s_junc.bed"),
+            "--junc-bonus", "9", "-c", "-W", str(GOLD / "s_rep_k15.txt"),
+            str(GOLD / "s_ref.fa"), str(GOLD / "s_reads.fa")]
+    batch.STATS.clear()
+    out, dt = cli_run(cli, argv)
+    if out != (GOLD / "golden_splice_junc.paf").read_text():
+        fail("-x splice --junc-bed differs from golden_splice_junc.paf")
+    if batch.STATS["dev_jobs"] == 0 or batch.STATS["host_jobs"]:
+        fail(f"--junc-bed did not take the generator path on the card: "
+             f"{dict(batch.STATS)}")
+    log(f"[phase 8] -x splice --junc-bed == golden_splice_junc.paf "
+        f"({dt:.2f} s; {int(batch.STATS['dev_calls'])} calls, "
+        f"{int(batch.STATS['dev_jobs'])} jobs)")
+    argv = ["--sv-off", "-a", "-W", str(GOLD / "t_rep_k15.txt"),
+            str(GOLD / "t_ref.fa"), str(GOLD / "t_reads.fa")]
+    batch.STATS.clear()
+    engine = pipeline.map_batch
+    pipeline.map_batch = batch.map_batch_generator
+    try:
+        out, dt = cli_run(cli, argv)
+    finally:
+        pipeline.map_batch = engine
+    if strip_pg(out) != strip_pg((GOLD / "golden_svoff.sam").read_text()):
+        fail("the generator entry's --sv-off SAM differs from "
+             "golden_svoff.sam")
+    if batch.STATS["dev_jobs"] == 0 or "delivered_jobs" in batch.STATS:
+        fail("the --sv-off run did not take the generator path")
+    log(f"[phase 8] generator entry --sv-off -a == golden_svoff.sam apart "
+        f"from @PG ({dt:.2f} s)")
+
+
+def cli_run(cli, argv):
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"CLI {' '.join(argv[:4])} ... exited {rc}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def check_generator(phase, timer, dt, n, launches, st, guard):
+    """Log a generator-path run (log_device, then its calls, host jobs and
+    Python seconds); fail unless it took the generator path on the card
+    and kept on the host just the jobs that the refusal guards refuse."""
+    log_device(phase, timer, dt, n, launches, st)
+    log(f"[{phase}] {int(st.get('dev_calls', 0))} calls, "
+        f"{int(st.get('dev_jobs', 0))} jobs; host_jobs "
+        f"{int(st.get('host_jobs', 0))} (refusal guards {guard}); Python "
+        f"gen_py_s {st.get('gen_py_s')}")
+    if st.get("host_jobs", 0) != guard:
+        fail(f"{phase}: {int(st.get('host_jobs', 0))} jobs on the host, the "
+             f"refusal guards refuse {guard}")
+    if "delivered_jobs" in st or st.get("dev_jobs", 0) == 0:
+        fail(f"{phase} did not take the generator path on the card")
+
+
+def phase8(torch, K, cli, pipeline, build, fastx, options, batch, seqcode,
+           corpus, holds):
+    """The generator mapping path on the card: the goldens; annotated
+    spliced mapping (-x splice --junc-bed, -a) of phase 5's reads against
+    its genome with a BED12 of its genes; all-vs-all overlap (-X -c) of
+    phase 4's reads.  Returns each run's launches."""
+    phase8_goldens(cli, pipeline, batch)
+
+    # (c) annotated spliced mapping at size
+    ref, reads, bed = SPLICE_CORPUS
+    recs = fastx.read_all(str(ref))
+    io_, mo = options.IndexOptions(), options.MapOptions()
+    options.set_preset("splice", io_, mo)
+    mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
+    wset = build.load_weight_set(str(DATA / "splice_rep.txt"), io_.k)
+    mi = build.build_index(recs, io_.w, io_.k, io_.flag, wset)
+    options.update_mid_occ(mo, mi)
+    build.read_bed(mi, str(bed))
+    rs = fastx.read_all(str(reads))
+    seqs, names = [r.seq for r in rs], [r.name for r in rs]
+    results, dt, launches, st, timer, guard = map_timed(
+        torch, K, batch, mi, mo, seqs, names, "exts")
+    check_generator("phase 8 (c)", timer, dt, len(seqs), launches, st,
+                    guard)
+    picked = timer.pick("phase 8 (c)", juncs=True)
+    if not any(h[4]["jpool"] is not None for h in picked):
+        fail("no K3 call of phase 8 (c) picked to hold carries junction "
+             "bytes")
+    holds += picked
+    if launches["exts"] == 0 or launches["traceback"] == 0:
+        fail(f"a spliced kernel was not launched in phase 8: {launches}")
+    mapped = [r for r in results if r.regs]
+    n_spliced = sum(1 for r in mapped if any(
+        g.p is not None and ((g.p.cigar & 15) == 3).any() for g in r.regs))
+    if len(mapped) < 0.9 * len(seqs) or n_spliced < 0.5 * len(mapped):
+        fail(f"phase 8 (c): {len(mapped)} of {len(seqs)} reads mapped, "
+             f"{n_spliced} spliced")
+    out = {"splice_junc": launches}
+
+    # (d) all-vs-all overlap of phase 4's reads
+    _, seqs4, names4 = corpus
+    seqs4 = seqs4[:PHASE8_OVERLAP_READS]
+    names4 = names4[:PHASE8_OVERLAP_READS]
+    rdir = DATA / "overlap"
+    rdir.mkdir(exist_ok=True)
+    kmers, cnt = rep_kmers([seqcode.encode(s) for s in seqs4], 15, 0.9998)
+    rep = rdir / "rep.txt"
+    with open(rep, "w") as f:
+        for x, c in zip(kmers.tolist(), cnt.tolist()):
+            f.write(f"{kmer_str(x, 15)}\t{c}\n")
+    io_, mo = options.IndexOptions(), options.MapOptions()
+    options.set_preset("map-ont", io_, mo)
+    mo.flag |= (options.MM_F_CIGAR | options.MM_F_OUT_CG
+                | options.MM_F_ALL_CHAINS | options.MM_F_NO_DIAG
+                | options.MM_F_NO_DUAL | options.MM_F_NO_LJOIN)
+    recs4 = [fastx.SeqRecord(nm, s, None, None)
+             for nm, s in zip(names4, seqs4)]
+    mi = build.build_index(recs4, io_.w, io_.k, io_.flag,
+                           build.load_weight_set(str(rep), io_.k))
+    options.update_mid_occ(mo, mi)
+    results, dt, launches, st, timer, guard = map_timed(
+        torch, K, batch, mi, mo, seqs4, names4, "extd")
+    check_generator("phase 8 (d)", timer, dt, len(seqs4), launches, st,
+                    guard)
+    holds += timer.pick("phase 8 (d)")
+    if launches["extd"] == 0 or launches["traceback"] == 0:
+        fail(f"K1 or K2 was not launched in phase 8 (d): {launches}")
+    n_pairs = sum(len(r.regs) for r in results)
+    if n_pairs == 0:
+        fail("phase 8 (d): no overlap found")
+    for r in results:
+        for g in r.regs:
+            if g.p is None or not (0 <= g.qs <= g.qe and g.rs <= g.re):
+                fail("phase 8 (d): malformed alignment record")
+    log(f"[phase 8 (d)] -X -c: {n_pairs} overlaps among {len(seqs4)} reads")
+    out["overlap"] = launches
+    return out
+
 
 
 # --------------------------------------------------------------------------
@@ -1231,6 +1565,9 @@ def phase7(torch, k1):
     ]
 
 
+T_START = time.perf_counter()
+
+
 def main():
     import torch
 
@@ -1244,7 +1581,7 @@ def main():
     from winnowmap_tpu_torch.extend import kernels as K
     from winnowmap_tpu_torch.index import build
     from winnowmap_tpu_torch.io import fastx, seqcode
-    from winnowmap_tpu_torch.map import batch
+    from winnowmap_tpu_torch.map import batch, pipeline
     from winnowmap_tpu_torch.map.align import gen_simple_mat
 
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1273,36 +1610,44 @@ def main():
         else:
             log(f"[phase 1] {src}: " + " | ".join(lines[-2:]))
 
-    # the checks of K1/K4 here, and of K3 and K1/K4's other launches in
-    # three more processes at once, then the timings alone on the card
+    # the kernel-against-plain checks in worker processes (the plain
+    # versions are bound by the host's Python), the timed batches against
+    # the native oracle here meanwhile, then the timings alone on the card
     t0 = time.perf_counter()
+    err = {"extd": 0, "extz": 0, "traceback": 0}
+    s_err = {"exts": 0, "traceback": 0}
     spawn = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(3, mp_context=spawn) as pool:
-        spliced = [pool.submit(phase2_splice),
-                   pool.submit(phase2_splice_launches)]
-        launches = pool.submit(phase2_ext_launches)
-        err, main_batch = phase2(K, check, native, torch, gen_simple_mat)
-        log(f"[phase 2] K1, K4 checks: {time.perf_counter() - t0:.1f} s")
-        s_err = {k: max(f.result()[k] for f in spliced)
-                 for k in ("exts", "traceback")}
-        for k, v in launches.result().items():
-            err[k] = max(err[k], v)
-    log(f"[phase 2] K3 checks and K1/K4 launches (three more processes): "
-        f"{time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ProcessPoolExecutor(
+            PHASE2_WORKERS, mp_context=spawn) as pool:
+        futs = [pool.submit(fn, *args) for fn, args in phase2_tasks()]
+        main_batch = phase2_main(K, check, native, torch, gen_simple_mat)
+        for f in futs:
+            r = f.result()
+            into = s_err if "exts" in r else err
+            for k, v in r.items():
+                into[k] = max(into[k], v)
+    log(f"[phase 2] checks ({len(futs)} tasks in {PHASE2_WORKERS} worker "
+        f"processes): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     records, k1 = phase2_times(K, check, torch, gen_simple_mat, err,
                                main_batch)
-    records += phase2_splice_times(K, check, torch, gen_simple_mat, s_err)
+    records += phase2_splice_times(K, check, native, torch, gen_simple_mat,
+                                   s_err)
     log(f"[phase 2] times: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase3(cli)
-    ont, corpus = phase4(torch, K, build, fastx, options, batch, seqcode)
+    # each timed run's recorded calls to hold to the plain versions at the
+    # end, in worker processes (LaunchTimer.pick, hold_all)
+    holds = []
+    ont, corpus = phase4(torch, K, build, fastx, options, batch, seqcode,
+                         holds)
     log(f"[phase 3-4] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    spl = phase5(torch, K, check, build, fastx, options, batch, seqcode)
+    spl = phase5(torch, K, check, build, fastx, options, batch, seqcode,
+                 holds)
     log(f"[phase 5] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    ext = phase6(torch, K, options, batch, corpus)
+    ext = phase6(torch, K, options, batch, corpus, holds)
     log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on its own path: K1 and K2 on map-ont (phase
     # 4), K4 on single-cost map-ont (phase 6), K3 and K2's spliced form on
@@ -1313,6 +1658,13 @@ def main():
     t0 = time.perf_counter()
     records += phase7(torch, k1)
     log(f"[phase 7] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gen = phase8(torch, K, cli, pipeline, build, fastx, options, batch,
+                 seqcode, corpus, holds)
+    log(f"[phase 8] launches on the generator path: {gen}")
+    log(f"[phase 8] {time.perf_counter() - t0:.1f} s")
+    hold_all(torch, holds)
+    log(f"[chip_smoke] {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

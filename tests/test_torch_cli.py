@@ -1,8 +1,9 @@
 """The port's CLI against the JAX package's: `-a` SAM on the first golden
 reads must be byte-identical to `python -m winnowmap_tpu.cli -a` on its host
 kernels (WM_NO_TPU=1), and so must single-cost (`-O 4,4 -E 2,2 -c`) PAF;
-flags of paths not ported yet must exit with a clear error instead of
-running something else."""
+flags of paths not ported yet (index dump, multi-part indexes, fragment
+mode, the debug dumps) must exit with a clear error instead of running
+something else.  The generator path's flags are in test_torch_gen_*.py."""
 import contextlib
 import io
 import re
@@ -50,9 +51,9 @@ def test_cli_sam_matches_jax_cli(extra, reads_fa, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["-d", "idx.wmi"], ["-I", "100k"], ["--sr"],
-    ["-x", "splice", "--junc-bed", "a.bed"], ["-x", "sr"],
-    ["--junc-bed", "a.bed"], ["--print-seeds"],
+    ["-d", "idx.wmi"], ["-I", "100k"], ["--frag", "yes"], ["-x", "sr"],
+    ["-F", "800"], ["--print-seeds"], ["--split-prefix", "tmp"],
+    ["--print-qname"], ["--dbg-polish"], ["--print-aln-seq"],
 ], ids=lambda a: a[1] if a[0] == "-x" else a[0])
 def test_cli_unported_flags_exit_with_error(argv, capsys):
     from winnowmap_tpu_torch.cli import main as port_main

@@ -92,26 +92,43 @@ def test_map_batch_matches_jax_engine(sv_aware, monkeypatch):
     assert STATS["dev_calls"] > 0
 
 
-def test_map_batch_unported_options_raise():
-    """--sr raises; single-cost profiles and spliced mapping run, but not
-    spliced mapping with junction annotations (--junc-bed), whose path is
-    not ported."""
-    from winnowmap_tpu_torch.map.batch import map_batch
-    from winnowmap_tpu_torch.options import MM_F_SPLICE, MM_F_SR
+def test_map_batch_unported_options_raise(monkeypatch):
+    """The options the engine does not take (--sr, -D, -X's no-dual,
+    --for-only, --rev-only, and splice with --junc-bed intervals) reach
+    the generator path through map_batch and run; map_batch_engine itself
+    raises on them.  Single-cost and spliced profiles without intervals
+    stay on the engine."""
+    from winnowmap_tpu_torch.map import batch
+    from winnowmap_tpu_torch.map.engine import map_batch_engine
+    from winnowmap_tpu_torch.options import (MM_F_FOR_ONLY, MM_F_NO_DIAG,
+                                             MM_F_NO_DUAL, MM_F_REV_ONLY,
+                                             MM_F_SPLICE, MM_F_SR)
 
+    routed = []
+    gen = batch.map_batch_generator
+
+    def spy(*a, **kw):
+        routed.append(a[1].flag)
+        return gen(*a, **kw)
+
+    monkeypatch.setattr(batch, "map_batch_generator", spy)
     mi, mo = port_setup(True)
-    for flag in (MM_F_SR,):
-        with pytest.raises(NotImplementedError):
-            map_batch(mi, replace(mo, flag=mo.flag | flag), [b"ACGT" * 50],
-                      ["r"], device="cpu")
-    assert len(map_batch(mi, replace(mo, q2=mo.q, e2=mo.e), [b"ACGT" * 50],
-                         ["r"], device="cpu")) == 1
+    seq = [b"ACGT" * 50]
+    for flag in (MM_F_SR, MM_F_NO_DIAG, MM_F_NO_DUAL, MM_F_FOR_ONLY,
+                 MM_F_REV_ONLY):
+        o = replace(mo, flag=mo.flag | flag)
+        assert len(batch.map_batch(mi, o, seq, ["r"], device="cpu")) == 1
+        with pytest.raises(ValueError, match="generator path"):
+            map_batch_engine(mi, o, seq, ["r"], torch.device("cpu"))
+    assert len(routed) == 5
+    assert len(batch.map_batch(mi, replace(mo, q2=mo.q, e2=mo.e), seq,
+                               ["r"], device="cpu")) == 1
     spliced = replace(mo, flag=mo.flag | MM_F_SPLICE)
-    assert len(map_batch(mi, spliced, [b"ACGT" * 50], ["r"],
-                         device="cpu")) == 1
-    mi.intervals = {0: np.zeros((1, 2), np.int64)}
-    with pytest.raises(NotImplementedError, match="junc-bed"):
-        map_batch(mi, spliced, [b"ACGT" * 50], ["r"], device="cpu")
+    assert len(batch.map_batch(mi, spliced, seq, ["r"], device="cpu")) == 1
+    assert len(routed) == 5
+    mi.intervals = {0: (np.array([100]), np.array([200]), np.array([1]))}
+    assert len(batch.map_batch(mi, spliced, seq, ["r"], device="cpu")) == 1
+    assert len(routed) == 6
 
 
 def test_map_batch_default_device_is_cuda():

@@ -2,9 +2,10 @@
 (csrc/exts.cu), K4 (csrc/extz.cu), K2 (csrc/traceback.cu, plain and
 spliced) and the cost probes P1-P3 (csrc/probes.cu) against their plain
 PyTorch versions on the same device tensors,
-the pooled call on the card against the CPU, and map_batch on the card
-against the CPU, map-ont, single-cost and spliced.  Integer DP: every
-comparison is exact.
+the pooled call on the card against the CPU, map_batch on the card
+against the CPU, map-ont, single-cost and spliced, and the generator path
+(--junc-bed) on the card against its golden and against the CPU.  Integer
+DP: every comparison is exact.
 
 These tests need a CUDA card, nvcc and g++; without a card they skip.  On a
 machine with a card:
@@ -425,6 +426,106 @@ def test_splice_map_batch_on_card_matches_cpu(cuda, preset):
 
     assert [[key(r) for r in x.regs] for x in got] == \
         [[key(r) for r in x.regs] for x in ref]
+
+
+def test_generator_junc_bed_golden_on_card(cuda):
+    """chip_smoke.py's phase 8 (a): -x splice --junc-bed s_junc.bed
+    --junc-bonus 9 -c through the generator path on the card, byte-equal
+    to golden_splice_junc.paf, every DP job on the card."""
+    import contextlib
+    import io
+
+    from winnowmap_tpu_torch.cli import main
+    from winnowmap_tpu_torch.map.batch import STATS
+
+    STATS.clear()
+    K.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["-x", "splice", "--junc-bed", str(GOLD / "s_junc.bed"),
+                   "--junc-bonus", "9", "-c", "-W",
+                   str(GOLD / "s_rep_k15.txt"), str(GOLD / "s_ref.fa"),
+                   str(GOLD / "s_reads.fa")])
+    assert rc == 0
+    assert buf.getvalue() == (GOLD / "golden_splice_junc.paf").read_text()
+    assert K.LAUNCHES["exts"] > 0 and K.LAUNCHES["traceback"] > 0
+    assert STATS["dev_jobs"] > 0 and STATS["host_jobs"] == 0
+
+
+def test_generator_junction_call_on_card_matches_cpu(cuda, monkeypatch):
+    """One generator-path K3 call that carries junction bytes (from
+    s_junc.bed), recorded on the card and run again on the CPU (the plain
+    versions): every result field and CIGAR equal."""
+    from dataclasses import replace
+
+    from winnowmap_tpu_torch.index.build import (build_index,
+                                                 load_weight_set, read_bed)
+    from winnowmap_tpu_torch.io.fastx import read_all
+    from winnowmap_tpu_torch.map import batch
+    from winnowmap_tpu_torch.options import (MM_F_CIGAR, IndexOptions,
+                                             MapOptions, set_preset,
+                                             update_mid_occ)
+
+    io_, mo = IndexOptions(), MapOptions()
+    set_preset("splice", io_, mo)
+    mo = replace(mo, flag=mo.flag | MM_F_CIGAR, junc_bonus=9)
+    mi = build_index(read_all(str(GOLD / "s_ref.fa")), io_.w, io_.k,
+                     io_.flag, load_weight_set(str(GOLD / "s_rep_k15.txt"),
+                                               io_.k))
+    update_mid_occ(mo, mi)
+    read_bed(mi, str(GOLD / "s_junc.bed"))
+    reads = read_all(str(GOLD / "s_reads.fa"))[:6]
+    calls = []
+
+    class Recording(K.DevCallPooled):
+        def __init__(self, pools, jobs, *a, **kw):
+            super().__init__(pools, jobs, *a, **kw)
+            if kw.get("juncs") and any(j is not None for j in kw["juncs"]):
+                calls.append((pools, np.array(jobs), a, kw, self.collect()))
+
+    monkeypatch.setattr(batch, "DevCallPooled", Recording)
+    batch.map_batch(mi, mo, [r.seq for r in reads], [r.name for r in reads])
+    assert calls
+    pools, jobs, a, kw, got = max(calls, key=lambda c: len(c[1]))
+    cpu = K.PoolContext(pools.qpool.cpu().numpy(), mi, torch.device("cpu"))
+    ref = K.DevCallPooled(cpu, jobs, *a, **kw).collect()
+    for r, h in zip(got, ref):
+        for f in native.ExtResult.__slots__:
+            if f == "cigar":
+                assert np.array_equal(r.cigar, h.cigar)
+            else:
+                assert getattr(r, f) == getattr(h, f), f
+
+
+@pytest.mark.parametrize("flag,n", [("-D", 2), ("--for-only", 4),
+                                    ("--rev-only", 4), ("--sr", 2)])
+def test_generator_flags_on_card_match_cpu(cuda, flag, n, tmp_path):
+    """The generator path's other flags on the first n golden reads (-D
+    with the reads as their own reference; the single-strand flags on four
+    reads, which hold both strands): the CLI's PAF on the card equals its
+    PAF on the CPU (the plain versions, which the CPU tests hold to the
+    JAX package)."""
+    import contextlib
+    import io
+
+    from winnowmap_tpu_torch.cli import main
+    from winnowmap_tpu_torch.map.batch import STATS
+
+    recs = (GOLD / "t_reads.fa").read_text().split(">")[1:n + 1]
+    reads = tmp_path / "reads.fa"
+    reads.write_text("".join(">" + r for r in recs))
+    ref = reads if flag == "-D" else GOLD / "t_ref.fa"
+    argv = [flag, "-c", "-W", str(GOLD / "t_rep_k15.txt"), str(ref),
+            str(reads)]
+    outs = []
+    for device in ("cuda", "cpu"):
+        STATS.clear()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(list(argv), device=device) == 0
+        assert STATS["dev_jobs"] > 0 and STATS["host_jobs"] == 0
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and "cg:Z:" in outs[0]
 
 
 # one gap cost (a, b, q, e, q2, e2), and the profile whose biased score

@@ -3,10 +3,14 @@ chip_smoke.py) imports jax or anything of the JAX package winnowmap_tpu.
 
 A subprocess installs a sys.meta_path blocker for both, imports every module
 of the port and runs one tiny DevCallPooled on the CPU, extd and spliced; an
-AST scan of the sources finds no such import statement.
+AST scan of the sources finds no such import statement.  No module reads a
+WM_* environment variable beyond the engine's thread count, the native
+library's sanitizer build and the log level: the port has no switch that
+routes work elsewhere.
 """
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -110,3 +114,23 @@ def test_resolve_device_never_falls_back():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device(None)
+
+
+# the WM_* environment variables the port reads, by module: none of them
+# chooses where a job runs
+ENV_READS = {"cli.py": {"WM_ENGINE_THREADS"},
+             "map/engine.py": {"WM_ENGINE_THREADS"},
+             "native/__init__.py": {"WM_NATIVE_SAN"},
+             "utils/log.py": {"WM_VERBOSE"}}
+_ENV_READ = re.compile(
+    r"(?:environ(?:\.get|\.setdefault|\.pop)?\s*[\[(]|getenv\s*\()\s*"
+    r"[\"']([A-Za-z0-9_]+)[\"']")
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_reads_no_wm_switch(path):
+    rel = path.relative_to(PKG).as_posix()
+    names = {m for m in _ENV_READ.findall(path.read_text())
+             if m.startswith("WM_")}
+    assert names <= ENV_READS.get(rel, set()), f"{rel} reads {names}"

@@ -2,15 +2,18 @@
 src/main.c).
 
     python -m winnowmap_tpu_torch.cli [-x map-ont|map-pb|asm5|asm10|asm20|
-        splice|splice:hq|cdna] [-a|-c] [--sv-off] [--device cuda|cpu]
+        splice|splice:hq|cdna] [-a|-c] [--sv-off] [--junc-bed genes.bed]
+        [-X|-D] [--for-only|--rev-only] [--sr] [--device cuda|cpu]
         -W rep.txt ref.fa reads.fa
 
 Maps reads against a reference built on the fly and writes PAF or SAM, with
 the same flags and output as winnowmap_tpu.cli.  Single-cost gap profiles
 (-O q,q -E e,e) run the extz kernel, spliced presets exts, the others extd.
-The DP runs on the CUDA card; --device cpu runs the kernels' plain PyTorch
-versions.  Flags of paths not ported yet exit with a "not yet ported"
-error.
+--junc-bed, -X, -D, --for-only, --rev-only and --sr map through the
+generator path (map/batch.map_batch_generator), the other options through
+the native engine.  The DP runs on the CUDA card; --device cpu runs the
+kernels' plain PyTorch versions.  Flags of paths not ported yet exit with a
+"not yet ported" error.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import sys
 import numpy as np
 
 from . import __version__
-from .index.build import build_index, load_weight_bloom, load_weight_set
+from .index.build import (build_index, load_weight_bloom, load_weight_set,
+                          read_bed)
 from .io.fastx import read_all
 from .io.sam import sam_header
 from .map.pipeline import map_file
@@ -29,8 +33,12 @@ from .options import (
     MM_F_CIGAR,
     MM_F_COPY_COMMENT,
     MM_F_EQX,
+    MM_F_FOR_ONLY,
     MM_F_HARD_MLEVEL,
     MM_F_LONG_CIGAR,
+    MM_F_NO_DIAG,
+    MM_F_NO_DUAL,
+    MM_F_NO_LJOIN,
     MM_F_NO_PRINT_2ND,
     MM_F_OUT_CG,
     MM_F_OUT_CS,
@@ -38,8 +46,10 @@ from .options import (
     MM_F_OUT_MD,
     MM_F_OUT_SAM,
     MM_F_PAF_NO_HIT,
+    MM_F_REV_ONLY,
     MM_F_SAM_HIT_ONLY,
     MM_F_SOFTCLIP,
+    MM_F_SR,
     IndexOptions,
     MapOptions,
     check_options,
@@ -58,11 +68,9 @@ PRESETS = ("map-ont", "map-pb", "map-pb-clr", "asm5", "asm10", "asm20",
 # flags of paths that are not in this slice of the port
 NOT_PORTED = {
     "-d": "index dump", "-I": "multi-part indexes", "--split-prefix":
-    "multi-part indexes", "--junc-bed": "splice junctions from a BED file",
-    "--sr": "short reads",
+    "multi-part indexes",
     "--frag": "paired-end / fragment mode", "-F": "paired-end / fragment "
-    "mode", "-X": "all-chains mode", "-D": "no-diagonal mode",
-    "--for-only": "single-strand mode", "--rev-only": "single-strand mode",
+    "mode",
     "--print-qname": "debug dumps", "--dbg-polish": "debug dumps",
     "--print-seeds": "debug dumps", "--print-aln-seq": "debug dumps",
 }
@@ -108,6 +116,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
     rg = None
     w_file = None
     bloom_mode = False
+    junc_bed = None
     i = 0
 
     def take():
@@ -200,6 +209,19 @@ def main(argv: list[str] | None = None, device=None) -> int:
             mo.mini_batch_size = _num(take())
         elif a == "--junc-bonus":
             mo.junc_bonus = int(take())
+        elif a == "--junc-bed":
+            junc_bed = take()
+        elif a == "-X":
+            mo.flag |= (MM_F_ALL_CHAINS | MM_F_NO_DIAG | MM_F_NO_DUAL
+                        | MM_F_NO_LJOIN)
+        elif a == "-D":
+            mo.flag |= MM_F_NO_DIAG
+        elif a == "--for-only":
+            mo.flag |= MM_F_FOR_ONLY
+        elif a == "--rev-only":
+            mo.flag |= MM_F_REV_ONLY
+        elif a == "--sr":
+            mo.flag |= MM_F_SR
         elif a == "-u":
             take()
             warn("splice junction matching is handled by the splice preset")
@@ -275,6 +297,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
                      bool(io.flag & 1), weight_bloom=bloom)
     phase_log("index", mi.stat_line())
     update_mid_occ(mo, mi)
+    if junc_bed:
+        read_bed(mi, junc_bed, read_junc=True)
 
     out = open(out_path, "w") if out_path else sys.stdout
     try:

@@ -20,10 +20,11 @@ Each kernel has
     traceback_plain) that runs the same recurrence vectorised over jobs and
     band lanes, on any device.
 
-DevCallPooled strings the pieces together for one batch of engine jobs:
-descriptors up, K1, K3 or K4, start selection, K2, op packing (2-bit, or
-4-bit for the spliced ops), one device-to-host copy; collect_blob() decodes
-it into the engine's deliver layout.
+DevCallPooled strings the pieces together for one batch of jobs (the
+engine's, or the generator path's): descriptors up, K1, K3 or K4, start
+selection, K2, op packing (2-bit, or 4-bit for the spliced ops), one
+device-to-host copy; collect_blob() decodes it into the engine's deliver
+layout, collect() into one native.ExtResult a job.
 """
 from __future__ import annotations
 
@@ -1071,6 +1072,25 @@ class PoolContext:
             cache[key] = torch.from_numpy(
                 np.ascontiguousarray(mi.codes, np.uint8)).to(self.device)
         self.ref = cache[key]
+        self._ranges = [_addr_range(qpool_np), _addr_range(mi.codes)]
+
+    def resolve(self, js) -> tuple[int, int] | None:
+        """(pool, offset) of a JobSeq's view: pool 0 is the read pool, 1
+        the reference codes; None when the view lies in neither."""
+        v = js.view
+        if v.dtype != np.uint8 or v.ndim != 1 or (len(v) > 1
+                                                  and v.strides[0] != 1):
+            return None
+        a = v.__array_interface__["data"][0]
+        for sel, (lo, hi) in enumerate(self._ranges):
+            if lo <= a and a + v.nbytes <= hi:
+                return sel, a - lo
+        return None
+
+
+def _addr_range(a: np.ndarray) -> tuple[int, int]:
+    lo = a.__array_interface__["data"][0]
+    return lo, lo + a.nbytes
 
 
 def junction_pool(juncs, device):
@@ -1101,7 +1121,9 @@ class DevCallPooled:
     for none), sliced and oriented as the DP reads the target.  Without
     splice, one gap cost (q == q2 and e == e2) selects extz, as the JAX
     package chooses it; any other profile extd.  Launches everything
-    asynchronously; collect_blob() waits and decodes."""
+    asynchronously; collect_blob() waits and decodes to flat arrays (the
+    engine's deliver columns), collect() to one native.ExtResult a job
+    (the generator path's results)."""
 
     def __init__(self, pools: PoolContext, jobs, mat, q, e, q2, e2,
                  end_bonus, flag, splice=None, juncs=None):
@@ -1198,3 +1220,22 @@ class DevCallPooled:
                      & (res9[:, 4] + self.end_bonus > res9[:, 0])
                      ).astype(np.int32)
         return res9, blob, off, ln, reach
+
+    def collect(self) -> list:
+        """Wait for the call and return one native.ExtResult per job, in job
+        order: the nine result fields, reach_end (set as the oracle sets it:
+        extz-only, not z-dropped, mqe + end_bonus > max) and the CIGAR."""
+        from .. import native
+
+        res9, blob, off, ln, reach = self.collect_blob()
+        out = []
+        for i, v in enumerate(res9.tolist()):
+            r = native.ExtResult.__new__(native.ExtResult)
+            (r.max, zd, r.max_q, r.max_t, r.mqe, r.mqe_t, r.mte, r.mte_q,
+             r.score) = v
+            r.zdropped = bool(zd)
+            r.reach_end = bool(reach[i])
+            r.cigar = (np.zeros(0, np.uint32) if blob is None
+                       else blob[off[i]:off[i] + ln[i]].copy())
+            out.append(r)
+        return out

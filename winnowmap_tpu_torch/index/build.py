@@ -44,8 +44,8 @@ class MinimizerIndex:
     # --bloom-filter strict-parity mode: (table u8, table_bits, salt0, salt1)
     bloom: tuple | None = None
     index_part: int = 0
-    # splice-junction intervals (--junc-bed); empty until reading a BED
-    # file is ported, and map_batch refuses a spliced run that has them
+    # per-rid splice-junction intervals (reference mm_idx_intv_t, loaded
+    # from BED by read_bed): dict rid -> (st, en, strand) int64 arrays
     intervals: dict = field(default_factory=dict)
     # device copies of `codes`, keyed by device (extend/kernels.PoolContext)
     device_codes: dict = field(default_factory=dict, repr=False,
@@ -54,6 +54,23 @@ class MinimizerIndex:
     @property
     def n_seq(self) -> int:
         return len(self.seqs)
+
+    def name_to_rid(self) -> dict[str, int]:
+        return {s.name: i for i, s in enumerate(self.seqs)}
+
+    def get_batch(self, query_keys: np.ndarray):
+        """Vectorised lookup (reference mm_idx_get, src/index.c:88-105);
+        returns (found mask, run start, run count)."""
+        n = len(self.keys)
+        idx = np.searchsorted(self.keys, query_keys)
+        if n == 0:
+            z = np.zeros(len(query_keys), np.int64)
+            return np.zeros(len(query_keys), bool), z, z
+        idx_c = np.minimum(idx, n - 1)
+        found = (idx < n) & (self.keys[idx_c] == query_keys)
+        rs = np.where(found, self.start[idx_c], 0)
+        rc = np.where(found, self.start[idx_c + 1] - self.start[idx_c], 0)
+        return found, rs, rc
 
     def getseq(self, rid: int, st: int, en: int) -> np.ndarray:
         """Reference segment as 0..4 codes (reference mm_idx_getseq,
@@ -168,3 +185,61 @@ def build_index(records, w: int, k: int, flag: int = 0,
     mi.start = np.append(start_idx, len(keys)).astype(np.int64)
     mi.pos = y
     return mi
+
+
+def read_bed(mi: MinimizerIndex, path: str, read_junc: bool = True) -> None:
+    """Load splice junctions from BED6/BED12 (reference mm_idx_read_bed,
+    src/index.c:690-777): BED12 blocks become the introns between blocks;
+    simple BED lines are taken as intervals directly."""
+    name2rid = mi.name_to_rid()
+    per = {}
+    with open(path) as f:
+        for line in f:
+            cols = line.rstrip("\n").split("\t")
+            if len(cols) < 3 or cols[0] not in name2rid:
+                continue
+            rid = name2rid[cols[0]]
+            st, en = int(cols[1]), int(cols[2])
+            if st < 0 or st >= en:
+                continue
+            strand = 0
+            if len(cols) >= 6:
+                strand = 1 if cols[5] == "+" else -1 if cols[5] == "-" else 0
+            lst = per.setdefault(rid, [])
+            if read_junc and len(cols) >= 12 and cols[9].isdigit():
+                n_blk = int(cols[9])
+                sizes = [int(x) for x in cols[10].rstrip(",").split(",")]
+                starts = [int(x) for x in cols[11].rstrip(",").split(",")]
+                en_b = st + starts[0] + sizes[0]
+                for i in range(1, n_blk):
+                    s_, e_ = en_b, st + starts[i]
+                    en_b = st + starts[i] + sizes[i]
+                    if e_ > s_:
+                        lst.append((s_, e_, strand))
+            else:
+                lst.append((st, en, strand))
+    for rid, lst in per.items():
+        lst.sort(key=lambda t: t[0])
+        a = np.array(lst, np.int64).reshape(-1, 3)
+        mi.intervals[rid] = (a[:, 0], a[:, 1], a[:, 2])
+
+
+def bed_junc(mi: MinimizerIndex, rid: int, st: int, en: int) -> np.ndarray:
+    """Per-base junction flags over [st, en) (reference mm_idx_bed_junc,
+    src/index.c:780-803): donor/acceptor bits by annotated strand, for the
+    intervals that lie wholly inside the window."""
+    out = np.zeros(en - st, np.uint8)
+    iv = mi.intervals.get(rid)
+    if iv is None:
+        return out
+    ist, ien, istr = iv
+    m = (ist >= st) & (ien <= en) & (istr != 0)
+    for s_, e_, sd in zip(ist[m].tolist(), ien[m].tolist(),
+                          istr[m].tolist()):
+        if sd > 0:
+            out[s_ - st] |= 1
+            out[e_ - 1 - st] |= 2
+        else:
+            out[s_ - st] |= 8
+            out[e_ - 1 - st] |= 4
+    return out

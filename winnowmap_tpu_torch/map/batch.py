@@ -1,18 +1,231 @@
-"""Batched mapping entry point (reference mm_map over a batch of reads,
-src/map.c:279-981): the native engine on the host, every exported
-extension-DP job on the device."""
+"""Batched mapping entry points (reference mm_map over a batch of reads,
+src/map.c:279-981).
+
+map_batch sends a batch through the native engine (map/engine.py) whenever
+engine_supported takes the options, and through the generator path
+otherwise: --junc-bed, -X, -D, --for-only, --rev-only, no-dual and --sr.
+On the generator path each read is a Python generator (map/frag.py) that
+yields extension-DP jobs; run_ext_tasks gathers the jobs of every read,
+groups them by what a call shares (scoring, matrix, flag, splice
+parameters), runs each group as DevCallPooled calls on the device (K1, K3
+or K4, then the traceback) and feeds the results back.  Only the jobs whose
+result the oracle's own refusal guards decide (align.refused) are computed
+on the host, and they are counted in STATS["host_jobs"].
+"""
 from __future__ import annotations
 
-from ..device import resolve_device
-from .engine import STATS, map_batch_engine
+import time
+from collections import defaultdict
 
-__all__ = ["map_batch", "STATS"]
+import numpy as np
+
+from ..device import resolve_device
+from ..extend.kernels import DevCallPooled, PoolContext, job_geometry
+from ..options import MM_F_SPLICE
+from .align import JobSeq, align_pair, refused
+from .engine import (MAX_CALL_DIRS_BYTES, STATS, build_read_pool,
+                     engine_supported, map_batch_engine)
+from .frag import MapResult, McasState, _map_vanilla_gen, mcas_stage2_gen
+
+__all__ = ["map_batch", "map_batch_generator", "run_ext_tasks", "STATS"]
 
 
 def map_batch(mi, opt, seqs, qnames, device=None):
     """Map a batch of reads; returns one MapResult per read, in order.
 
     device=None runs the DP on the CUDA card (raises when there is none);
-    device="cpu" runs the kernels' plain PyTorch versions.  Options whose
-    DP needs a kernel that is not ported yet raise NotImplementedError."""
-    return map_batch_engine(mi, opt, seqs, qnames, resolve_device(device))
+    device="cpu" runs the kernels' plain PyTorch versions."""
+    if engine_supported(opt, mi):
+        return map_batch_engine(mi, opt, seqs, qnames,
+                                resolve_device(device))
+    return map_batch_generator(mi, opt, seqs, qnames, device)
+
+
+class _Task:
+    """One generator and the job (or job list) it waits on."""
+
+    __slots__ = ("gen", "job", "done", "value", "sub_results", "sub_left")
+
+    def __init__(self, gen):
+        self.gen = gen
+        self.job = None
+        self.done = False
+        self.value = None
+        self.sub_results = None
+        self.sub_left = 0
+
+    def advance(self, send_val=None):
+        try:
+            if send_val is None and self.job is None:
+                self.job = next(self.gen)
+            else:
+                self.job = self.gen.send(send_val)
+        except StopIteration as e:
+            self.done = True
+            self.value = e.value
+            self.job = None
+        if isinstance(self.job, list):
+            self.sub_results = [None] * len(self.job)
+            self.sub_left = len(self.job)
+
+    def deliver(self, k, ez):
+        """Deliver one job's result (k: its place in a yielded list, None
+        for a single job); returns the value to send when the task is
+        ready to advance, else None."""
+        if k is None:
+            return ez
+        self.sub_results[k] = ez
+        self.sub_left -= 1
+        if self.sub_left == 0:
+            return self.sub_results
+        return None
+
+
+def _resolve_job(pools: PoolContext, job) -> list:
+    """The job's DevCallPooled row (qoff, qlen, qrev, toff, tlen, trev, w,
+    zdrop): its query must be a view into the read pool, its target into
+    the reference codes."""
+    opt, qseq, tseq, mat, w, end_bonus, zdrop, flag = job[:8]
+    qr = pools.resolve(qseq) if isinstance(qseq, JobSeq) else None
+    tr = pools.resolve(tseq) if isinstance(tseq, JobSeq) else None
+    if qr is None or tr is None or qr[0] != 0 or tr[0] != 1:
+        raise RuntimeError("an extension job's sequences are not views into "
+                           "the read pool and the reference codes")
+    return [qr[1], len(qseq), int(qseq.rev), tr[1], len(tseq), int(tseq.rev),
+            int(w), int(zdrop)]
+
+
+def _group_key(job) -> tuple:
+    """What the jobs of one call share: the profile's scoring and splice
+    parameters, the matrix and the flag (w, zdrop and end_bonus ride per
+    job)."""
+    opt, mat, flag = job[0], job[3], job[7]
+    spl = ((opt.noncan, opt.junc_bonus) if opt.flag & MM_F_SPLICE else None)
+    return (opt.q, opt.e, opt.q2, opt.e2, mat.tobytes(), int(flag), spl)
+
+
+def _dispatch(pools, key, units) -> list:
+    """DevCallPooled calls for one group, longest job first, split so no
+    call's direction buffer passes MAX_CALL_DIRS_BYTES (as the engine's
+    _dispatch splits).  units: [(task, k, row, job)].  Returns [(call,
+    units)]."""
+    q, e, q2, e2, _, flag, spl = key
+    mat = units[0][3][3]
+    units = sorted(units, key=lambda u: -(u[2][1] + u[2][4]))
+    rows = np.array([u[2] for u in units], np.int64).reshape(-1, 8)
+    eb = np.array([u[3][5] for u in units], np.int64)
+    nb = np.cumsum(job_geometry(rows, unbanded=spl is not None).nbytes)
+    out = []
+    lo = 0
+    while lo < len(units):
+        base = nb[lo - 1] if lo else 0
+        hi = int(np.searchsorted(nb, base + MAX_CALL_DIRS_BYTES,
+                                 side="right"))
+        hi = max(hi, lo + 1)
+        chunk = units[lo:hi]
+        juncs = None
+        if spl is not None:
+            juncs = [u[3][8] if len(u[3]) > 8 else None for u in chunk]
+        t0 = time.perf_counter()
+        call = DevCallPooled(pools, rows[lo:hi], mat, q, e, q2, e2,
+                             eb[lo:hi], flag, splice=spl, juncs=juncs)
+        STATS["dispatch_s"] += time.perf_counter() - t0
+        STATS["dev_calls"] += 1
+        STATS["dev_jobs"] += len(chunk)
+        out.append((call, chunk))
+        lo = hi
+    return out
+
+
+def run_ext_tasks(tasks: list[_Task], pools: PoolContext) -> None:
+    """Run the tasks' generators to their end with every DP job on the
+    device.  Each round dispatches every pending group (however few jobs
+    it holds), then collects the calls in order; the tasks a call's
+    results complete advance at once and queue their next jobs for the
+    next round while the later calls still run."""
+    queues: dict = defaultdict(list)  # group key -> [(task, k, row, job)]
+
+    def enqueue(t):
+        # queue every job of the task's current yield; refused jobs get
+        # their host result at once, and a yield of only those advances
+        while not t.done:
+            jobs = t.job if isinstance(t.job, list) else [t.job]
+            ks = range(len(jobs)) if isinstance(t.job, list) else [None]
+            queued = False
+            send = None
+            for k, job in zip(ks, jobs):
+                if refused(job[0], len(job[1]), len(job[2])):
+                    t0 = time.perf_counter()
+                    ez = align_pair(*job)
+                    STATS["host_s"] += time.perf_counter() - t0
+                    STATS["host_jobs"] += 1
+                    send = t.deliver(k, ez)
+                else:
+                    queues[_group_key(job)].append(
+                        (t, k, _resolve_job(pools, job), job))
+                    queued = True
+            if queued:
+                return
+            if send is None and isinstance(t.job, list) and not jobs:
+                send = []
+            t.advance(send)
+
+    for t in tasks:
+        t.advance()
+        enqueue(t)
+    while queues:
+        calls = []
+        for key in sorted(queues, key=repr):
+            calls += _dispatch(pools, key, queues[key])
+        queues.clear()
+        for call, chunk in calls:
+            t0 = time.perf_counter()
+            ezs = call.collect()
+            STATS["dev_wait_s"] += time.perf_counter() - t0
+            ready = []
+            for (t, k, _, _), ez in zip(chunk, ezs):
+                send = t.deliver(k, ez)
+                if send is not None:
+                    ready.append((t, send))
+            for t, send in ready:
+                t.advance(send)
+                enqueue(t)
+
+
+def map_batch_generator(mi, opt, seqs, qnames, device=None) -> list:
+    """Map a batch of reads through the generator path (reference mm_map,
+    src/map.c:279-981), whatever the options: MCAS stage-1 trials and the
+    vanilla reads run together, then every SV-aware read's stage 2.
+    device as for map_batch."""
+    t_start = time.perf_counter()
+    s0 = {k: STATS[k] for k in ("dispatch_s", "dev_wait_s", "host_s")}
+    qpool, qoffs = build_read_pool(seqs)
+    pools = PoolContext(qpool, mi, resolve_device(device))
+    results: list = [None] * len(seqs)
+    trial_tasks, vanilla, stage2_in = [], [], []
+    for i, seq in enumerate(seqs):
+        qlen = len(seq)
+        if qlen == 0:
+            results[i] = MapResult([], 0, 0)
+            continue
+        of, orv = qoffs[i]
+        qseq0 = [qpool[of:of + qlen], qpool[orv:orv + qlen]]
+        if opt.sv_aware and qlen >= opt.sv_aware_min_read_length:
+            st = McasState(opt, seq, qseq0)
+            stage2_in.append((i, st))
+            trial_tasks += [_Task(g) for g in
+                            st.trial_gens(mi, seq, qnames[i])]
+        else:
+            vanilla.append((i, _Task(_map_vanilla_gen(mi, opt, seq,
+                                                      qnames[i], qseq0))))
+    run_ext_tasks(trial_tasks + [t for _, t in vanilla], pools)
+    for i, t in vanilla:
+        results[i] = t.value
+    stage2 = [(i, _Task(mcas_stage2_gen(mi, opt, seqs[i], qnames[i], st)))
+              for i, st in stage2_in]
+    run_ext_tasks([t for _, t in stage2], pools)
+    for i, t in stage2:
+        results[i] = t.value
+    STATS["gen_py_s"] += (time.perf_counter() - t_start) - sum(
+        STATS[k] - v for k, v in s0.items())
+    return results

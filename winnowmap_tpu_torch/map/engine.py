@@ -67,27 +67,18 @@ def _est_live_cells(rows, unbanded: bool = False):
     return float(((ql + tl - 1) * wv).sum())
 
 
-def engine_supported(opt: MapOptions) -> bool:
-    """Option flags the native engine handles."""
+def engine_supported(opt: MapOptions, mi=None) -> bool:
+    """Options the native engine handles; map_batch sends the others to the
+    generator path (map/batch.py): --sr, -D/-X, --for-only, --rev-only,
+    no-dual, and spliced mapping with --junc-bed intervals (their junction
+    bytes follow each job's DP window, which the engine does not carry)."""
     unsupported = (MM_F_NO_DIAG | MM_F_NO_DUAL | MM_F_FOR_ONLY
                    | MM_F_REV_ONLY | MM_F_SR)
-    return not (opt.flag & unsupported)
-
-
-def check_ported(opt: MapOptions, mi=None) -> None:
-    """Raise NotImplementedError for options whose path is not ported yet
-    (never route them elsewhere)."""
-    if not engine_supported(opt):
-        raise NotImplementedError(
-            "option flags outside the native engine (--sr, -D/-X, --for-only,"
-            " --rev-only, no-dual) are not ported yet")
-    if opt.flag & MM_F_SPLICE:
-        if mi is not None and mi.intervals:
-            # the junction bytes depend on each job's DP window, which the
-            # engine path does not carry
-            raise NotImplementedError(
-                "spliced mapping with junction annotations (--junc-bed) is "
-                "not ported yet")
+    if opt.flag & unsupported:
+        return False
+    if (opt.flag & MM_F_SPLICE) and mi is not None and mi.intervals:
+        return False
+    return True
 
 
 def _opts_to_c(opt: MapOptions) -> native.EngOptsC:
@@ -355,7 +346,9 @@ def map_batch_engine(mi, opt: MapOptions, seqs, qnames,
                      device: torch.device) -> list[MapResult]:
     """Map a batch of reads through the native engine with every exported
     DP job on `device` (reference mm_map semantics)."""
-    check_ported(opt, mi)
+    if not engine_supported(opt, mi):
+        raise ValueError("the native engine does not take these options; "
+                         "map_batch sends them to the generator path")
     qpool, qoffs = build_read_pool(seqs)
     pools = PoolContext(qpool, mi, device)
     eng = MapEngine(mi, opt, seqs, qnames, pools, qoffs, qpool)

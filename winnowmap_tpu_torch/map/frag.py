@@ -1,10 +1,39 @@
-"""Per-read mapping result and the read-name hash the engine seeds with
-(reference mm_map_frag, src/map.c:279-981; the orchestration itself runs in
-the native engine)."""
+"""Per-read mapping orchestration of the generator path (reference
+mm_map_frag for one segment, src/map.c:279-981).
+
+Two-stage SV-aware (MCAS) mapping: stage 1 maps sampled substrings of the
+read and pools the anchors of confident sub-alignments; stage 2 re-chains
+and re-aligns the whole read from the pooled anchors.  The vanilla
+single-pass pipeline runs when SV-aware mode is off, the read is short, or
+no confident substring mapping was found.  Every function here is a
+generator of extension-DP jobs (map/align.py); map/batch.run_ext_tasks
+runs them on the device.  Chaining calls the native chain DP.
+"""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
+import numpy as np
+
+from .. import native
+from ..options import (
+    MM_F_ALL_CHAINS,
+    MM_F_CIGAR,
+    MM_F_HARD_MLEVEL,
+    MM_F_NO_LJOIN,
+    MM_F_SPLICE,
+    MM_F_SR,
+    stage1_options,
+    stage2_options,
+)
+from . import hit as hitmod
+from .align import align_skeleton_gen
+from .esterr import est_err
+from .hit import set_mapq, set_parent, set_sam_pri, select_sub
+from .seeds import collect_minimizers, collect_seed_hits
+
+U64 = np.uint64
 U32MASK = 0xFFFFFFFF
 
 
@@ -13,6 +42,23 @@ def _x31_hash(s: str) -> int:
     for ch in s.encode():
         h = ((h << 5) - h + ch) & U32MASK
     return h
+
+
+def _wang_hash(key: int) -> int:
+    key = (key + (~(key << 15) & U32MASK)) & U32MASK
+    key ^= key >> 10
+    key = (key + (key << 3)) & U32MASK
+    key ^= key >> 6
+    key = (key + (~(key << 11) & U32MASK)) & U32MASK
+    key ^= key >> 16
+    return key
+
+
+def _frag_hash(qname: str | None, qlen_sum: int, seed: int) -> int:
+    h = _x31_hash(qname) if qname else 0
+    h ^= (_wang_hash(qlen_sum) + _wang_hash(seed)) & U32MASK
+    h &= U32MASK
+    return _wang_hash(h)
 
 
 @dataclass
@@ -25,3 +71,240 @@ class MapResult:
     # outer rep_len is never written before use -- a reference UB we resolve
     # to 0).  Tests treat rl/MAPQ as unspecified for such reads.
     rep_len_defined: bool = True
+
+
+def _chain_gaps(opt, is_sr, qlen_sum):
+    """(reference map.c:373-388)"""
+    if is_sr:
+        max_chain_gap_qry = max(qlen_sum, opt.max_gap)
+    else:
+        max_chain_gap_qry = opt.max_gap
+    if opt.max_gap_ref > 0:
+        max_chain_gap_ref = opt.max_gap_ref
+    elif opt.max_frag_len > 0:
+        max_chain_gap_ref = max(opt.max_frag_len - qlen_sum, opt.max_gap)
+    else:
+        max_chain_gap_ref = opt.max_gap
+    min_chain_gap_ref = min(opt.min_gap_ref, max_chain_gap_ref)
+    return max_chain_gap_qry, max_chain_gap_ref, min_chain_gap_ref
+
+
+def _chain(opt, ax, ay, qlen, is_cdna: int):
+    """Chain anchors with the native chain DP (reference mm_chain_dp)."""
+    max_gap_qry, max_gap_ref, min_gap_ref = _chain_gaps(
+        opt, bool(opt.flag & MM_F_SR), qlen)
+    u, ax, ay = native.chain_dp(
+        ax, ay, max_dist_x=max_gap_ref, min_dist_x=min_gap_ref,
+        max_dist_y=max_gap_qry, bw=opt.bw, max_skip=opt.max_chain_skip,
+        max_iter=opt.max_chain_iter, min_cnt=opt.min_cnt,
+        min_sc=opt.min_chain_score, gap_scale=opt.chain_gap_scale,
+        is_cdna=is_cdna, n_segs=1)
+    return u, ax, ay, max_gap_ref
+
+
+def chain_post(opt, mi, qlen, regs, ax, ay):
+    """(reference chain_post, map.c:256-265, one segment)"""
+    if not (opt.flag & MM_F_ALL_CHAINS):
+        set_parent(opt.mask_level, opt.mask_len, regs, opt.a * 2 + opt.b,
+                   opt.flag & MM_F_HARD_MLEVEL, opt.alt_drop)
+        regs = select_sub(opt.pri_ratio, mi.k * 2, opt.best_n, regs)
+        if not (opt.flag & (MM_F_SPLICE | MM_F_SR | MM_F_NO_LJOIN)):
+            regs = hitmod.join_long(opt, qlen, regs, ax, ay)
+    return regs
+
+
+def align_regs_gen(opt, mi, qlen, regs, ax, ay, qseq0):
+    """(reference align_regs, map.c:267-277)"""
+    if not (opt.flag & MM_F_CIGAR):
+        return regs
+    regs, ax, ay = yield from align_skeleton_gen(opt, mi, qlen, regs, ax, ay,
+                                                 qseq0)
+    if not (opt.flag & MM_F_ALL_CHAINS):
+        set_parent(opt.mask_level, opt.mask_len, regs, opt.a * 2 + opt.b,
+                   opt.flag & MM_F_HARD_MLEVEL, opt.alt_drop)
+        regs = select_sub(opt.pri_ratio, mi.k * 2, opt.best_n, regs)
+        set_sam_pri(regs)
+    return regs
+
+
+def _pipeline_once_gen(mi, opt, qlen, seq, qname, hash_, run_est_err,
+                       qseq0):
+    """One seed -> chain -> post -> align -> mapq pass, the core of both the
+    vanilla path and each MCAS substring trial (reference map.c:343-470)."""
+    is_sr = bool(opt.flag & MM_F_SR)
+    mvx, mvy = collect_minimizers(opt, mi, [qlen], [seq])
+    sh = collect_seed_hits(opt, opt.mid_occ, mi, qname, mvx, mvy, qlen)
+    # (the rechain with a higher occurrence cutoff, reference map.c:391-413,
+    # fires only when opt.max_occ > opt.mid_occ, which no preset sets)
+    u, ax, ay, max_gap_ref = _chain(opt, sh.ax, sh.ay, qlen,
+                                    int(bool(opt.flag & MM_F_SPLICE)))
+    regs = hitmod.gen_regs(hash_, qlen, u, ax, ay)
+    regs = chain_post(opt, mi, qlen, regs, ax, ay)
+    # the reference runs mm_est_err only inside MCAS stage-1 trials
+    # (map.c:426); the final/vanilla pass has it disabled (map.c:928-929)
+    if not is_sr and run_est_err:
+        est_err(mi, qlen, regs, ax, ay, sh.mini_pos)
+    regs = yield from align_regs_gen(opt, mi, qlen, regs, ax, ay, qseq0)
+    set_mapq(regs, opt.min_chain_score, opt.a, sh.rep_len, is_sr)
+    return regs, ax, ay, sh.rep_len, max_gap_ref
+
+
+def _map_vanilla_gen(mi, opt, seq, qname, qseq0):
+    """Single-pass path (reference map.c:848-954; also the fallback when
+    MCAS found no anchors)."""
+    qlen = len(seq)
+    hash_ = _frag_hash(qname, qlen, opt.seed)
+    regs, ax, ay, rep_len, frag_gap = yield from _pipeline_once_gen(
+        mi, opt, qlen, seq, qname, hash_, False, qseq0)
+    return MapResult(regs, rep_len, frag_gap)
+
+
+def _stage2_chain_gen(mi, opt3, qlen, qname, ax_in, ay_in, rep_len,
+                      rep_len_defined, qseq0):
+    """Stage-2 chain/align from a pooled anchor set (reference
+    map.c:848-954 with pre-collected anchors)."""
+    is_sr = bool(opt3.flag & MM_F_SR)
+    hash_ = _frag_hash(qname, qlen, opt3.seed)
+    u, ax, ay, max_gap_ref = _chain(opt3, ax_in, ay_in, qlen, 0)
+    regs = hitmod.gen_regs(hash_, qlen, u, ax, ay)
+    regs = chain_post(opt3, mi, qlen, regs, ax, ay)
+    # stage 2 skips mm_est_err (reference map.c:928-929 commented out)
+    regs = yield from align_regs_gen(opt3, mi, qlen, regs, ax, ay, qseq0)
+    set_mapq(regs, opt3.min_chain_score, opt3.a, rep_len, is_sr)
+    return MapResult(regs, rep_len, max_gap_ref, rep_len_defined)
+
+
+class McasState:
+    """Shared per-read MCAS stage-1 state (reference map.c:305-312); trial
+    generators for different start positions write disjoint slots, as the
+    reference's OpenMP-parallel substring loop does (map.c:317-334)."""
+
+    def __init__(self, opt, seq, qseq0):
+        self.qlen = len(seq)
+        self.opt2 = stage1_options(opt)
+        self.n_starts = 1 + math.ceil(self.qlen
+                                      / self.opt2.suffix_sample_offset)
+        self.collect_ax = [None] * self.n_starts
+        self.collect_ay = [None] * self.n_starts
+        self.seq_mapped = np.zeros(self.qlen, dtype=bool)
+        self.qseq0 = qseq0
+
+    def trial_gens(self, mi, seq, qname):
+        return [self._trial_gen(mi, seq, qname, sid)
+                for sid in range(self.n_starts)]
+
+    def _trial_gen(self, mi, seq, qname, suffix_id):
+        """All substring trials for one start position (reference
+        map.c:334-688: geometric length ladder, right then left)."""
+        opt2, qlen = self.opt2, self.qlen
+        sub_begin = suffix_id * opt2.suffix_sample_offset
+        if sub_begin >= qlen:
+            sub_begin = qlen - 1
+        sub_len = opt2.min_prefix_length
+        while sub_len <= opt2.max_prefix_length:
+            for left in (False, True):
+                if left:
+                    fits = sub_begin - sub_len + 1 >= 0
+                else:
+                    fits = sub_begin + sub_len <= qlen
+                if fits:
+                    found, n_regs0 = yield from _mcas_try_gen(
+                        mi, opt2, seq, qname, sub_begin, sub_len, left, qlen,
+                        self, suffix_id)
+                    if found or not n_regs0:
+                        return
+            sub_len = int(sub_len * opt2.prefix_increment_factor)
+
+
+def mcas_stage2_gen(mi, opt, seq, qname, st: McasState):
+    """Anchor pooling + stage-2 re-chain/re-align (reference
+    map.c:713-954)."""
+    qlen = len(seq)
+    opt3 = stage2_options(opt)
+
+    # pool + dedupe anchors (reference map.c:732-781)
+    pooled = [(x, y) for x, y in zip(st.collect_ax, st.collect_ay)
+              if x is not None and len(x) > 0]
+    rep_len = 0
+    rep_len_defined = False
+    ax = ay = None
+    if pooled:
+        ax = np.concatenate([p[0] for p in pooled])
+        ay = np.concatenate([p[1] for p in pooled])
+        order = np.lexsort((ay, ax))
+        ax, ay = ax[order], ay[order]
+        keep = np.ones(len(ax), dtype=bool)
+        if len(ax) > 1:
+            keep[1:] = (ax[1:] != ax[:-1]) | (ay[1:] != ay[:-1])
+        ax, ay = ax[keep], ay[keep]
+        # already sorted by (x, y); the reference's stable re-sort by x
+        # keeps this order
+        if len(ax) < opt3.min_cnt:
+            ax = ay = None
+
+    # collect additional anchors from unmapped intervals (reference
+    # map.c:788-845)
+    if ax is not None and not st.seq_mapped.all():
+        masked = bytearray(seq)
+        for i in np.nonzero(st.seq_mapped)[0]:
+            masked[i] = ord("N")
+        mvx, mvy = collect_minimizers(opt3, mi, [qlen], [bytes(masked)])
+        sh = collect_seed_hits(opt3, opt3.mid_occ, mi, qname, mvx, mvy, qlen)
+        rep_len = sh.rep_len
+        rep_len_defined = True
+        ax = np.concatenate([ax, sh.ax])
+        ay = np.concatenate([ay, sh.ay])
+        order = np.argsort(ax, kind="stable")
+        ax, ay = ax[order], ay[order]
+
+    if ax is None:
+        # MCAS unusable: the vanilla path with the original options (its
+        # jobs' scoring equals stage 2's, so they share calls with them)
+        result = yield from _map_vanilla_gen(mi, opt, seq, qname, st.qseq0)
+        return result
+    result = yield from _stage2_chain_gen(mi, opt3, qlen, qname, ax, ay,
+                                          rep_len, rep_len_defined, st.qseq0)
+    return result
+
+
+def sub_qseq0(qseq0, qlen, start, sub_len):
+    """Strand views for the substring [start, start+sub_len) of a read whose
+    full-strand views are qseq0: fwd slice of fwd, rev slice of rev (the
+    revcomp of a substring is a substring of the revcomp)."""
+    fwd = qseq0[0][start:start + sub_len]
+    rev = qseq0[1][qlen - start - sub_len:qlen - start]
+    return [fwd, rev]
+
+
+def _mcas_try_gen(mi, opt2, seq, qname, sub_begin, sub_len, left, qlen,
+                  st: McasState, suffix_id):
+    """Try mapping one substring; on success save its shifted anchors
+    (reference map.c:346-515 right, 518-687 left).  Returns (found, number
+    of regions)."""
+    start = sub_begin - sub_len + 1 if left else sub_begin
+    sub = seq[start:start + sub_len]
+    hash_ = _frag_hash(qname, sub_len, opt2.seed)
+    regs0, ax, ay, _, _ = yield from _pipeline_once_gen(
+        mi, opt2, sub_len, sub, qname, hash_, True,
+        sub_qseq0(st.qseq0, qlen, start, sub_len))
+    for r in regs0:
+        if (r.mapq >= opt2.min_mapq and r.blen >= opt2.min_qcov * sub_len
+                and r.cnt > 0):
+            sel_ax = ax[r.as_:r.as_ + r.cnt].copy()
+            sel_ay = ay[r.as_:r.as_ + r.cnt].copy()
+            # shift anchor query coordinates into whole-read space
+            # (reference map.c:486-496 / 658-668)
+            rev_mask = (sel_ax >> U64(63)).astype(bool)
+            if left:
+                shift_fwd = sub_begin - sub_len + 1
+                shift_rev = (qlen - 1) - sub_begin
+            else:
+                shift_fwd = sub_begin
+                shift_rev = qlen - sub_begin - sub_len
+            sel_ay = sel_ay + np.where(rev_mask, np.uint64(shift_rev),
+                                       np.uint64(shift_fwd))
+            st.collect_ax[suffix_id] = sel_ax
+            st.collect_ay[suffix_id] = sel_ay
+            st.seq_mapped[start:start + sub_len] = True
+            return True, len(regs0)
+    return False, len(regs0)
