@@ -30,7 +30,19 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      exons with introns of 100-1500 bases at 0x508) and one long job each
      of K1, K4 (a full band of 16800 lanes) and K3 (8600 exon bases), their
      slot state in global scratch, against the native oracle, by digest;
-     then kernel times from CUDA events, with the card to themselves;
+     C1 (the chain forward pass) against its plain version on 64 anchor
+     sets of 2k-20k anchors and a repeat cluster whose windows pass 8192,
+     under asm5's stage-1 and stage-2 chain parameters (phase 9's), on
+     eight under cDNA's gap cost and eight at max_skip 1 (where the
+     oracle's break cuts walks short), every job chained to the end
+     against native.chain_dp; S1 (the sketch transform) against its plain
+     version on 200 kb with N bases, HPC off and on, and sketch_device
+     against native.sketch there with a weighted set; then kernel times
+     from CUDA events, with the card to themselves (S1 on 4 Mbp, held to
+     its plain version and native.sketch there too), and C1, the whole
+     device chain and native.chain_dp on single chains of 10k, 50k, 100k
+     and 300k anchors under stage 2's parameters, each chain against
+     native.chain_dp;
   3. the port's CLI on the golden corpora (tests/data/golden): --sv-off
      byte-equal to golden_svoff.sam, sv-aware equal to golden_svon.sam up
      to the reference's uninitialised rep_len fields (at most 6 lines);
@@ -38,15 +50,18 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      (--cs), and to golden_splice.sam apart from @PG;
   4. map-ont SV-aware mapping at real read length: a 1 Mbp genome and 1000
      reads of 15 +- 5 kb at 8% error (tests/tools/make_testdata.py, seed 7),
+     its index built through S1 and equal to the native build,
      reads/s, STATS and kernel launch counts of the run, and K1's and K2's
      summed device time (CUDA events around their C launch entries), K1's
      launches by flag and by launch, jobs and longest rows per call;
   5. spliced mapping (-x splice -a) at a real size: a 4 Mbp genome with 400
      genes and 5000 reads of their transcripts from both strands, made
-     with numpy (seed 20261016); reads/s, STATS and launch counts; every
-     K3 and traceback launch timed by CUDA events recorded around its C
-     launch entry (their summed device time and share of the wall, K3's
-     launches by flag and by launch, jobs and longest rows per call);
+     with numpy (seed 20261016; the index through S1, equal to the native
+     build, S1 and native.sketch timed on it); reads/s, STATS and launch
+     counts; every K3 and traceback launch timed by CUDA events recorded
+     around its C launch entry (their summed device time and share of the
+     wall, K3's launches by flag and by launch, jobs and longest rows per
+     call);
   6. single-cost mapping (map-ont SV-aware with -O 4,4 -E 2,2 -a) of phase
      4's corpus: every DP job through K4, none through K1; K4's device time
      and launches as K1's in phase 4;
@@ -68,6 +83,22 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      overlap (-X -c) of 200 of phase 4's reads; for both, reads/s, calls,
      jobs a call, host and device seconds and launches, and on the host
      just the jobs that the oracle's refusal guards refuse, counted apart.
+  9. assembly-to-reference mapping (-x asm5 -c, SV-aware, the engine): a
+     10 Mbp genome in two chromosomes (make_testdata.make_genome) and four
+     contigs of 2-3 Mbp cut from a haplotype copy of it (0.1%
+     substitutions, 0.01% indels of 1-20 bp, a 5 kb deletion, a 5 kb
+     insertion, a 20 kb inversion, a tandem expansion), weighted by the
+     canonical 19-mers above distinct=0.9998; the index through S1, every
+     chain of 50,000 anchors or more through the engine's chain exchange
+     onto C1; contigs/s, Mbp/s, the chains exported and their anchors, C1's,
+     K1's and K2's device time, eng_chain_s, the index's seconds beside a
+     native build (equal arrays); fails unless a chain reached C1, every
+     exported chain went through C1, and the PAF equals a second run with
+     chain_min = 0 (every chain on the engine's scalar DP).  C1's launch of
+     the run is timed again by CUDA events (the kernels line's C1 time) and
+     held at the end, in a worker process, to the plain version (whose
+     tally of the oracle's candidates gives C1's bound) and its chains to
+     native.chain_dp.
 Every DP kernel call of phases 4, 5, 6 and 8 (c), (d) is recorded; for each
 launch a run took, its call at the median of that launch's longest rows
 (in 8 (c) one that carries junction bytes) is run again at the end through
@@ -152,6 +183,36 @@ OPS_PER_CELL_EXTZ = 27
 # shift, & 1, select, state == 0, select), forced state 1, op choice 5
 # (state == 0, == 1, == 3, two selects), i and j 2, the walk's test 2
 OPS_PER_STEP = 23
+# FP64 operations at 700 W: 132 SMs x 64 FP64 lanes x 1.98 GHz, one
+# multiply or add a lane a cycle (the data sheet's 67 TFLOP/s FP64 counts a
+# tensor-core FMA as two)
+FP64_OPS = 132 * 64 * 1.98e9
+# per candidate the chain oracle evaluates (native/src/wm_chain.cpp:63-99,
+# one segment): dr dq 2, the segment id 2, the first two continue tests 10
+# (sidi == sidj, dr == 0, dq <= 0, dq > max_dist_y, dq > max_dist_x, their
+# ands and ors), dd 3 (compare, subtract, select), dd > bw 3, the n_segs
+# test 1, the loop's decrement and test 2; per candidate that passes them,
+# also min_d and sc 4, log_dd 3, the gap cost's integer part 6 (the cdna
+# test, two conversions, the shift and add), the gap term's conversions
+# and subtract 3, f[j] 1, the max test with its updates and the skip
+# counter 5, the mark test 1; and 4 f64 operations, dd * .01 * avg_qspan
+# and gap * gap_scale + .499
+OPS_PER_CANDIDATE = 23
+OPS_PER_PASSING = 23
+F64_PER_PASSING = 4
+# the chain parameters C1 is checked with: asm5's (and map-ont's) stage 1
+# (tests/test_chain_device.py: max gap 5000, bw 500, max_skip 25, max_iter
+# 5000), and asm5's stage 2 (options.stage2_options: max gap 16000, bw
+# 2000), the parameters of phase 9's exported chains
+CHAIN_P = dict(max_dist_x=5000, min_dist_x=1000, max_dist_y=5000, bw=500,
+               max_skip=25, max_iter=5000, min_cnt=3, min_sc=40,
+               gap_scale=1.0, is_cdna=0)
+CHAIN_P2 = dict(CHAIN_P, max_dist_x=16000, max_dist_y=16000, bw=2000)
+# the single chains C1 and native.chain_dp are timed on side by side, under
+# CHAIN_P2 (phase 9's contig chains hold 80-120k anchors)
+CHAIN_SIZES = (10_000, 50_000, 100_000, 300_000)
+# the codes S1 is timed on: about phase 5's 4 Mbp genome
+SKETCH_TIMED = 4_000_000
 
 
 def log(msg):
@@ -609,6 +670,342 @@ def phase2_splice_times(K, check, native, torch, gen_simple_mat, max_err,
 
 
 # --------------------------------------------------------------------------
+# C1 (the chain forward pass) and S1 (the sketch transform)
+# --------------------------------------------------------------------------
+
+def chain_args(p):
+    """chain_fwd's parameters from a CHAIN_P-like dict (gap_scale through
+    the oracle's float cast)."""
+    return (p["max_dist_x"], p["max_dist_y"], p["bw"], p["max_skip"],
+            p["is_cdna"], float(np.float32(p["gap_scale"])))
+
+
+def chain_batch(p, jobs):
+    """chain_dp_device_batch's arguments for jobs under parameters p."""
+    return (jobs, p["max_dist_x"], p["min_dist_x"], p["max_dist_y"],
+            p["bw"], p["max_skip"], p["max_iter"], p["min_cnt"],
+            p["min_sc"], p["gap_scale"], p["is_cdna"], DEVICE)
+
+
+def chain_sets():
+    """check_chain's anchor sets (numpy seed 20261016): 64 of 2k-20k
+    anchors (every eighth repeat-rich) and a repeat cluster of 9,000
+    anchors whose windows pass 8192."""
+    from winnowmap_tpu_torch.chain.check import anchor_set
+
+    rng = np.random.default_rng(20261016)
+    jobs = [anchor_set(rng, int(rng.integers(2000, 20000)),
+                       repeat=(t % 8 == 0)) for t in range(64)]
+    jobs.append(anchor_set(rng, 9000, repeat=True, n_clusters=1))
+    return jobs
+
+
+CHAIN_CHECKS = ("stage 1", "stage 2", "cdna and max_skip 1")
+
+
+def check_chain(case):
+    """C1 against its plain version, exactly, on chain_sets: all of them
+    under CHAIN_P ("stage 1") or CHAIN_P2 ("stage 2"); or eight under
+    cDNA's gap cost with stage-2 gaps and gap scale 0.8 and the eight
+    smallest at max_skip 1 (where the oracle's break, its marks and floored
+    skip counter, cuts walks short of better predecessors); every job
+    chained to the end against native.chain_dp.  Runs in a process of its
+    own."""
+    import torch
+
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.chain import device as CD
+
+    jobs = chain_sets()
+    cdna = dict(CHAIN_P2, is_cdna=1, gap_scale=0.8)
+    skip1 = dict(CHAIN_P, max_skip=1)
+    small = sorted(jobs, key=lambda j: len(j[0]))[:8]
+    cases = {"stage 1": [("stage 1", CHAIN_P, jobs)],
+             "stage 2": [("stage 2", CHAIN_P2, jobs)],
+             "cdna and max_skip 1": [("cdna", cdna, jobs[1:9]),
+                                     ("max_skip 1", skip1, small)]}[case]
+    for name, p, js in cases:
+        cj = CD.chain_jobs(js, p["max_dist_x"], p["min_dist_x"],
+                           p["max_iter"], DEVICE)
+        win = int((torch.arange(cj.x.numel(), device=cj.x.device)
+                   - torch.repeat_interleave(cj.off[:-1],
+                                             cj.off.diff()) - cj.st).max())
+        kern = CD.chain_fwd(cj, *chain_args(p))
+        t0 = time.perf_counter()
+        plain = CD.chain_fwd_plain(cj, *chain_args(p))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        err = int((kern.long() - plain.long()).abs().max())
+        if err:
+            fail(f"C1 ({name}) != plain: max abs err {err}")
+        res = CD.chain_dp_device_batch(*chain_batch(p, js))
+        bad = [i for i, ((ax, ay), r) in enumerate(zip(js, res))
+               if not all(np.array_equal(a, b) for a, b in zip(
+                   native.chain_dp(ax, ay, n_segs=1, **p), r))]
+        if bad:
+            fail(f"C1 ({name}): jobs {bad[:8]} differ from native.chain_dp")
+        log(f"[phase 2] C1 {name}: {len(js)} anchor sets of "
+            f"{min(map(len, (a for a, _ in js)))}-"
+            f"{max(map(len, (a for a, _ in js)))} anchors, windows up to "
+            f"{win}: == plain (plain {dt:.1f} s) and == native.chain_dp on "
+            f"every job")
+
+
+def hold_chain(jobs, p):
+    """Phase 9's C1 launch (its anchor sets `jobs` under parameters p) run
+    again on the card and through the plain version, with its tally of the
+    candidates the oracle evaluates and of those that pass its distance
+    tests: they must be exactly equal; and each set chained to the end
+    through the device against native.chain_dp.  Returns the largest
+    difference (0), the plain version's host ms and the tally.  Runs in a
+    process of its own."""
+    import torch
+
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.chain import device as CD
+
+    cj = CD.chain_jobs(jobs, p["max_dist_x"], p["min_dist_x"],
+                       p["max_iter"], DEVICE)
+    kern = CD.chain_fwd(cj, *chain_args(p))
+    tally = torch.zeros(2, dtype=torch.int64, device=cj.x.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = CD.chain_fwd_plain(cj, *chain_args(p), tally=tally)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((kern.long() - plain.long()).abs().max())
+    if err:
+        fail(f"phase 9: C1's launch != plain: max abs err {err}")
+    res = CD.chain_dp_device_batch(*chain_batch(p, jobs))
+    bad = [i for i, ((ax, ay), r) in enumerate(zip(jobs, res))
+           if not all(np.array_equal(a, b) for a, b in zip(
+               native.chain_dp(ax, ay, n_segs=1, **p), r))]
+    if bad:
+        fail(f"phase 9: C1's chains {bad} differ from native.chain_dp")
+    return err, plain_ms, tally.tolist()
+
+
+def sketch_seq(rng, n):
+    """n bases of A/C/G/T, lower case and N, as tests/test_sketch.py draws
+    them."""
+    return rng.choice(list(b"ACGTacgtN"), n,
+                      p=[.22, .22, .22, .22, .02, .02, .02, .02, .04]
+                      ).astype(np.uint8).tobytes()
+
+
+def check_sketch():
+    """S1 against its plain version on the transform codes of 200 kb with
+    N bases, HPC off and on, k = 15, 19, 28; sketch_device against
+    native.sketch there with a weighted set of every 37th k-mer (k = 15, w
+    = 50; k = 19, w = 19).  Runs in a process of its own."""
+    import torch
+
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    rng = np.random.default_rng(20261016)
+    seq = sketch_seq(rng, 200_000)
+    for hpc in (False, True):
+        codes = SD._NT4[np.frombuffer(seq, np.uint8)]
+        if hpc:
+            prev = np.concatenate([[255], codes[:-1]])
+            codes = codes[(codes != prev) | (codes >= 4)]
+        ct = torch.from_numpy(codes).to(DEVICE)
+        for k in (15, 19, 28):
+            kern = SD.transform(ct, k)
+            plain = SD.transform_plain(ct, k)
+            err = max(int((a.long() != b.long()).sum())
+                      for a, b in zip(kern, plain))
+            if err:
+                fail(f"S1 != plain (k={k}, hpc={hpc}): {err} words differ")
+        for k, w in ((15, 50), (19, 19)):
+            ws = np.unique(np.array(
+                [native.encode_kmer(seq[o:o + k].upper())
+                 for o in range(0, len(seq) - k, 37)
+                 if b"N" not in seq[o:o + k]], np.uint64))
+            want = native.sketch(seq, w, k, 0, hpc, ws)
+            got = SD.sketch_device(seq, w, k, 0, hpc, ws, device=DEVICE)
+            if not all(np.array_equal(a, b) for a, b in zip(want, got)):
+                fail(f"sketch_device (k={k}, w={w}, hpc={hpc}) differs "
+                     f"from native.sketch")
+    log("[phase 2] S1: 200 kb with N bases, HPC off and on, k = 15, 19, "
+        "28: == plain; sketch_device == native.sketch with a weighted set "
+        "(k=15 w=50, k=19 w=19)")
+
+
+def kernel_record(nm, src, rep, err, ms, pms, tb, to):
+    """A kernels-line record of a CUDA kernel: bound_ms is the larger of the
+    bytes' time tb and the operations' time to; launches is set from the
+    main path's run."""
+    return {"name": nm, "route": "cuda",
+            "source": f"winnowmap_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": None}
+
+
+def phase2_chain_sketch_times(torch, native, CD, SD):
+    """C1, the whole device chain (upload, C1, the host's tail) and
+    native.chain_dp on single chains of CHAIN_SIZES anchors under CHAIN_P2,
+    each chain against native.chain_dp; S1 on SKETCH_TIMED codes timed by
+    CUDA events, held to its plain version and sketch_device to
+    native.sketch there, with the plain version's time and the bound
+    (S1's record for the kernels line; C1's comes from phase 9's
+    launch, c1_record)."""
+    from winnowmap_tpu_torch.chain.check import anchor_set
+    from winnowmap_tpu_torch.tools import time_ms
+
+    dev = torch.device(DEVICE)
+    saved = (dict(CD.LAUNCHES), dict(SD.LAUNCHES))
+    p = CHAIN_P2
+    sizes = []
+    rng = np.random.default_rng(20261021)
+    for n in CHAIN_SIZES:
+        ax, ay = anchor_set(rng, n, n_clusters=1)
+        cjn = CD.chain_jobs([(ax, ay)], p["max_dist_x"], p["min_dist_x"],
+                            p["max_iter"], dev)
+        kms = time_ms(lambda: CD.chain_fwd(cjn, *chain_args(p)), dev, 3)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            want = native.chain_dp(ax, ay, n_segs=1, **p)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 3
+        t0 = time.perf_counter()
+        for _ in range(3):
+            res = CD.chain_dp_device_batch(*chain_batch(p, [(ax, ay)]))[0]
+        dev_ms = (time.perf_counter() - t0) * 1e3 / 3
+        if not all(np.array_equal(a, b) for a, b in zip(want, res)):
+            fail(f"the device chain of {n} anchors differs from native")
+        sizes.append({"anchors": n, "c1_ms": kms, "device_chain_ms": dev_ms,
+                      "native_chain_dp_ms": host_ms})
+    log("[phase 2] single chains under asm5's stage-2 parameters, C1 (CUDA "
+        "events), the whole device chain and native.chain_dp (host clock), "
+        "each == native.chain_dp, JSON " + json.dumps(sizes))
+    rng = np.random.default_rng(20261022)
+    seq = sketch_seq(rng, SKETCH_TIMED)
+    codes = torch.from_numpy(SD._NT4[np.frombuffer(seq, np.uint8)]).to(dev)
+    kern = SD.transform(codes, 19)
+    plain = SD.transform_plain(codes, 19)
+    s_err = max(int((a.long() != b.long()).sum())
+                for a, b in zip(kern, plain))
+    if s_err:
+        fail(f"S1 != plain on {SKETCH_TIMED} codes: {s_err} words differ")
+    none = np.zeros(0, np.uint64)
+    want = native.sketch(seq, 19, 19, 0, False, none)
+    if not all(np.array_equal(a, b) for a, b in zip(
+            want, SD.sketch_device(seq, 19, 19, 0, False, none, device=dev))):
+        fail(f"sketch_device on {SKETCH_TIMED} bases differs from "
+             f"native.sketch")
+    s1_ms = time_ms(lambda: SD.transform(codes, 19), dev, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    SD.transform_plain(codes, 19)
+    torch.cuda.synchronize()
+    s1_plain_ms = (time.perf_counter() - t0) * 1e3
+    # a code byte read, three u64 words and two flag bytes written a base
+    s1_bytes = 27 * SKETCH_TIMED
+    s1_tb = s1_bytes / HBM_BPS * 1e3
+    log(f"[phase 2] S1 on {SKETCH_TIMED} codes, k = 19: {s1_ms:.4f} ms; "
+        f"plain {s1_plain_ms:.2f} ms; bound {s1_tb:.5f} ms (bytes); == plain "
+        f"and sketch_device (k = 19, w = 19) == native.sketch there")
+    CD.LAUNCHES.update(saved[0])  # comparison launches are not main-path
+    SD.LAUNCHES.update(saved[1])
+    return kernel_record("sketch_transform", "sketch.cu",
+                         "winnowmap_tpu/sketch/device.py:30", s_err, s1_ms,
+                         s1_plain_ms, s1_tb, 0.0)
+
+
+def chain_params(args):
+    """A CHAIN_P-like dict from chain_dp_device_batch's positional
+    parameters (after the jobs, before the device)."""
+    names = ("max_dist_x", "min_dist_x", "max_dist_y", "bw", "max_skip",
+             "max_iter", "min_cnt", "min_sc", "gap_scale", "is_cdna")
+    return dict(zip(names, args))
+
+
+def time_chain_launch(torch, CD, launch):
+    """C1 on phase 9's launch (its anchor sets and parameters, as
+    recorded), timed by CUDA events with the card to itself; returns its
+    ms (the launch is not counted as the main path's)."""
+    from winnowmap_tpu_torch.tools import time_ms
+
+    jobs, p = launch
+    dev = torch.device(DEVICE)
+    saved = dict(CD.LAUNCHES)
+    cj = CD.chain_jobs(jobs, p["max_dist_x"], p["min_dist_x"],
+                       p["max_iter"], dev)
+    ms = time_ms(lambda: CD.chain_fwd(cj, *chain_args(p)), dev, 3)
+    CD.LAUNCHES.update(saved)
+    return ms
+
+
+def c1_record(launch, ms, held):
+    """C1's kernels-line record from phase 9's launch: its CUDA-event ms,
+    and from hold_chain the difference from plain, the plain version's ms
+    and the oracle's evaluated and passing candidates (the bound's
+    count)."""
+    jobs, p = launch
+    err, plain_ms, (evaluated, passing) = held
+    n, B = sum(len(ax) for ax, _ in jobs), len(jobs)
+    ops = evaluated * OPS_PER_CANDIDATE + passing * OPS_PER_PASSING
+    to = (ops / INT32_OPS + passing * F64_PER_PASSING / FP64_OPS) * 1e3
+    # each anchor's x y span st read once, f pre v written once; each
+    # job's offset and average q_span
+    tb = (28 * n + 16 * B + 8) / HBM_BPS * 1e3
+    log(f"[phase 9] C1 on the run's launch ({B} chains, {n} anchors, bw "
+        f"{p['bw']}, max gap {p['max_dist_x']}): {ms:.3f} ms; plain "
+        f"{plain_ms:.1f} ms, == plain and every chain == native.chain_dp; "
+        f"the oracle evaluates {evaluated} candidates ({evaluated / n:.2f} "
+        f"an anchor), {passing} pass; bound {max(tb, to):.5f} ms")
+    return kernel_record("chain_fwd", "chain.cu",
+                         "winnowmap_tpu/chain/device.py:54", err, ms,
+                         plain_ms, tb, to)
+
+
+def build_both(phase, torch, build, recs, io_, wset):
+    """The index through S1 (the device gate) and through native.sketch:
+    keys, start and pos must be equal.  Logs both builds' seconds, S1's
+    summed device ms and native.sketch's and sketch_device's host ms on the
+    same sequences; returns the S1-built index."""
+    import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    SD.reset_launches()
+    with EntryTimer(torch, ["wm_sketch_launch"]) as timer:
+        t0 = time.perf_counter()
+        mi = build.build_index(recs, io_.w, io_.k, io_.flag, wset)
+        dev_s = time.perf_counter() - t0
+    s1_ms = sum(timer.ms("wm_sketch_launch"))
+    n = SD.LAUNCHES["sketch"]
+    t0 = time.perf_counter()
+    ref = build.build_index(recs, io_.w, io_.k, io_.flag, wset,
+                            sketch_min_bp=None)
+    host_s = time.perf_counter() - t0
+    for f in ("keys", "start", "pos"):
+        if not np.array_equal(getattr(mi, f), getattr(ref, f)):
+            fail(f"{phase}: the S1-built index's {f} differs from the "
+                 f"native build's")
+    if n == 0:
+        fail(f"{phase}: the index build did not launch S1")
+    t0 = time.perf_counter()
+    for rid, r in enumerate(recs):
+        native.sketch(r.seq, io_.w, io_.k, rid, False, wset)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, r in enumerate(recs):
+        SD.sketch_device(r.seq, io_.w, io_.k, rid, False, wset)
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[{phase}] index of {sum(len(r.seq) for r in recs)} bp through S1 "
+        f"({n} launches, {s1_ms:.3f} ms of S1 events) == the native "
+        f"build (keys, start, pos); build {dev_s:.2f} s against {host_s:.2f} "
+        f"s; sketch_device {dev_ms:.1f} ms against native.sketch "
+        f"{nat_ms:.1f} ms on the same sequences")
+    SD.reset_launches()
+    return mi
+
+
+# --------------------------------------------------------------------------
 # main path
 # --------------------------------------------------------------------------
 
@@ -864,7 +1261,7 @@ def phase4(torch, K, build, fastx, options, batch, seqcode, holds):
     options.set_preset("map-ont", io_, mo)
     mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
     wset = build.load_weight_set(str(rep), io_.k)
-    mi = build.build_index(recs, io_.w, io_.k, io_.flag, wset)
+    mi = build_both("phase 4", torch, build, recs, io_, wset)
     options.update_mid_occ(mo, mi)
     log(f"[phase 4] corpus {len(codes)} bp, {len(wset)} repetitive 15-mers,"
         f" index {len(mi.keys)} keys ({time.perf_counter() - t0:.1f} s)")
@@ -1197,7 +1594,7 @@ def phase5(torch, K, check, build, fastx, options, batch, seqcode, holds):
     options.set_preset("splice", io_, mo)
     mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
     wset = build.load_weight_set(str(rep), io_.k)
-    mi = build.build_index(recs, io_.w, io_.k, io_.flag, wset)
+    mi = build_both("phase 5", torch, build, recs, io_, wset)
     options.update_mid_occ(mo, mi)
     rs = fastx.read_all(str(reads))
     seqs, names = [r.seq for r in rs], [r.name for r in rs]
@@ -1398,6 +1795,228 @@ def phase8(torch, K, cli, pipeline, build, fastx, options, batch, seqcode,
 
 
 # --------------------------------------------------------------------------
+# assembly-to-reference mapping
+# --------------------------------------------------------------------------
+
+# phase 9's reference (two chromosomes of make_testdata.make_genome, with
+# its tandem repeat arrays) and how many of the haplotype's four contigs of
+# 2-3 Mbp are mapped: to shorten the phase, cut the contigs, not their
+# length
+PHASE9_GENOME = 10_000_000
+PHASE9_CONTIGS = 4
+
+
+def _haplotype(rng, g, svs):
+    """A haplotype copy of chromosome g: the structural variants `svs`
+    ((kind, fraction of the length, length), applied from the end back),
+    then 0.1% substitutions and 0.01% indels of 1-20 bp."""
+    h = g.copy()
+    for kind, frac, ln in sorted(svs, key=lambda v: -v[1]):
+        at = int(frac * len(h))
+        if kind == "deletion":
+            h = np.concatenate([h[:at], h[at + ln:]])
+        elif kind == "insertion":
+            h = np.concatenate([h[:at], rng.integers(0, 4, ln), h[at:]])
+        elif kind == "inversion":
+            h = np.concatenate([h[:at], 3 - h[at:at + ln][::-1],
+                                h[at + ln:]])
+        else:  # a tandem expansion: ln more copies of a 400 bp unit
+            unit = h[at:at + 400]
+            h = np.concatenate([h[:at]] + [unit] * (ln + 1) + [h[at + 400:]])
+    sub = rng.random(len(h)) < 1e-3
+    h[sub] = (h[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    pos = np.unique(rng.integers(0, len(h) - 20, rng.binomial(len(h), 1e-4)))
+    parts, last = [], 0
+    for at in pos:
+        if at < last:
+            continue
+        parts.append(h[last:at])
+        ln = int(rng.integers(1, 21))
+        if rng.random() < 0.5:
+            parts.append(rng.integers(0, 4, ln))
+            last = at
+        else:
+            last = at + ln
+    parts.append(h[last:])
+    return np.concatenate(parts)
+
+
+def asm_corpus():
+    """Phase 9's reference and contigs (numpy seed 20261016): a genome of
+    PHASE9_GENOME bp in two chromosomes, and a haplotype of it with a 5 kb
+    deletion and a 20 kb inversion on chr1, a 5 kb insertion and a tandem
+    expansion (12 more copies of a 400 bp unit) on chr2, 0.1% substitutions
+    and 0.01% indels of 1-20 bp, cut into four contigs of 2-3 Mbp (each
+    chromosome at 45-55% of its length, the second piece reverse
+    complemented).  Returns ([(name, codes)] chromosomes, [(name, codes)]
+    contigs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_testdata", REPO / "tests" / "tools" / "make_testdata.py")
+    mk = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mk)
+    rng = np.random.default_rng(20261016)
+    chroms = [(f"chr{c + 1}", mk.make_genome(rng, PHASE9_GENOME // 2))
+              for c in range(2)]
+    svs = ([("deletion", 0.26, 5000), ("inversion", 0.74, 20000)],
+           [("insertion", 0.22, 5000), ("tandem", 0.78, 12)])
+    contigs = []
+    for (name, g), sv in zip(chroms, svs):
+        h = _haplotype(rng, g, sv)
+        cut = int(len(h) * rng.uniform(0.45, 0.55))
+        contigs.append((f"{name}_ctg1", h[:cut]))
+        contigs.append((f"{name}_ctg2", 3 - h[cut:][::-1]))
+    return chroms, contigs
+
+
+def phase9(torch, K, build, fastx, options, batch, pipeline):
+    """Assembly-to-reference mapping (-x asm5 -c, SV-aware, the engine
+    path): the contigs of asm_corpus against its reference, weighted by the
+    canonical 19-mers above distinct=0.9998, with the chain exchange at the
+    card's gate (every exported chain through C1), then again with
+    chain_min = 0 (every chain on the engine's scalar DP): the PAF must be
+    byte-equal.  The index build through S1 is part of the run; a native
+    build after it must give the same arrays.  Returns the launches of
+    every kernel in the run and the run's largest C1 launch (its anchor
+    sets and parameters, as chain_dp_device_batch took them)."""
+    from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.map import engine
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    t0 = time.perf_counter()
+    chroms, contigs = asm_corpus()
+    contigs = contigs[:PHASE9_CONTIGS]
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    recs = [fastx.SeqRecord(n, acgt[c].tobytes(), None, None)
+            for n, c in chroms]
+    qrecs = [fastx.SeqRecord(n, acgt[c].tobytes(), None, None)
+             for n, c in contigs]
+    seqs, names = [r.seq for r in qrecs], [r.name for r in qrecs]
+    kmers, cnt = rep_kmers([c for _, c in chroms], 19, 0.9998)
+    rep = DATA / "asm_rep.txt"
+    DATA.mkdir(exist_ok=True)
+    with open(rep, "w") as f:
+        for x, c in zip(kmers.tolist(), cnt.tolist()):
+            f.write(f"{kmer_str(x, 19)}\t{c}\n")
+    io_, mo = options.IndexOptions(), options.MapOptions()
+    options.set_preset("asm5", io_, mo)
+    mo.flag |= options.MM_F_CIGAR
+    wset = build.load_weight_set(str(rep), io_.k)
+    bp = sum(map(len, seqs))
+    log(f"[phase 9] reference {sum(len(r.seq) for r in recs)} bp, "
+        f"{len(seqs)} contigs of {min(map(len, seqs))}-"
+        f"{max(map(len, seqs))} bp ({bp} bp), {len(wset)} repetitive "
+        f"19-mers ({time.perf_counter() - t0:.1f} s)")
+
+    sizes, batches = [], []
+    fwd, dev_batch = CD.chain_fwd, engine.chain_dp_device_batch
+
+    def recorded(cj, *a):
+        sizes.extend(cj.off.diff().tolist())
+        return fwd(cj, *a)
+
+    def recorded_batch(jobs, *a):
+        # the engine's anchor arrays are views of its own memory
+        batches.append(([(ax.copy(), ay.copy()) for ax, ay in jobs],
+                         chain_params(a[:-1])))
+        return dev_batch(jobs, *a)
+
+    def paf(results):
+        out = io.StringIO()
+        for r, res in zip(qrecs, results):
+            pipeline._write_read(mi, mo, r, res, out)
+        return out.getvalue()
+
+    batch.STATS.clear()
+    for m in (K, CD, SD):
+        m.reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    CD.chain_fwd = recorded
+    engine.chain_dp_device_batch = recorded_batch
+    try:
+        with LaunchTimer(K, torch, "extd") as timer, \
+                EntryTimer(torch, ["wm_chain_fwd_launch"]) as ctimer:
+            t0 = time.perf_counter()
+            mi = build.build_index(recs, io_.w, io_.k, io_.flag, wset)
+            options.update_mid_occ(mo, mi)
+            t_index = time.perf_counter() - t0
+            results = batch.map_batch(mi, mo, seqs, names)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        CD.chain_fwd = fwd
+        engine.chain_dp_device_batch = dev_batch
+    timer.peak = torch.cuda.max_memory_reserved()
+    launches = {**K.LAUNCHES, **CD.LAUNCHES, **SD.LAUNCHES}
+    st = {k: round(float(v), 6) for k, v in batch.STATS.items()}
+    dev = log_device("phase 9", timer, dt - t_index, len(seqs), launches, st)
+    c1_ms = ctimer.ms("wm_chain_fwd_launch")
+    exported = int(st.get("chain_dev_jobs", 0))
+    log(f"[phase 9] index (S1) {t_index:.2f} s; {len(seqs)} contigs "
+        f"mapped in {dt - t_index:.3f} s -> "
+        f"{len(seqs) / (dt - t_index):.4f} contigs/s, "
+        f"{bp / 1e6 / (dt - t_index):.4f} Mbp/s; {exported} chains exported "
+        f"({int(st.get('chain_dev_anchors', 0))} anchors; per chain median "
+        f"{float(np.median(sizes)) if sizes else 0}, max "
+        f"{max(sizes) if sizes else 0}), C1 {len(c1_ms)} launches, "
+        f"{sum(c1_ms):.3f} ms of C1 events; eng_chain_s "
+        f"{st.get('eng_chain_s')} over {int(st.get('eng_chain_calls', 0))} "
+        f"host chains; chain_dev_s {st.get('chain_dev_s')}; K1 "
+        f"{dev['k1_ms']:.3f} ms, K2 {dev['k2_ms']:.3f} ms of events")
+    log("[phase 9] JSON " + json.dumps({
+        "contigs": len(seqs), "bp": bp, "index_s": t_index,
+        "map_s": dt - t_index, "contigs_per_s": len(seqs) / (dt - t_index),
+        "mbp_per_s": bp / 1e6 / (dt - t_index), "chains_exported": exported,
+        "chain_anchors": sizes, "c1_launches": len(c1_ms),
+        "c1_ms": float(sum(c1_ms)), "eng_chain_s": st.get("eng_chain_s"),
+        "chain_dev_s": st.get("chain_dev_s"), "k1_ms": dev["k1_ms"],
+        "k2_ms": dev["k2_ms"], "launches": launches}))
+    if launches["chain_fwd"] == 0 or exported == 0:
+        fail(f"phase 9: no chain reached C1 ({launches})")
+    if len(sizes) != exported or sum(sizes) != st.get("chain_dev_anchors"):
+        fail(f"phase 9: {exported} chains exported with "
+             f"{st.get('chain_dev_anchors')} anchors, C1 took {len(sizes)} "
+             f"with {sum(sizes)}: an exported chain was chained elsewhere")
+    if launches["sketch"] == 0 or launches["extd"] == 0:
+        fail(f"phase 9: S1 or K1 was not launched: {launches}")
+    if sum(1 for r in results if r.regs) < len(seqs):
+        fail("phase 9: a contig did not map")
+    check_mapped("phase 9", st, results, len(seqs))
+    ours = paf(results)
+    t0 = time.perf_counter()
+    ref = build.build_index(recs, io_.w, io_.k, io_.flag, wset,
+                            sketch_min_bp=None)
+    t_native = time.perf_counter() - t0
+    for f in ("keys", "start", "pos"):
+        if not np.array_equal(getattr(mi, f), getattr(ref, f)):
+            fail(f"phase 9: the S1-built index's {f} differs from the "
+                 f"native build's")
+    log(f"[phase 9] index through S1 {t_index:.2f} s against a native build "
+        f"{t_native:.2f} s: keys, start, pos equal")
+
+    batch.STATS.clear()
+    t0 = time.perf_counter()
+    host = engine.map_batch_engine(mi, mo, seqs, names,
+                                   torch.device(DEVICE), chain_min=0)
+    torch.cuda.synchronize()
+    dt0 = time.perf_counter() - t0
+    st0 = dict(batch.STATS)
+    if st0.get("chain_dev_jobs", 0):
+        fail("phase 9: chain_min = 0 exported chains")
+    if paf(host) != ours:
+        fail("phase 9: the PAF with the chain exchange differs from the PAF "
+             "with every chain on the host")
+    log(f"[phase 9] chain_min = 0: {dt0:.3f} s, eng_chain_s "
+        f"{float(st0.get('eng_chain_s', 0)):.6f} over "
+        f"{int(st0.get('eng_chain_calls', 0))} host chains; PAF "
+        f"({ours.count(chr(10))} lines) byte-equal to the chain exchange's")
+    return launches, max(batches, key=lambda b: sum(len(ax)
+                                                      for ax, _ in b[0]))
+
+
+# --------------------------------------------------------------------------
 # the cost probes
 # --------------------------------------------------------------------------
 
@@ -1577,12 +2196,14 @@ def main():
     sys.path.insert(0, str(REPO))
     import winnowmap_tpu_torch.native as native
     from winnowmap_tpu_torch import cli, options
+    from winnowmap_tpu_torch.chain import device as CD
     from winnowmap_tpu_torch.extend import _build, check
     from winnowmap_tpu_torch.extend import kernels as K
     from winnowmap_tpu_torch.index import build
     from winnowmap_tpu_torch.io import fastx, seqcode
     from winnowmap_tpu_torch.map import batch, pipeline
     from winnowmap_tpu_torch.map.align import gen_simple_mat
+    from winnowmap_tpu_torch.sketch import device as SD
 
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).stdout.strip().splitlines()[0]
@@ -1619,6 +2240,9 @@ def main():
     spawn = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
             PHASE2_WORKERS, mp_context=spawn) as pool:
+        # C1's checks first: the longest tasks
+        cs_futs = [pool.submit(check_chain, c) for c in CHAIN_CHECKS]
+        cs_futs.append(pool.submit(check_sketch))
         futs = [pool.submit(fn, *args) for fn, args in phase2_tasks()]
         main_batch = phase2_main(K, check, native, torch, gen_simple_mat)
         for f in futs:
@@ -1626,13 +2250,17 @@ def main():
             into = s_err if "exts" in r else err
             for k, v in r.items():
                 into[k] = max(into[k], v)
-    log(f"[phase 2] checks ({len(futs)} tasks in {PHASE2_WORKERS} worker "
+        for f in cs_futs:
+            f.result()
+    log(f"[phase 2] checks ({len(futs) + len(cs_futs)} tasks in "
+        f"{PHASE2_WORKERS} worker "
         f"processes): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     records, k1 = phase2_times(K, check, torch, gen_simple_mat, err,
                                main_batch)
     records += phase2_splice_times(K, check, native, torch, gen_simple_mat,
                                    s_err)
+    s1_record = phase2_chain_sketch_times(torch, native, CD, SD)
     log(f"[phase 2] times: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase3(cli)
@@ -1663,7 +2291,20 @@ def main():
                  seqcode, corpus, holds)
     log(f"[phase 8] launches on the generator path: {gen}")
     log(f"[phase 8] {time.perf_counter() - t0:.1f} s")
-    hold_all(torch, holds)
+    t0 = time.perf_counter()
+    asm, c1_launch = phase9(torch, K, build, fastx, options, batch,
+                            pipeline)
+    c1_ms = time_chain_launch(torch, CD, c1_launch)
+    log(f"[phase 9] {time.perf_counter() - t0:.1f} s")
+    # C1's launch held to the plain version beside the DP calls' holds
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        c1_held = pool.submit(hold_chain, *c1_launch)
+        hold_all(torch, holds)
+        c1 = c1_record(c1_launch, c1_ms, c1_held.result())
+    # C1 and S1's launches on their path: assembly mapping with its index
+    # build (phase 9)
+    c1["launches"], s1_record["launches"] = asm["chain_fwd"], asm["sketch"]
+    records += [c1, s1_record]
     log(f"[chip_smoke] {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": records}))
     print(smi)

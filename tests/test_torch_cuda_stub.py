@@ -1,10 +1,11 @@
-"""K1 (csrc/extd.cu) and K4 (csrc/extz.cu), the CUDA sources themselves,
-run on the CPU against their plain PyTorch versions: the sources are
-compiled by g++ against the stub CUDA runtime of
-winnowmap_tpu_torch/tools/cuda_stub (one fiber per CUDA thread) and
-launched through kernels.ext_launch, the marshalling extd_dp and extz_dp
-use on the card.  Integer DP: every result field and every direction byte
-must be equal.
+"""K1 (csrc/extd.cu) and K4 (csrc/extz.cu), C1 (csrc/chain.cu) and S1
+(csrc/sketch.cu), the CUDA sources themselves, run on the CPU against
+their plain PyTorch versions: the sources are compiled by g++ against the
+stub CUDA runtime of winnowmap_tpu_torch/tools/cuda_stub (one fiber per
+CUDA thread) and launched through kernels.ext_launch, chain.chain_launch
+and sketch.sketch_launch, the marshalling the wrappers use on the card.
+Integer DP and u64 words: every result field, every direction byte and
+every output word must be equal.
 
 Each case is about four jobs of 100-400 bases, at one launch of
 kernels.ext_geometry: 128 threads with 1-8 ring slots a thread (rings of
@@ -101,3 +102,53 @@ def test_ext_source_memory_path_matches_plain(libs, profile, flag, path,
     assert c.ext.path == path and c.ext.threads == K.EXT_MEM_THREADS
     assert (c.jobs_np[:, 4] > c.ext.ring).any()
     _run_stub(libs, c, c.ext)
+
+
+@pytest.fixture(scope="module")
+def chain_sketch_libs(tmp_path_factory):
+    if cuda_stub.gxx_path() is None:
+        pytest.skip("needs g++ to build the CUDA sources against the stub "
+                    "runtime")
+    d = tmp_path_factory.mktemp("cuda_stub_cs")
+    return {m: cuda_stub.load(f"{m}.cu", d) for m in ("chain", "sketch")}
+
+
+@pytest.mark.parametrize("is_cdna,max_skip", [(0, 25), (1, 25), (0, 1)],
+                         ids=["dna", "cdna", "skip1"])
+def test_chain_source_matches_plain(chain_sketch_libs, is_cdna, max_skip):
+    """C1 on six anchor sets (colinear clusters, two repeat clusters whose
+    windows span many tiles of 32, one of a single anchor) in two blocks of
+    four warps, one warp idle: f, pre and v equal the plain version's.
+    At max_skip 1 the oracle's break (its marks and floored skip counter)
+    stops walks short of better predecessors."""
+    from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.chain.check import anchor_set
+
+    rng = np.random.default_rng(31 + is_cdna)
+    jobs = [anchor_set(rng, int(rng.integers(100, 600)),
+                       repeat=(t % 3 == 0)) for t in range(6)]
+    jobs[5] = (jobs[5][0][:1], jobs[5][1][:1])
+    p = (5000, 5000, 500, max_skip, is_cdna, 0.8)
+    cj = CD.chain_jobs(jobs, 5000, 1000, 5000, "cpu")
+    want = CD.chain_fwd_plain(cj, *p)
+    out = torch.full_like(want, 7)
+    assert CD.chain_launch(chain_sketch_libs["chain"], cj, *p, out,
+                           None) == 0
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("k", [15, 28])
+def test_sketch_source_matches_plain(chain_sketch_libs, k):
+    """S1 on 700 codes with ambiguous bases (three blocks, the last
+    partial): every output word and flag equals the plain version's."""
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    codes = torch.from_numpy(
+        np.random.default_rng(k).integers(0, 5, 700).astype(np.uint8))
+    words = torch.zeros((3, 700), dtype=torch.int64)
+    flags = torch.zeros((2, 700), dtype=torch.uint8)
+    assert SD.sketch_launch(chain_sketch_libs["sketch"], codes, k, words,
+                            flags, None) == 0
+    key, h, z, sym, canon = SD.transform_plain(codes, k)
+    assert torch.equal(words, torch.stack([key, h, canon]))
+    assert torch.equal(flags, torch.stack([z, sym]))

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card: K1 (csrc/extd.cu), K3
 (csrc/exts.cu), K4 (csrc/extz.cu), K2 (csrc/traceback.cu, plain and
-spliced) and the cost probes P1-P3 (csrc/probes.cu) against their plain
-PyTorch versions on the same device tensors,
+spliced), the cost probes P1-P3 (csrc/probes.cu), C1 (csrc/chain.cu) and S1
+(csrc/sketch.cu) against their plain PyTorch versions on the same device
+tensors (C1's chains and S1's sketches also against the native oracles,
+the index built through S1 against the native build, the engine's chain
+exchange and the generator path's chains on the card against the host's),
 the pooled call on the card against the CPU, map_batch on the card
 against the CPU, map-ont, single-cost and spliced, and the generator path
 (--junc-bed) on the card against its golden and against the CPU.  Integer
@@ -753,3 +756,131 @@ def test_probe_l0_kernel_matches_plain_at_timed_shapes(cuda):
 def test_probe_bisect_kernel_matches_plain_at_timed_shape(cuda):
     assert max(PC.check_timed_bisect(cuda, body, kv)
                for _, body, kv in P1.variants) == 0
+
+
+# C1 (csrc/chain.cu) and S1 (csrc/sketch.cu)
+
+CHAIN_P = dict(max_dist_x=5000, min_dist_x=1000, max_dist_y=5000, bw=500,
+               max_skip=25, max_iter=5000, min_cnt=3, min_sc=40,
+               gap_scale=1.0, is_cdna=0)
+CHAIN_CASES = {"dna": CHAIN_P,
+               "cdna": dict(CHAIN_P, is_cdna=1, gap_scale=0.8, bw=2000,
+                            max_dist_x=16000, max_dist_y=16000),
+               "skip1": dict(CHAIN_P, max_skip=1),
+               "wide": CHAIN_P}
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_chain_kernel_matches_plain(cuda, case):
+    """C1 == its plain version (f, pre, v) in one launch, and chained to the
+    end == native.chain_dp: random and repeat-rich sets and a single anchor
+    (dna), cDNA's gap cost with stage-2 gaps at gap scale 0.8, the same
+    sets at max_skip 1 (the break cuts walks short), and a repeat cluster
+    whose windows pass 8192 (wide)."""
+    from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.chain.check import anchor_set
+
+    p = CHAIN_CASES[case]
+    rng = np.random.default_rng(len(case))
+    if case == "wide":
+        jobs = [anchor_set(rng, 8400, repeat=True, n_clusters=1),
+                anchor_set(rng, 3000)]
+    else:
+        jobs = [anchor_set(rng, int(rng.integers(100, 4000)),
+                           repeat=(t % 3 == 0)) for t in range(12)]
+        jobs.append((jobs[0][0][:1], jobs[0][1][:1]))
+    cj = CD.chain_jobs(jobs, p["max_dist_x"], p["min_dist_x"],
+                       p["max_iter"], cuda)
+    args = (p["max_dist_x"], p["max_dist_y"], p["bw"], p["max_skip"],
+            p["is_cdna"], float(np.float32(p["gap_scale"])))
+    n0 = CD.LAUNCHES["chain_fwd"]
+    kern = CD.chain_fwd(cj, *args)
+    assert CD.LAUNCHES["chain_fwd"] == n0 + 1
+    assert torch.equal(kern, CD.chain_fwd_plain(cj, *args))
+    res = CD.chain_dp_device_batch(
+        jobs, p["max_dist_x"], p["min_dist_x"], p["max_dist_y"], p["bw"],
+        p["max_skip"], p["max_iter"], p["min_cnt"], p["min_sc"],
+        p["gap_scale"], p["is_cdna"], cuda)
+    for (ax, ay), got in zip(jobs, res):
+        want = native.chain_dp(ax, ay, n_segs=1, **p)
+        assert all(np.array_equal(a, b) for a, b in zip(want, got))
+
+
+@pytest.mark.parametrize("k", [1, 15, 19, 28])
+def test_sketch_kernel_matches_plain(cuda, k):
+    """S1 == its plain version on 200,000 codes with ambiguous bases (a
+    partial last block), every output, in one launch."""
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    codes = torch.from_numpy(np.random.default_rng(k).integers(
+        0, 5, 200_001).astype(np.uint8)).to(cuda)
+    n0 = SD.LAUNCHES["sketch"]
+    kern = SD.transform(codes, k)
+    assert SD.LAUNCHES["sketch"] == n0 + 1
+    for a, b in zip(kern, SD.transform_plain(codes, k)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hpc", [False, True], ids=["plain", "hpc"])
+def test_sketch_device_on_card_matches_native(cuda, hpc):
+    """sketch_device with S1 on the card == native.sketch: N bases, lower
+    case, a weighted set of every 37th k-mer."""
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    rng = np.random.default_rng(23)
+    seq = rng.choice(list(b"ACGTacgtN"), 60_000,
+                     p=[.22, .22, .22, .22, .02, .02, .02, .02, .04]
+                     ).astype(np.uint8).tobytes()
+    ws = np.unique(np.array([native.encode_kmer(seq[o:o + 15].upper())
+                             for o in range(0, len(seq) - 15, 37)
+                             if b"N" not in seq[o:o + 15]], np.uint64))
+    want = native.sketch(seq, 50, 15, 2, hpc, ws)
+    got = SD.sketch_device(seq, 50, 15, 2, hpc, ws, device=cuda)
+    assert all(np.array_equal(a, b) for a, b in zip(want, got))
+
+
+def test_build_index_on_card_matches_native(cuda):
+    """A 1 Mbp genome in two sequences: the index built through S1 (the
+    default device) == the native build, one S1 launch a sequence."""
+    from winnowmap_tpu_torch.index import build
+    from winnowmap_tpu_torch.io.fastx import SeqRecord
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    g = np.random.default_rng(9).choice(list(b"ACGT"), 1_000_000).astype(
+        np.uint8).tobytes()
+    recs = [SeqRecord("c1", g[:600_000], None, None),
+            SeqRecord("c2", g[600_000:], None, None)]
+    n0 = SD.LAUNCHES["sketch"]
+    dev = build.build_index(recs, 10, 15)
+    assert SD.LAUNCHES["sketch"] == n0 + 2
+    host = build.build_index(recs, 10, 15, sketch_min_bp=None)
+    for f in ("keys", "start", "pos", "codes"):
+        assert np.array_equal(getattr(dev, f), getattr(host, f)), f
+
+
+def test_chain_exchange_on_card_matches_host(cuda):
+    """The engine with every chain through its exchange onto C1 (chain_min
+    1) == every chain on its scalar DP, on the card; and likewise the
+    generator path, every chain through chain_dp_auto onto C1."""
+    from test_torch_chain import _corpus, _port_index
+    from test_torch_engine import assert_same_results
+
+    from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.map import batch
+    from winnowmap_tpu_torch.map.engine import STATS, map_batch_engine
+
+    gstr, reads, names = _corpus()
+    mi, mo = _port_index(gstr)
+    host = map_batch_engine(mi, mo, reads, names, cuda, chain_min=0)
+    n0 = CD.LAUNCHES["chain_fwd"]
+    STATS.clear()
+    got = map_batch_engine(mi, mo, reads, names, cuda, chain_min=1)
+    assert STATS["chain_dev_jobs"] > 0
+    assert CD.LAUNCHES["chain_fwd"] > n0
+    assert_same_results(host, got)
+    gen_host = batch.map_batch_generator(mi, mo, reads, names, cuda,
+                                         chain_min=0)
+    n0 = CD.LAUNCHES["chain_fwd"]
+    gen = batch.map_batch_generator(mi, mo, reads, names, cuda, chain_min=1)
+    assert CD.LAUNCHES["chain_fwd"] > n0
+    assert_same_results(gen_host, gen)

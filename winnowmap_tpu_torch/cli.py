@@ -11,8 +11,10 @@ the same flags and output as winnowmap_tpu.cli.  Single-cost gap profiles
 (-O q,q -E e,e) run the extz kernel, spliced presets exts, the others extd.
 --junc-bed, -X, -D, --for-only, --rev-only and --sr map through the
 generator path (map/batch.map_batch_generator), the other options through
-the native engine.  The DP runs on the CUDA card; --device cpu runs the
-kernels' plain PyTorch versions.  Flags of paths not ported yet exit with a
+the native engine.  The DP, the chains of 50,000 anchors or more and the
+sketch transform of a reference of 1 Mbp or more run on the CUDA card;
+--device cpu runs the kernels' plain PyTorch versions (and chains every
+read on the host).  Flags of paths not ported yet exit with a
 "not yet ported" error.
 """
 from __future__ import annotations
@@ -294,7 +296,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
         phase_log("main", "collected downweighted kmers, no. of kmers "
                           f"read={len(wset)}")
     mi = build_index(read_all(target), io.w, io.k, io.flag, wset,
-                     bool(io.flag & 1), weight_bloom=bloom)
+                     bool(io.flag & 1), weight_bloom=bloom, device=device)
     phase_log("index", mi.stat_line())
     update_mid_occ(mo, mi)
     if junc_bed:

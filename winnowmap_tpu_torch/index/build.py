@@ -7,8 +7,12 @@ src/index.c:200-360).
           within each run
   codes : the reference as 0..4 codes, all sequences concatenated
 
-Sketching uses the native weighted-minimizer sketch (native/src/wm_sketch.cpp).
-The index is built on the host; MapEngine uploads ``codes`` to the device
+A genome of build_index's sketch_min_bp (DEVICE_SKETCH_MIN_BP by default)
+or more bases is sketched with the per-base
+transform on the device (sketch/device.py, S1 on a card), as the JAX
+package's index build does; a smaller one with the native weighted-minimizer
+sketch (native/src/wm_sketch.cpp).  Both give the same minimizers.  The
+index arrays stay on the host; MapEngine uploads ``codes`` to the device
 once per batch (extend/kernels.PoolContext).
 """
 from __future__ import annotations
@@ -19,7 +23,13 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .. import native
+from ..device import resolve_device
 from ..io.seqcode import encode
+from ..sketch.device import sketch_device
+
+# genomes of at least this many bases sketch through the device transform
+# (the JAX package's gate, winnowmap_tpu/index/build.py:257-267)
+DEVICE_SKETCH_MIN_BP = 1_000_000
 
 
 @dataclass
@@ -151,9 +161,14 @@ def load_weight_set(path: str | None, k: int) -> np.ndarray:
 
 def build_index(records, w: int, k: int, flag: int = 0,
                 weight_set: np.ndarray | None = None, is_hpc: bool = False,
-                weight_bloom: tuple | None = None) -> MinimizerIndex:
-    """Build the flat sorted index from SeqRecords with the native sketch
-    (reference mm_idx_gen + mm_idx_post, src/index.c:289-360,200-257)."""
+                weight_bloom: tuple | None = None, device=None,
+                sketch_min_bp: int | None = DEVICE_SKETCH_MIN_BP
+                ) -> MinimizerIndex:
+    """Build the flat sorted index from SeqRecords (reference mm_idx_gen +
+    mm_idx_post, src/index.c:289-360,200-257).  A genome of sketch_min_bp
+    or more bases sketches on `device` (None: the card, which raises when
+    there is none); a smaller one, or any with sketch_min_bp None, with the
+    native sketch, and the device is not asked for."""
     mi = MinimizerIndex(w=w, k=k, flag=flag)
     if weight_set is not None:
         mi.wset = weight_set
@@ -162,14 +177,20 @@ def build_index(records, w: int, k: int, flag: int = 0,
     for rec in records:
         mi.seqs.append(SeqMeta(rec.name, total, len(rec.seq)))
         total += len(rec.seq)
+    if sketch_min_bp is not None and total >= sketch_min_bp:
+        dev = resolve_device(device)
+
+        def sketch(seq, w, k, rid, is_hpc, wset, bloom):
+            return sketch_device(seq, w, k, rid, is_hpc, wset, bloom, dev)
+    else:
+        sketch = native.sketch
     codes = np.empty(total, dtype=np.uint8)
     xs, ys = [], []
     for rid, rec in enumerate(records):
         s = mi.seqs[rid]
         codes[s.offset:s.offset + s.length] = encode(rec.seq)
         if s.length > 0:
-            x, y = native.sketch(rec.seq, w, k, rid, is_hpc, mi.wset,
-                                 bloom=mi.bloom)
+            x, y = sketch(rec.seq, w, k, rid, is_hpc, mi.wset, mi.bloom)
             xs.append(x)
             ys.append(y)
     mi.codes = codes

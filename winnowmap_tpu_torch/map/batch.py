@@ -16,9 +16,11 @@ from __future__ import annotations
 
 import time
 from collections import defaultdict
+from functools import partial
 
 import numpy as np
 
+from ..chain.device import chain_dp_auto, chain_gate
 from ..device import resolve_device
 from ..extend.kernels import DevCallPooled, PoolContext, job_geometry
 from ..options import MM_F_SPLICE
@@ -30,15 +32,17 @@ from .frag import MapResult, McasState, _map_vanilla_gen, mcas_stage2_gen
 __all__ = ["map_batch", "map_batch_generator", "run_ext_tasks", "STATS"]
 
 
-def map_batch(mi, opt, seqs, qnames, device=None):
+def map_batch(mi, opt, seqs, qnames, device=None, chain_min=None):
     """Map a batch of reads; returns one MapResult per read, in order.
 
     device=None runs the DP on the CUDA card (raises when there is none);
-    device="cpu" runs the kernels' plain PyTorch versions."""
+    device="cpu" runs the kernels' plain PyTorch versions.  One-segment
+    anchor sets of at least chain_min anchors chain on the device (None:
+    the device's default, chain/device.chain_gate; 0: none)."""
     if engine_supported(opt, mi):
         return map_batch_engine(mi, opt, seqs, qnames,
-                                resolve_device(device))
-    return map_batch_generator(mi, opt, seqs, qnames, device)
+                                resolve_device(device), chain_min)
+    return map_batch_generator(mi, opt, seqs, qnames, device, chain_min)
 
 
 class _Task:
@@ -192,15 +196,18 @@ def run_ext_tasks(tasks: list[_Task], pools: PoolContext) -> None:
                 enqueue(t)
 
 
-def map_batch_generator(mi, opt, seqs, qnames, device=None) -> list:
+def map_batch_generator(mi, opt, seqs, qnames, device=None,
+                        chain_min=None) -> list:
     """Map a batch of reads through the generator path (reference mm_map,
     src/map.c:279-981), whatever the options: MCAS stage-1 trials and the
     vanilla reads run together, then every SV-aware read's stage 2.
-    device as for map_batch."""
+    device and chain_min as for map_batch."""
     t_start = time.perf_counter()
     s0 = {k: STATS[k] for k in ("dispatch_s", "dev_wait_s", "host_s")}
     qpool, qoffs = build_read_pool(seqs)
     pools = PoolContext(qpool, mi, resolve_device(device))
+    chain_dp = partial(chain_dp_auto, device=pools.device,
+                       chain_min=chain_gate(chain_min, pools.device))
     results: list = [None] * len(seqs)
     trial_tasks, vanilla, stage2_in = [], [], []
     for i, seq in enumerate(seqs):
@@ -211,13 +218,13 @@ def map_batch_generator(mi, opt, seqs, qnames, device=None) -> list:
         of, orv = qoffs[i]
         qseq0 = [qpool[of:of + qlen], qpool[orv:orv + qlen]]
         if opt.sv_aware and qlen >= opt.sv_aware_min_read_length:
-            st = McasState(opt, seq, qseq0)
+            st = McasState(opt, seq, qseq0, chain_dp)
             stage2_in.append((i, st))
             trial_tasks += [_Task(g) for g in
                             st.trial_gens(mi, seq, qnames[i])]
         else:
-            vanilla.append((i, _Task(_map_vanilla_gen(mi, opt, seq,
-                                                      qnames[i], qseq0))))
+            vanilla.append((i, _Task(_map_vanilla_gen(
+                mi, opt, seq, qnames[i], qseq0, chain_dp))))
     run_ext_tasks(trial_tasks + [t for _, t in vanilla], pools)
     for i, t in vanilla:
         results[i] = t.value

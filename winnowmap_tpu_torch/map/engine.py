@@ -13,8 +13,17 @@ e == e2) to extz; the others to extd.
 Every DP job the engine makes is exported, the inversion rescue's included;
 only jobs whose result the oracle's own refusal guards or --cap-sw-mem
 decide stay on the engine's host DP (wm_engine.cpp device_eligible), and
-they are counted in STATS["eng_host_dp_calls"].  Chains stay on the
-engine's scalar DP.
+they are counted in STATS["eng_host_dp_calls"].
+
+Chains of at least `chain_min` anchors (one segment) leave the engine's
+scalar DP through its chain exchange (wm_eng_set_chain_min): their threads
+block in chain_submit, the pump takes the exported anchor sets, runs their
+forward pass through chain/device.py (C1 on a card, its plain version on
+the CPU), the oracle's tail (native.chain_finish) on the host, and hands
+the chains back (wm_eng_deliver_chain); STATS["chain_dev_jobs"],
+["chain_dev_anchors"] and ["chain_dev_s"] count them.  The gate is
+DEVICE_CHAIN_MIN_ANCHORS (50,000) on a card and 0, every chain on the
+host, on the CPU, unless the caller gives chain_min.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..chain.device import chain_dp_device_batch, chain_gate
 from ..extend.kernels import DevCallPooled, PoolContext, job_geometry
 from ..io.seqcode import encode
 from ..options import (
@@ -138,7 +148,7 @@ class MapEngine:
     """One batch's native engine and its device pump."""
 
     def __init__(self, mi, opt: MapOptions, seqs, qnames, pools: PoolContext,
-                 qoffs, qpool_np):
+                 qoffs, qpool_np, chain_min: int | None = None):
         self.L = native.lib()
         _check_sizes(self.L)
         self.opt = opt
@@ -163,6 +173,11 @@ class MapEngine:
             ctypes.byref(self.c_opts[1]), ctypes.byref(self.c_opts[2]),
             qpool_np.ctypes.data_as(ctypes.c_void_p),
             int(os.environ.get("WM_ENGINE_THREADS", "512")))
+        # anchor sets of at least chain_min anchors (None: the device's
+        # default, chain_gate) export through the chain exchange; 0 keeps
+        # every chain on the engine's scalar DP
+        self.L.wm_eng_set_chain_min(self.h,
+                                    chain_gate(chain_min, pools.device))
         for i, (seq, name) in enumerate(zip(seqs, qnames)):
             of, orv = qoffs[i]
             self.L.wm_eng_add_read(
@@ -182,6 +197,41 @@ class MapEngine:
         if n == 0:
             return np.zeros((0, 12), np.int64)
         return np.ctypeslib.as_array(p, (n, 12)).copy()
+
+    def _service_chains(self) -> bool:
+        """Take the anchor sets the engine's threads exported (once every
+        live thread is blocked), chain them on the pool's device in one
+        forward pass per parameter set, and deliver each (u, ax, ay) back
+        to its thread.  Returns whether there were any."""
+        p = ctypes.POINTER(ctypes.c_int64)()
+        n = self.L.wm_eng_step_chains(self.h, ctypes.byref(p))
+        if n == 0:
+            return False
+        rows = np.ctypeslib.as_array(p, (n, 16)).copy()
+        t0 = time.perf_counter()
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        groups = defaultdict(list)  # parameters -> [(id, ax, ay)]
+        for r in rows:
+            na = int(r[1])
+            ax = np.ctypeslib.as_array(ctypes.cast(int(r[2]), u64p), (na,))
+            ay = np.ctypeslib.as_array(ctypes.cast(int(r[3]), u64p), (na,))
+            # the engine's scalar path takes gap_scale through a float cast
+            gs = float(np.float32(np.int64(r[13]).view(np.float64)))
+            groups[tuple(int(v) for v in r[4:13]) + (gs,)].append(
+                (int(r[0]), ax, ay))
+        for key, members in groups.items():
+            mdx, mindx, mdy, bw, mskip, miter, mcnt, msc, is_cdna, gs = key
+            results = chain_dp_device_batch(
+                [(ax, ay) for _, ax, ay in members], mdx, mindx, mdy, bw,
+                mskip, miter, mcnt, msc, gs, is_cdna, self.pools.device)
+            for (cid, _, _), (u, oax, oay) in zip(members, results):
+                self.L.wm_eng_deliver_chain(self.h, cid, len(u),
+                                            u.ctypes.data, len(oax),
+                                            oax.ctypes.data, oay.ctypes.data)
+        STATS["chain_dev_s"] += time.perf_counter() - t0
+        STATS["chain_dev_jobs"] += len(rows)
+        STATS["chain_dev_anchors"] += int(rows[:, 1].sum())
+        return True
 
     def _deliver(self, rows: np.ndarray, collected) -> None:
         """Feed one call's results back over the flat deliver boundary."""
@@ -247,8 +297,10 @@ class MapEngine:
     def _drive_phase(self) -> None:
         """Pump the engine until the phase's threads finish: step (take the
         settled round of exported jobs), group by (scoring class, flag),
-        dispatch every group, collect the oldest call and deliver it (its
-        threads resume while later calls run), repeat."""
+        dispatch every group, chain the exported anchor sets, collect the
+        oldest call and deliver it (its threads resume while later calls
+        run), repeat.  A thread blocked on a chain counts as settled, so
+        the chains are served on every turn."""
         inflight: deque = deque()
         while True:
             rows = self._step()
@@ -258,6 +310,7 @@ class MapEngine:
                 for key in sorted(set(zip(pf.tolist(), fl.tolist()))):
                     m = (pf == key[0]) & (fl == key[1])
                     inflight.extend(self._dispatch(key[0], key[1], rows[m]))
+            chained = self._service_chains()
             if inflight:
                 call, crows = inflight.popleft()
                 t0 = time.perf_counter()
@@ -265,7 +318,7 @@ class MapEngine:
                 STATS["dev_wait_s"] += time.perf_counter() - t0
                 self._deliver(crows, collected)
                 continue
-            if self.L.wm_eng_live(self.h) == 0:
+            if not chained and self.L.wm_eng_live(self.h) == 0:
                 return
             # a step right after a deliver can return before the woken
             # threads have left their wait: step again
@@ -343,15 +396,18 @@ def build_read_pool(seqs):
 
 
 def map_batch_engine(mi, opt: MapOptions, seqs, qnames,
-                     device: torch.device) -> list[MapResult]:
+                     device: torch.device,
+                     chain_min: int | None = None) -> list[MapResult]:
     """Map a batch of reads through the native engine with every exported
-    DP job on `device` (reference mm_map semantics)."""
+    DP job, and every chain of at least chain_min anchors (None: the
+    device's default, chain_gate; 0: none), on `device` (reference mm_map
+    semantics)."""
     if not engine_supported(opt, mi):
         raise ValueError("the native engine does not take these options; "
                          "map_batch sends them to the generator path")
     qpool, qoffs = build_read_pool(seqs)
     pools = PoolContext(qpool, mi, device)
-    eng = MapEngine(mi, opt, seqs, qnames, pools, qoffs, qpool)
+    eng = MapEngine(mi, opt, seqs, qnames, pools, qoffs, qpool, chain_min)
     try:
         eng.L.wm_eng_start_phase1(eng.h)
         eng._drive_phase()

@@ -7,7 +7,9 @@ and re-aligns the whole read from the pooled anchors.  The vanilla
 single-pass pipeline runs when SV-aware mode is off, the read is short, or
 no confident substring mapping was found.  Every function here is a
 generator of extension-DP jobs (map/align.py); map/batch.run_ext_tasks
-runs them on the device.  Chaining calls the native chain DP.
+runs them on the device.  Chaining calls `chain_dp`, a function with
+native.chain_dp's signature: map/batch.py passes chain/device.chain_dp_auto
+on the batch's device, which chains the large anchor sets there.
 """
 from __future__ import annotations
 
@@ -16,7 +18,6 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .. import native
 from ..options import (
     MM_F_ALL_CHAINS,
     MM_F_CIGAR,
@@ -89,11 +90,11 @@ def _chain_gaps(opt, is_sr, qlen_sum):
     return max_chain_gap_qry, max_chain_gap_ref, min_chain_gap_ref
 
 
-def _chain(opt, ax, ay, qlen, is_cdna: int):
-    """Chain anchors with the native chain DP (reference mm_chain_dp)."""
+def _chain(opt, ax, ay, qlen, is_cdna: int, chain_dp):
+    """Chain anchors with chain_dp (reference mm_chain_dp)."""
     max_gap_qry, max_gap_ref, min_gap_ref = _chain_gaps(
         opt, bool(opt.flag & MM_F_SR), qlen)
-    u, ax, ay = native.chain_dp(
+    u, ax, ay = chain_dp(
         ax, ay, max_dist_x=max_gap_ref, min_dist_x=min_gap_ref,
         max_dist_y=max_gap_qry, bw=opt.bw, max_skip=opt.max_chain_skip,
         max_iter=opt.max_chain_iter, min_cnt=opt.min_cnt,
@@ -128,7 +129,7 @@ def align_regs_gen(opt, mi, qlen, regs, ax, ay, qseq0):
 
 
 def _pipeline_once_gen(mi, opt, qlen, seq, qname, hash_, run_est_err,
-                       qseq0):
+                       qseq0, chain_dp):
     """One seed -> chain -> post -> align -> mapq pass, the core of both the
     vanilla path and each MCAS substring trial (reference map.c:343-470)."""
     is_sr = bool(opt.flag & MM_F_SR)
@@ -137,7 +138,8 @@ def _pipeline_once_gen(mi, opt, qlen, seq, qname, hash_, run_est_err,
     # (the rechain with a higher occurrence cutoff, reference map.c:391-413,
     # fires only when opt.max_occ > opt.mid_occ, which no preset sets)
     u, ax, ay, max_gap_ref = _chain(opt, sh.ax, sh.ay, qlen,
-                                    int(bool(opt.flag & MM_F_SPLICE)))
+                                    int(bool(opt.flag & MM_F_SPLICE)),
+                                    chain_dp)
     regs = hitmod.gen_regs(hash_, qlen, u, ax, ay)
     regs = chain_post(opt, mi, qlen, regs, ax, ay)
     # the reference runs mm_est_err only inside MCAS stage-1 trials
@@ -149,23 +151,23 @@ def _pipeline_once_gen(mi, opt, qlen, seq, qname, hash_, run_est_err,
     return regs, ax, ay, sh.rep_len, max_gap_ref
 
 
-def _map_vanilla_gen(mi, opt, seq, qname, qseq0):
+def _map_vanilla_gen(mi, opt, seq, qname, qseq0, chain_dp):
     """Single-pass path (reference map.c:848-954; also the fallback when
     MCAS found no anchors)."""
     qlen = len(seq)
     hash_ = _frag_hash(qname, qlen, opt.seed)
     regs, ax, ay, rep_len, frag_gap = yield from _pipeline_once_gen(
-        mi, opt, qlen, seq, qname, hash_, False, qseq0)
+        mi, opt, qlen, seq, qname, hash_, False, qseq0, chain_dp)
     return MapResult(regs, rep_len, frag_gap)
 
 
 def _stage2_chain_gen(mi, opt3, qlen, qname, ax_in, ay_in, rep_len,
-                      rep_len_defined, qseq0):
+                      rep_len_defined, qseq0, chain_dp):
     """Stage-2 chain/align from a pooled anchor set (reference
     map.c:848-954 with pre-collected anchors)."""
     is_sr = bool(opt3.flag & MM_F_SR)
     hash_ = _frag_hash(qname, qlen, opt3.seed)
-    u, ax, ay, max_gap_ref = _chain(opt3, ax_in, ay_in, qlen, 0)
+    u, ax, ay, max_gap_ref = _chain(opt3, ax_in, ay_in, qlen, 0, chain_dp)
     regs = hitmod.gen_regs(hash_, qlen, u, ax, ay)
     regs = chain_post(opt3, mi, qlen, regs, ax, ay)
     # stage 2 skips mm_est_err (reference map.c:928-929 commented out)
@@ -179,8 +181,9 @@ class McasState:
     generators for different start positions write disjoint slots, as the
     reference's OpenMP-parallel substring loop does (map.c:317-334)."""
 
-    def __init__(self, opt, seq, qseq0):
+    def __init__(self, opt, seq, qseq0, chain_dp):
         self.qlen = len(seq)
+        self.chain_dp = chain_dp
         self.opt2 = stage1_options(opt)
         self.n_starts = 1 + math.ceil(self.qlen
                                       / self.opt2.suffix_sample_offset)
@@ -260,10 +263,12 @@ def mcas_stage2_gen(mi, opt, seq, qname, st: McasState):
     if ax is None:
         # MCAS unusable: the vanilla path with the original options (its
         # jobs' scoring equals stage 2's, so they share calls with them)
-        result = yield from _map_vanilla_gen(mi, opt, seq, qname, st.qseq0)
+        result = yield from _map_vanilla_gen(mi, opt, seq, qname, st.qseq0,
+                                             st.chain_dp)
         return result
     result = yield from _stage2_chain_gen(mi, opt3, qlen, qname, ax, ay,
-                                          rep_len, rep_len_defined, st.qseq0)
+                                          rep_len, rep_len_defined, st.qseq0,
+                                          st.chain_dp)
     return result
 
 
@@ -286,7 +291,7 @@ def _mcas_try_gen(mi, opt2, seq, qname, sub_begin, sub_len, left, qlen,
     hash_ = _frag_hash(qname, sub_len, opt2.seed)
     regs0, ax, ay, _, _ = yield from _pipeline_once_gen(
         mi, opt2, sub_len, sub, qname, hash_, True,
-        sub_qseq0(st.qseq0, qlen, start, sub_len))
+        sub_qseq0(st.qseq0, qlen, start, sub_len), st.chain_dp)
     for r in regs0:
         if (r.mapq >= opt2.min_mapq and r.blen >= opt2.min_qcov * sub_len
                 and r.cnt > 0):

@@ -290,6 +290,11 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+// g++ for x86-64 neither fuses nor reorders these at -O1 without
+// -ffast-math: each rounds once, as the intrinsics do on the card
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
