@@ -99,6 +99,21 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      held at the end, in a worker process, to the plain version (whose
      tally of the oracle's candidates gives C1's bound) and its chains to
      native.chain_dp.
+ 10. k-mer counting (the meryl workflow that makes -W's list): (a) the
+     port's meryl_cli on the card on t_ref.fa, count k=15 then print (its
+     md5), histogram, print greater-than distinct=0.9998 and greater-than
+     4 equal to the reference meryl's goldens, count-forward and
+     count-reverse equal to the host counter; (b) a 100 Mbp genome (about
+     C. elegans: three chromosomes of make_testdata.make_genome, numpy
+     seed 20261017, a run of N in each) through count_kmers on the card,
+     equal array for array to the host counter (count_kmers_chunked, run
+     meanwhile in a worker process): blocks, KC's summed event ms, the
+     host merge's and the other host seconds, Mbp/s, the peak device
+     memory, the distinct=0.9998 list's size; (c) KC alone on the
+     genome's first block of 4 Mi codes (k = 15, canonical), held to its
+     plain version and timed by CUDA events beside the plain version and
+     torch.unique on the block's valid keys, and held to its plain version
+     on small blocks with N runs at k = 15, 19, 31, 32, each direction.
 Every DP kernel call of phases 4, 5, 6 and 8 (c), (d) is recorded; for each
 launch a run took, its call at the median of that launch's longest rows
 (in 8 (c) one that carries junction bytes) is run again at the end through
@@ -1841,6 +1856,17 @@ def _haplotype(rng, g, svs):
     return np.concatenate(parts)
 
 
+def make_testdata():
+    """tests/tools/make_testdata.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_testdata", REPO / "tests" / "tools" / "make_testdata.py")
+    mk = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mk)
+    return mk
+
+
 def asm_corpus():
     """Phase 9's reference and contigs (numpy seed 20261016): a genome of
     PHASE9_GENOME bp in two chromosomes, and a haplotype of it with a 5 kb
@@ -1850,12 +1876,7 @@ def asm_corpus():
     chromosome at 45-55% of its length, the second piece reverse
     complemented).  Returns ([(name, codes)] chromosomes, [(name, codes)]
     contigs)."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "make_testdata", REPO / "tests" / "tools" / "make_testdata.py")
-    mk = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mk)
+    mk = make_testdata()
     rng = np.random.default_rng(20261016)
     chroms = [(f"chr{c + 1}", mk.make_genome(rng, PHASE9_GENOME // 2))
               for c in range(2)]
@@ -2184,6 +2205,255 @@ def phase7(torch, k1):
     ]
 
 
+# --------------------------------------------------------------------------
+# k-mer counting
+# --------------------------------------------------------------------------
+
+# phase 10 (b)'s genome: about C. elegans' 100 Mbp, in three chromosomes of
+# make_testdata.make_genome (its tandem repeat arrays), each with a run of
+# N bases
+PHASE10_GENOME = 100_000_000
+PHASE10_N_RUN = 5000
+# KC held to its plain version on small blocks at each direction: (k,
+# codes)
+KC_CHECKS = ((15, 300_001), (19, 100_000), (31, 100_000), (32, 50_000))
+
+
+def kc_ops(k: int) -> int:
+    """Integer operations a window of KC's function: for each of its k
+    codes the forward roll (shift, or), the reverse roll (shift, or; the
+    complement c ^ 2 and the code's valid test are a code's, not a
+    window's) and the valid flag's and, 5; then the canonical minimum
+    (compare, select), the key's select and the valid test, 4."""
+    return 5 * k + 4
+
+
+def kc_genome():
+    """Phase 10 (b)'s genome (numpy seed 20261017): three chromosomes of
+    PHASE10_GENOME / 3 bp, upper-case ACGT, a run of PHASE10_N_RUN N
+    bases at 40% of each.  Returns SeqRecords."""
+    from winnowmap_tpu_torch.io.fastx import SeqRecord
+
+    mk = make_testdata()
+    rng = np.random.default_rng(20261017)
+    recs = []
+    for c in range(3):
+        g = np.frombuffer(b"ACGT", np.uint8)[
+            mk.make_genome(rng, PHASE10_GENOME // 3)]
+        at = int(0.4 * len(g))
+        g[at:at + PHASE10_N_RUN] = ord("N")
+        recs.append(SeqRecord(f"chr{c + 1}", g.tobytes(), None, None))
+    return recs
+
+
+def host_count(prefix: str) -> float:
+    """Phase 10 (b)'s genome counted by the host counter
+    (outofcore.count_kmers_chunked), in a worker process: the genome made
+    again from its seed, the k-mers and counts saved to prefix_kmers.npy
+    and prefix_counts.npy.  Returns the count's seconds."""
+    from winnowmap_tpu_torch.kcount.outofcore import count_kmers_chunked
+
+    recs = kc_genome()
+    t0 = time.perf_counter()
+    kc = count_kmers_chunked(recs, 15)
+    dt = time.perf_counter() - t0
+    np.save(f"{prefix}_kmers.npy", kc.kmers)
+    np.save(f"{prefix}_counts.npy", kc.counts)
+    return dt
+
+
+def meryl_out(meryl_cli, args) -> str:
+    """meryl_cli.main(args) in this process; its standard output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = meryl_cli.main(args)
+    if rc != 0:
+        fail(f"phase 10: meryl {' '.join(args)} returned {rc}")
+    return buf.getvalue()
+
+
+def phase10_goldens(KD, meryl_cli, fastx, outofcore):
+    """(a) The port's meryl on the card on t_ref.fa: count, then print (its
+    md5), histogram, print greater-than distinct=0.9998 and greater-than 4
+    equal to the reference meryl's goldens; count-forward and
+    count-reverse trees equal to the host counter's print.  Returns KC's
+    launches."""
+    import hashlib
+
+    ref = str(GOLD / "t_ref.fa")
+    db = str(DATA / "kc_t_ref")
+    KD.reset_launches()
+    meryl_out(meryl_cli, ["count", "k=15", "output", db, ref])
+    md5 = hashlib.md5(meryl_out(meryl_cli, ["print", db]).encode())
+    if md5.hexdigest() != (GOLD / "golden_meryl_print.md5").read_text(
+            ).strip():
+        fail("phase 10: meryl print differs from golden_meryl_print.md5")
+    for args, gold in ((["histogram", db], "golden_meryl_histogram.txt"),
+                       (["print", "greater-than", "distinct=0.9998", db],
+                        "golden_meryl_rep_distinct9998.txt"),
+                       (["print", "greater-than", "4", db],
+                        "golden_meryl_gt4.txt")):
+        if meryl_out(meryl_cli, args) != (GOLD / gold).read_text():
+            fail(f"phase 10: meryl {' '.join(args[:-1])} differs from "
+                 f"{gold}")
+    recs = fastx.read_all(ref)
+    for d in ("forward", "reverse"):
+        got = meryl_out(meryl_cli, ["print", "[", f"count-{d}", "k=15", ref,
+                                    "]"])
+        want = outofcore.count_kmers_chunked(recs, 15, direction=d)
+        if got != "".join(ln + "\n" for ln in want.print_lines()):
+            fail(f"phase 10: meryl count-{d} differs from the host counter")
+    n = KD.LAUNCHES["kcount"]
+    if n == 0:
+        fail("phase 10: meryl count did not launch KC")
+    log(f"[phase 10 (a)] meryl on the card, t_ref.fa: print (md5), "
+        f"histogram, greater-than distinct=0.9998 and greater-than 4 == "
+        f"the goldens; count-forward and count-reverse == the host "
+        f"counter; {n} KC launches")
+    return n
+
+
+def phase10_genome(torch, KD, kcount, recs):
+    """(b) count_kmers(recs, 15) on the card: KC's launches (a block
+    each), their summed CUDA-event ms, the host merge's seconds, the other
+    host seconds, Mbp/s, the peak device memory and the distinct=0.9998
+    list's size.  Returns (the counted set, KC's launches)."""
+    n_bp = sum(len(r.seq) for r in recs)
+    merge_s = [0.0]
+    merge = KD._merge_two
+
+    def timed_merge(*args):
+        t = time.perf_counter()
+        out = merge(*args)
+        merge_s[0] += time.perf_counter() - t
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KD._merge_two = timed_merge
+    KD.reset_launches()
+    try:
+        with EntryTimer(torch, ["wm_kcount_launch"]) as timer:
+            t0 = time.perf_counter()
+            kc = kcount.count_kmers(recs, 15)
+            wall = time.perf_counter() - t0
+    finally:
+        KD._merge_two = merge
+    launches = KD.LAUNCHES["kcount"]
+    kc_ms = sum(timer.ms("wm_kcount_launch"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    thr = kc.threshold_distinct(0.9998)
+    n_rep = kc.greater_than(thr).n_distinct
+    log(f"[phase 10 (b)] {n_bp} bp in {len(recs)} chromosomes, k = 15: "
+        f"{kc.n_total} k-mers, {kc.n_distinct} distinct, in {wall:.3f} s "
+        f"-> {n_bp / 1e6 / wall:.3f} Mbp/s; {launches} blocks (KC "
+        f"launches), KC's events {kc_ms:.3f} ms; host merge "
+        f"{merge_s[0]:.3f} s; other host {wall - merge_s[0] - kc_ms / 1e3:.3f}"
+        f" s; peak device memory {peak:.3f} GiB; distinct=0.9998 -> "
+        f"greater-than {thr}: {n_rep} k-mers")
+    log("[phase 10 (b)] JSON " + json.dumps({
+        "bp": n_bp, "wall_s": wall, "mbp_per_s": n_bp / 1e6 / wall,
+        "blocks": launches, "kc_ms": kc_ms, "merge_s": merge_s[0],
+        "other_host_s": wall - merge_s[0] - kc_ms / 1e3,
+        "peak_gib": peak, "distinct": kc.n_distinct, "rep_9998": n_rep}))
+    if launches == 0:
+        fail("phase 10 (b): the count did not launch KC")
+    return kc, launches
+
+
+def kc_small_codes(rng, n):
+    """n codes with 40 runs of N (1-200 bases) and a poly-G stretch."""
+    c = rng.integers(0, 4, n).astype(np.uint8)
+    for at in rng.integers(0, n - 200, 40):
+        c[at:at + int(rng.integers(1, 200))] = 255
+    c[n // 7:n // 7 + 3000] = 3
+    return c
+
+
+def phase10_kc(torch, KD, recs, launches):
+    """(c) KC on the genome's first block (BLOCK codes) at k = 15,
+    canonical, held to its plain version and timed by CUDA events, beside
+    the plain version and torch.unique on the block's valid keys; KC held
+    to its plain version on small blocks with N runs at KC_CHECKS, each
+    direction.  Returns KC's kernels-line record (launches: (b)'s)."""
+    from winnowmap_tpu_torch.tools import time_ms
+
+    dev = torch.device(DEVICE)
+    saved = dict(KD.LAUNCHES)
+    rng = np.random.default_rng(20261018)
+    for k, n in KC_CHECKS:
+        c = torch.from_numpy(kc_small_codes(rng, n)).to(dev)
+        for d in KD.DIRECTIONS:
+            km, ct = KD.count_block(c, k, d)
+            pk, pc = KD.count_block_plain(c, k, d)
+            if not (torch.equal(km, pk) and torch.equal(ct, pc)):
+                fail(f"phase 10 (c): KC != plain on {n} codes at k = {k}, "
+                     f"{d}")
+    block = next(KD.iter_code_blocks(recs, 15))
+    if len(block) != KD.BLOCK:
+        fail("phase 10 (c): the genome's first block is not full")
+    t = torch.from_numpy(block).to(dev)
+    km, ct = KD.count_block(t, 15)
+    pk, pc = KD.count_block_plain(t, 15)
+    if len(km) != len(pk):
+        fail(f"phase 10 (c): KC's n_seg {len(km)} != plain's {len(pk)}")
+    err = int((km != pk).sum() + (ct != pc).sum())
+    if err:
+        fail(f"phase 10 (c): KC != plain on the block: {err} entries")
+    keys = KD.block_keys_plain(t, 15)
+    ms = time_ms(lambda: KD.count_block_launch(t, 15), dev, 20)
+    plain_ms = time_ms(lambda: KD.count_block_plain(t, 15), dev, 3)
+    lib_ms = time_ms(lambda: torch.unique(keys, sorted=True,
+                                          return_counts=True), dev, 10)
+    n, n_valid, n_seg = len(block), len(keys), len(km)
+    # each code read once; each valid key written once and read once; each
+    # unique k-mer and its count written once
+    nbytes = n + 16 * n_valid + 16 * n_seg
+    tb = nbytes / HBM_BPS * 1e3
+    to = kc_ops(15) * (n - 14) / INT32_OPS * 1e3
+    KD.LAUNCHES.update(saved)  # comparison launches are not main-path
+    log(f"[phase 10 (c)] KC == plain on {len(KC_CHECKS)} small blocks with "
+        f"N runs (k = {', '.join(str(k) for k, _ in KC_CHECKS)}) at each "
+        f"direction and on the genome's first block ({n} codes, {n_valid} "
+        f"valid windows, {n_seg} unique 15-mers, canonical): KC {ms:.4f} "
+        f"ms; plain {plain_ms:.3f} ms; torch.unique on the valid keys "
+        f"{lib_ms:.4f} ms; bound {max(tb, to):.5f} ms ({nbytes} bytes "
+        f"{tb:.5f} ms, {kc_ops(15) * (n - 14)} operations {to:.5f} ms)")
+    rec = kernel_record("kcount_block", "kcount.cu",
+                        "winnowmap_tpu/kcount/device.py:28", err, ms,
+                        plain_ms, tb, to)
+    rec["library_ms"], rec["launches"] = lib_ms, launches
+    return rec
+
+
+def phase10(torch):
+    """k-mer counting on the card: (a) the goldens through meryl_cli, (b)
+    a 100 Mbp genome through count_kmers against the host counter (run
+    meanwhile in a worker process), (c) KC alone.  Returns KC's record."""
+    from winnowmap_tpu_torch import kcount, meryl_cli
+    from winnowmap_tpu_torch.io import fastx
+    from winnowmap_tpu_torch.kcount import device as KD
+    from winnowmap_tpu_torch.kcount import outofcore
+
+    DATA.mkdir(exist_ok=True)
+    prefix = str(DATA / "kc_host")
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        host = pool.submit(host_count, prefix)
+        phase10_goldens(KD, meryl_cli, fastx, outofcore)
+        recs = kc_genome()
+        kc, launches = phase10_genome(torch, KD, kcount, recs)
+        host_s = host.result()
+    want_k = np.load(f"{prefix}_kmers.npy")
+    want_c = np.load(f"{prefix}_counts.npy")
+    if not (np.array_equal(kc.kmers, want_k)
+            and np.array_equal(kc.counts, want_c)):
+        fail("phase 10 (b): the card's counts differ from the host counter's")
+    log(f"[phase 10 (b)] == the host counter (count_kmers_chunked, "
+        f"{host_s:.3f} s in a worker process meanwhile), array for array")
+    return phase10_kc(torch, KD, recs, launches)
+
+
 T_START = time.perf_counter()
 
 
@@ -2305,6 +2575,9 @@ def main():
     # build (phase 9)
     c1["launches"], s1_record["launches"] = asm["chain_fwd"], asm["sketch"]
     records += [c1, s1_record]
+    t0 = time.perf_counter()
+    records.append(phase10(torch))
+    log(f"[phase 10] {time.perf_counter() - t0:.1f} s")
     log(f"[chip_smoke] {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -1,9 +1,10 @@
-"""K1 (csrc/extd.cu) and K4 (csrc/extz.cu), C1 (csrc/chain.cu) and S1
-(csrc/sketch.cu), the CUDA sources themselves, run on the CPU against
-their plain PyTorch versions: the sources are compiled by g++ against the
-stub CUDA runtime of winnowmap_tpu_torch/tools/cuda_stub (one fiber per
-CUDA thread) and launched through kernels.ext_launch, chain.chain_launch
-and sketch.sketch_launch, the marshalling the wrappers use on the card.
+"""K1 (csrc/extd.cu) and K4 (csrc/extz.cu), C1 (csrc/chain.cu), S1
+(csrc/sketch.cu) and KC (csrc/kcount.cu), the CUDA sources themselves, run
+on the CPU against their plain PyTorch versions: the sources are compiled
+by g++ against the stub CUDA runtime of winnowmap_tpu_torch/tools/cuda_stub
+(one fiber per CUDA thread) and launched through kernels.ext_launch,
+chain.chain_launch, sketch.sketch_launch and kcount.device.kcount_launch,
+the marshalling the wrappers use on the card.
 Integer DP and u64 words: every result field, every direction byte and
 every output word must be equal.
 
@@ -110,7 +111,8 @@ def chain_sketch_libs(tmp_path_factory):
         pytest.skip("needs g++ to build the CUDA sources against the stub "
                     "runtime")
     d = tmp_path_factory.mktemp("cuda_stub_cs")
-    return {m: cuda_stub.load(f"{m}.cu", d) for m in ("chain", "sketch")}
+    return {m: cuda_stub.load(f"{m}.cu", d)
+            for m in ("chain", "sketch", "kcount")}
 
 
 @pytest.mark.parametrize("is_cdna,max_skip", [(0, 25), (1, 25), (0, 1)],
@@ -152,3 +154,40 @@ def test_sketch_source_matches_plain(chain_sketch_libs, k):
     key, h, z, sym, canon = SD.transform_plain(codes, k)
     assert torch.equal(words, torch.stack([key, h, canon]))
     assert torch.equal(flags, torch.stack([z, sym]))
+
+
+def _kc_codes(rng, n, k):
+    """n codes with N runs; for k = 15 the last 4000 invalid (a whole tile
+    of 4096 windows without a key: the later passes' empty tiles); for
+    k = 31 a poly-G stretch (runs of one key); for k = 32 a poly-G block,
+    whose forward all-ones k-mer KC counts."""
+    if k == 32:
+        return np.full(n, 3, np.uint8)
+    c = rng.integers(0, 4, n).astype(np.uint8)
+    for _ in range(5):
+        at = int(rng.integers(0, n - 30))
+        c[at:at + int(rng.integers(1, 30))] = 255
+    if k == 15:
+        c[-4000:] = 255
+    else:
+        c[1000:1400] = 3
+    return c
+
+
+@pytest.mark.parametrize("k,n", [(15, 9000), (31, 5000), (32, 2000)])
+@pytest.mark.parametrize("direction", ["canonical", "forward", "reverse"])
+def test_kcount_source_matches_plain(chain_sketch_libs, k, n, direction):
+    """KC on n codes (two or three tiles of 4096 windows, the last
+    partial): the sorted unique k-mers, their counts, the number of valid
+    windows and n_seg equal the plain version's."""
+    from winnowmap_tpu_torch.kcount import device as KD
+
+    codes = torch.from_numpy(_kc_codes(np.random.default_rng(k), n, k))
+    bufs = KD.kc_buffers(n - k + 1, "cpu")
+    assert KD.kcount_launch(chain_sketch_libs["kcount"], codes, k,
+                            direction, bufs, None) == 0
+    km, ct = KD.count_block_plain(codes, k, direction)
+    n_live, n_seg = bufs["scal"].tolist()
+    assert n_seg == len(km) > 0 and n_live == int(ct.sum())
+    assert torch.equal(bufs["uniq"][:n_seg], km)
+    assert torch.equal(bufs["counts"][:n_seg], ct)

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: K1 (csrc/extd.cu), K3
 (csrc/exts.cu), K4 (csrc/extz.cu), K2 (csrc/traceback.cu, plain and
-spliced), the cost probes P1-P3 (csrc/probes.cu), C1 (csrc/chain.cu) and S1
-(csrc/sketch.cu) against their plain PyTorch versions on the same device
-tensors (C1's chains and S1's sketches also against the native oracles,
+spliced), the cost probes P1-P3 (csrc/probes.cu), C1 (csrc/chain.cu), S1
+(csrc/sketch.cu) and KC (csrc/kcount.cu) against their plain PyTorch
+versions on the same device tensors (KC's counts of the golden genome also
+against the host counter and meryl's goldens; C1's chains and S1's
+sketches also against the native oracles,
 the index built through S1 against the native build, the engine's chain
 exchange and the generator path's chains on the card against the host's),
 the pooled call on the card against the CPU, map_batch on the card
@@ -884,3 +886,67 @@ def test_chain_exchange_on_card_matches_host(cuda):
     gen = batch.map_batch_generator(mi, mo, reads, names, cuda, chain_min=1)
     assert CD.LAUNCHES["chain_fwd"] > n0
     assert_same_results(gen_host, gen)
+
+
+# KC (csrc/kcount.cu)
+
+
+@pytest.mark.parametrize("direction", ["canonical", "forward", "reverse"])
+@pytest.mark.parametrize("k", [1, 15, 19, 31, 32])
+def test_kcount_kernel_matches_plain(cuda, k, direction):
+    """KC == its plain version on 300,001 codes with N runs and a poly-G
+    stretch (74 tiles, the last partial), in one launch; and on a poly-G
+    block, whose all-ones k-mer at k = 32 forward KC counts."""
+    from winnowmap_tpu_torch.kcount import device as KD
+
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, 300_001).astype(np.uint8)
+    for at in rng.integers(0, 299_000, 40):
+        codes[at:at + int(rng.integers(1, 200))] = 255
+    codes[5000:9000] = 3
+    for c in (codes, np.full(5000, 3, np.uint8)):
+        t = torch.from_numpy(c).to(cuda)
+        n0 = KD.LAUNCHES["kcount"]
+        km, ct = KD.count_block(t, k, direction)
+        assert KD.LAUNCHES["kcount"] == n0 + 1
+        pk, pc = KD.count_block_plain(t, k, direction)
+        assert torch.equal(km, pk) and torch.equal(ct, pc)
+
+
+def test_count_kmers_on_card_matches_host(cuda, monkeypatch):
+    """The golden genome counted through KC in blocks of 65,536 codes (the
+    runs merged on the host), each direction: the host counter's set."""
+    from winnowmap_tpu_torch import kcount
+    from winnowmap_tpu_torch.io.fastx import read_all
+    from winnowmap_tpu_torch.kcount import device as KD
+    from winnowmap_tpu_torch.kcount.outofcore import count_kmers_chunked
+
+    monkeypatch.setattr(KD, "BLOCK", 1 << 16)
+    recs = read_all(str(GOLD / "t_ref.fa"))
+    for direction in ("canonical", "forward", "reverse"):
+        n0 = KD.LAUNCHES["kcount"]
+        got = kcount.count_kmers(recs, 15, direction=direction)
+        assert KD.LAUNCHES["kcount"] > n0 + 1
+        want = count_kmers_chunked(recs, 15, direction=direction)
+        assert np.array_equal(got.kmers, want.kmers)
+        assert np.array_equal(got.counts, want.counts)
+
+
+def test_meryl_cli_on_card_matches_goldens(cuda, tmp_path, capsys):
+    """meryl count on the card, then print and print greater-than
+    distinct=0.9998: the reference meryl's goldens."""
+    import hashlib
+
+    from winnowmap_tpu_torch.meryl_cli import main
+
+    db = str(tmp_path / "db")
+    assert main(["count", "k=15", "output", db,
+                 str(GOLD / "t_ref.fa")]) == 0
+    capsys.readouterr()
+    assert main(["print", db]) == 0
+    out = capsys.readouterr().out
+    assert hashlib.md5(out.encode()).hexdigest() == \
+        (GOLD / "golden_meryl_print.md5").read_text().strip()
+    assert main(["print", "greater-than", "distinct=0.9998", db]) == 0
+    assert capsys.readouterr().out == \
+        (GOLD / "golden_meryl_rep_distinct9998.txt").read_text()

@@ -2,7 +2,8 @@
 chip_smoke.py) imports jax or anything of the JAX package winnowmap_tpu.
 
 A subprocess installs a sys.meta_path blocker for both, imports every module
-of the port and runs one tiny DevCallPooled on the CPU, extd and spliced; an
+of the port and runs one tiny DevCallPooled on the CPU, extd and spliced,
+and one k-mer count through the block path (KC's plain version); an
 AST scan of the sources finds no such import statement.  No module reads a
 WM_* environment variable beyond the engine's thread count, the native
 library's sanitizer build and the log level: the port has no switch that
@@ -69,6 +70,11 @@ SCRIPT = textwrap.dedent("""
         pools, jobs, gen_simple_mat(1, 2, 1), 2, 1, 32, 0, 0, 0x508,
         splice=(9, 9)).collect_blob()
     assert res9[0, 8] > 0 and ln[0] > 0, (res9, ln)
+    from types import SimpleNamespace
+    from winnowmap_tpu_torch.kcount import count_kmers
+    kc = count_kmers([SimpleNamespace(seq=b"ACGTNACGTACGTAC" * 9)], 5,
+                     device="cpu")
+    assert kc.n_total == 86 and kc.n_distinct == 6, kc
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("PORT-STANDALONE-OK")

@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = ("extd.cu", "exts.cu", "extz.cu", "traceback.cu", "chain.cu",
-           "sketch.cu")
+           "sketch.cu", "kcount.cu")
 # the cost probes (tools/), loaded on their own so that mapping never
 # waits on their build
 PROBE_SOURCES = ("probes.cu",)
@@ -109,6 +109,7 @@ def bind(lib) -> None:
         "wm_chain_fwd_launch": [vp] * 6 + [ci] * 6 + [ctypes.c_double]
         + [vp] * 5,
         "wm_sketch_launch": [vp, i64, ci] + [vp] * 6,
+        "wm_kcount_launch": [vp, i64, ci, ci] + [vp] * 7,
     }
     for name, args in entries.items():
         if hasattr(lib, name):
@@ -131,7 +132,8 @@ def load():
         tb = ctypes.CDLL(str(paths["traceback.cu"]))
         chain = ctypes.CDLL(str(paths["chain.cu"]))
         sketch = ctypes.CDLL(str(paths["sketch.cu"]))
-        for lib in (extd, exts, extz, tb, chain, sketch):
+        kcount = ctypes.CDLL(str(paths["kcount.cu"]))
+        for lib in (extd, exts, extz, tb, chain, sketch, kcount):
             bind(lib)
 
         class _Api:
@@ -142,8 +144,9 @@ def load():
             wm_traceback_launch = tb.wm_traceback_launch
             wm_chain_fwd_launch = chain.wm_chain_fwd_launch
             wm_sketch_launch = sketch.wm_sketch_launch
+            wm_kcount_launch = kcount.wm_kcount_launch
             wm_cuda_error_string = extd.wm_cuda_error_string
-            libs = (extd, exts, extz, tb, chain, sketch)
+            libs = (extd, exts, extz, tb, chain, sketch, kcount)
 
         _libs["api"] = _Api
         return _Api

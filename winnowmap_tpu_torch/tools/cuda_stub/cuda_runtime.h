@@ -251,6 +251,15 @@ inline unsigned __ballot_sync(unsigned mask, int p) {
   for (int i = 0; i < 32; ++i) r |= (unsigned)(b[i] != 0) << i;
   return r;
 }
+// the lanes whose v equals this lane's
+template <class T>
+inline unsigned __match_any_sync(unsigned mask, T v) {
+  const uint64_t* b = stub::exchange(mask, stub::bits(v));
+  const uint64_t me = b[threadIdx.x & 31];
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= (unsigned)(b[i] == me) << i;
+  return r;
+}
 inline int __any_sync(unsigned mask, int p) {
   return __ballot_sync(mask, p) != 0;
 }
