@@ -31,8 +31,10 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      of K1, K4 (a full band of 16800 lanes) and K3 (8600 exon bases), their
      slot state in global scratch, against the native oracle, by digest;
      C1 (the chain forward pass) against its plain version on 64 anchor
-     sets of 2k-20k anchors and a repeat cluster whose windows pass 8192,
-     under asm5's stage-1 and stage-2 chain parameters (phase 9's), on
+     sets of 2k-20k anchors, a repeat cluster whose windows pass 8192 and
+     a set whose walk takes a predecessor from outside C1's shared-memory
+     ring (chain.check.chain_sets; stage 2 fails unless one does), under
+     asm5's stage-1 and stage-2 chain parameters (phase 9's), on
      eight under cDNA's gap cost and eight at max_skip 1 (where the
      oracle's break cuts walks short), every job chained to the end
      against native.chain_dp; S1 (the sketch transform) against its plain
@@ -113,7 +115,8 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      genome's first block of 4 Mi codes (k = 15, canonical), held to its
      plain version and timed by CUDA events beside the plain version and
      torch.unique on the block's valid keys, and held to its plain version
-     on small blocks with N runs at k = 15, 19, 31, 32, each direction.
+     there at k = 19 (u64 keys) and on small blocks with N runs at k = 15,
+     19, 31, 32, each direction.
 Every DP kernel call of phases 4, 5, 6 and 8 (c), (d) is recorded; for each
 launch a run took, its call at the median of that launch's longest rows
 (in 8 (c) one that carries junction bytes) is run again at the end through
@@ -702,57 +705,59 @@ def chain_batch(p, jobs):
             p["min_sc"], p["gap_scale"], p["is_cdna"], DEVICE)
 
 
-def chain_sets():
-    """check_chain's anchor sets (numpy seed 20261016): 64 of 2k-20k
-    anchors (every eighth repeat-rich) and a repeat cluster of 9,000
-    anchors whose windows pass 8192."""
-    from winnowmap_tpu_torch.chain.check import anchor_set
-
-    rng = np.random.default_rng(20261016)
-    jobs = [anchor_set(rng, int(rng.integers(2000, 20000)),
-                       repeat=(t % 8 == 0)) for t in range(64)]
-    jobs.append(anchor_set(rng, 9000, repeat=True, n_clusters=1))
-    return jobs
-
-
 CHAIN_CHECKS = ("stage 1", "stage 2", "cdna and max_skip 1")
 
 
 def check_chain(case):
-    """C1 against its plain version, exactly, on chain_sets: all of them
-    under CHAIN_P ("stage 1") or CHAIN_P2 ("stage 2"); or eight under
-    cDNA's gap cost with stage-2 gaps and gap scale 0.8 and the eight
+    """C1 against its plain version, exactly, on chain.check's chain_sets:
+    all of them under CHAIN_P ("stage 1") or CHAIN_P2 ("stage 2"); or eight
+    under cDNA's gap cost with stage-2 gaps and gap scale 0.8 and the eight
     smallest at max_skip 1 (where the oracle's break, its marks and floored
-    skip counter, cuts walks short of better predecessors); every job
-    chained to the end against native.chain_dp.  Runs in a process of its
-    own."""
+    skip counter, cuts walks short of better predecessors); stage 2 also on
+    chain.check's short_sets (chains that end inside the walking warp's
+    wait for the producer warps), launched 200 times, each against plain;
+    every job chained to the end against native.chain_dp.  Fails unless stage 2 takes
+    a predecessor from outside C1's shared-memory ring (RING_REACH back:
+    the gapped set).  Runs in a process of its own."""
     import torch
 
     import winnowmap_tpu_torch.native as native
     from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.chain.check import chain_sets, short_sets
 
     jobs = chain_sets()
+    short = short_sets(np.random.default_rng(20261018))
     cdna = dict(CHAIN_P2, is_cdna=1, gap_scale=0.8)
     skip1 = dict(CHAIN_P, max_skip=1)
     small = sorted(jobs, key=lambda j: len(j[0]))[:8]
     cases = {"stage 1": [("stage 1", CHAIN_P, jobs)],
-             "stage 2": [("stage 2", CHAIN_P2, jobs)],
+             "stage 2": [("stage 2", CHAIN_P2, jobs),
+                         ("stage 2, short chains", CHAIN_P2, short)],
              "cdna and max_skip 1": [("cdna", cdna, jobs[1:9]),
                                      ("max_skip 1", skip1, small)]}[case]
     for name, p, js in cases:
         cj = CD.chain_jobs(js, p["max_dist_x"], p["min_dist_x"],
                            p["max_iter"], DEVICE)
-        win = int((torch.arange(cj.x.numel(), device=cj.x.device)
-                   - torch.repeat_interleave(cj.off[:-1],
-                                             cj.off.diff()) - cj.st).max())
+        local = (torch.arange(cj.x.numel(), device=cj.x.device)
+                 - torch.repeat_interleave(cj.off[:-1], cj.off.diff()))
+        win = int((local - cj.st).max())
         kern = CD.chain_fwd(cj, *chain_args(p))
         t0 = time.perf_counter()
         plain = CD.chain_fwd_plain(cj, *chain_args(p))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         err = int((kern.long() - plain.long()).abs().max())
+        if js is short:  # a read that races the producers shows by timing
+            for _ in range(200):
+                again = CD.chain_fwd(cj, *chain_args(p))
+                err = max(err, int((again.long() - plain.long()).abs().max()))
         if err:
             fail(f"C1 ({name}) != plain: max abs err {err}")
+        has = plain[1] >= 0
+        back = int((local - plain[1].long())[has].max()) if has.any() else 0
+        if name == "stage 2" and back <= CD.RING_REACH:
+            fail(f"C1 ({name}): no predecessor taken from outside the ring "
+                 f"({back} back, reach {CD.RING_REACH})")
         res = CD.chain_dp_device_batch(*chain_batch(p, js))
         bad = [i for i, ((ax, ay), r) in enumerate(zip(js, res))
                if not all(np.array_equal(a, b) for a, b in zip(
@@ -762,8 +767,9 @@ def check_chain(case):
         log(f"[phase 2] C1 {name}: {len(js)} anchor sets of "
             f"{min(map(len, (a for a, _ in js)))}-"
             f"{max(map(len, (a for a, _ in js)))} anchors, windows up to "
-            f"{win}: == plain (plain {dt:.1f} s) and == native.chain_dp on "
-            f"every job")
+            f"{win}, predecessors taken up to {back} back (ring reach "
+            f"{CD.RING_REACH}): == plain (plain {dt:.1f} s) and == "
+            f"native.chain_dp on every job")
 
 
 def hold_chain(jobs, p):
@@ -2373,7 +2379,8 @@ def kc_small_codes(rng, n):
 def phase10_kc(torch, KD, recs, launches):
     """(c) KC on the genome's first block (BLOCK codes) at k = 15,
     canonical, held to its plain version and timed by CUDA events, beside
-    the plain version and torch.unique on the block's valid keys; KC held
+    the plain version and torch.unique on the block's valid keys, and held
+    to its plain version there at k = 19 (u64 keys); KC held
     to its plain version on small blocks with N runs at KC_CHECKS, each
     direction.  Returns KC's kernels-line record (launches: (b)'s)."""
     from winnowmap_tpu_torch.tools import time_ms
@@ -2400,6 +2407,11 @@ def phase10_kc(torch, KD, recs, launches):
     err = int((km != pk).sum() + (ct != pc).sum())
     if err:
         fail(f"phase 10 (c): KC != plain on the block: {err} entries")
+    # the same block at k = 19: u64 keys, four passes
+    km19, ct19 = KD.count_block(t, 19)
+    pk19, pc19 = KD.count_block_plain(t, 19)
+    if not (torch.equal(km19, pk19) and torch.equal(ct19, pc19)):
+        fail("phase 10 (c): KC != plain on the block at k = 19")
     keys = KD.block_keys_plain(t, 15)
     ms = time_ms(lambda: KD.count_block_launch(t, 15), dev, 20)
     plain_ms = time_ms(lambda: KD.count_block_plain(t, 15), dev, 3)
@@ -2415,7 +2427,8 @@ def phase10_kc(torch, KD, recs, launches):
     log(f"[phase 10 (c)] KC == plain on {len(KC_CHECKS)} small blocks with "
         f"N runs (k = {', '.join(str(k) for k, _ in KC_CHECKS)}) at each "
         f"direction and on the genome's first block ({n} codes, {n_valid} "
-        f"valid windows, {n_seg} unique 15-mers, canonical): KC {ms:.4f} "
+        f"valid windows, {n_seg} unique 15-mers, canonical; and k = 19): "
+        f"KC {ms:.4f} "
         f"ms; plain {plain_ms:.3f} ms; torch.unique on the valid keys "
         f"{lib_ms:.4f} ms; bound {max(tb, to):.5f} ms ({nbytes} bytes "
         f"{tb:.5f} ms, {kc_ops(15) * (n - 14)} operations {to:.5f} ms)")

@@ -284,3 +284,34 @@ def test_ext_launch_refuses_a_foreign_layout(stub_extd):
     assert (res == 7).all()
     assert launch(g) == 0
     assert torch.equal(res[:, :9], c.k1_plain()[0][:, :9])
+
+
+def _constexpr(src: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_chain_ring_reach_matches_the_source():
+    """chain.device.RING_REACH is csrc/chain.cu's kReach, its ring of
+    anchors less the one being walked."""
+    from winnowmap_tpu_torch.chain import device as CD
+
+    src = (Path(K.__file__).parent.parent / "csrc" / "chain.cu").read_text()
+    assert CD.RING_REACH == _constexpr(src, "kRing") - 1
+    assert "constexpr int kReach = kRing - 1;" in src
+
+
+@pytest.mark.parametrize("k,plan", [(1, (1, 2)), (15, (4, 8)),
+                                    (16, (4, 8)), (19, (5, 8)),
+                                    (31, (8, 8)), (32, (8, 8))])
+def test_kcount_plan_matches_the_source(k, plan):
+    """kcount.device's tile, widest digit and counter words are
+    csrc/kcount.cu's, and its passes of equal digits at k: ceil(2k / 8)
+    passes (k = 15: four of 8 bits)."""
+    from winnowmap_tpu_torch.kcount import device as KD
+
+    src = (Path(K.__file__).parent.parent / "csrc" / "kcount.cu").read_text()
+    threads = _constexpr(src, "kThreads")
+    assert KD.KC_TILE == threads // 32 * 32 * _constexpr(src, "kRounds")
+    assert KD.KC_MAX_BITS == _constexpr(src, "kMaxBits")
+    assert KD.KC_CTR_WORDS == _constexpr(src, "kCtrWords")
+    assert KD.kc_plan(k) == plan

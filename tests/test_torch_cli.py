@@ -50,6 +50,21 @@ def test_cli_sam_matches_jax_cli(extra, reads_fa, monkeypatch):
         N_READS
 
 
+def test_cli_no_end_flt_matches_jax_cli(reads_fa, monkeypatch):
+    """--no-end-flt (keep the seeds at a chain's ends that the end filter
+    drops) with -c: the PAF is byte-equal to the JAX CLI's on its host
+    kernels."""
+    from winnowmap_tpu.cli import main as jax_main
+    from winnowmap_tpu_torch.cli import main as port_main
+
+    monkeypatch.setenv("WM_NO_TPU", "1")
+    argv = ["-c", "-W", str(GOLD / "t_rep_k15.txt"), "--no-end-flt",
+            str(GOLD / "t_ref.fa"), str(reads_fa)]
+    got = _out(port_main, argv, device="cpu")
+    assert got == _out(jax_main, argv)
+    assert len(got.splitlines()) >= N_READS
+
+
 @pytest.mark.parametrize("argv", [
     ["-d", "idx.wmi"], ["-I", "100k"], ["--frag", "yes"], ["-x", "sr"],
     ["-F", "800"], ["--print-seeds"], ["--split-prefix", "tmp"],

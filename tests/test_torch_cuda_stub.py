@@ -139,6 +139,104 @@ def test_chain_source_matches_plain(chain_sketch_libs, is_cdna, max_skip):
     assert torch.equal(out, want)
 
 
+def _colinear(rng, n, step):
+    """(ax, ay) of one colinear run of n anchors, `step` apart with 0-2 of
+    jitter, q_span 15."""
+    x = (1 << 20) + np.arange(n) * step + rng.integers(0, 3, n)
+    y = 1000 + np.arange(n) * step + rng.integers(0, 3, n)
+    span = np.full(n, 15, np.uint64)
+    ax = (np.uint64(1) << np.uint64(32)) | x.astype(np.uint64)
+    ay = (span << np.uint64(32)) | y.astype(np.uint64)
+    o = np.argsort(ax, kind="stable")
+    return ax[o], ay[o]
+
+
+@pytest.mark.parametrize("case", ["gapped", "gapped-long", "gapped-near",
+                                  "walk"])
+def test_chain_source_past_the_ring_matches_plain(chain_sketch_libs, case):
+    """C1 where windows reach past its shared-memory ring (RING_REACH
+    predecessors), under asm5's stage-2 gaps: "gapped", chain.check's
+    gapped_set, whose walk across 1,100 noise anchors takes a predecessor
+    and breaks on marks outside the ring (x, y, f, pre, v and the marks
+    read from global memory), beside a short run; "gapped-long", its C1
+    of 150 anchors behind 1,099 noise anchors at max_skip 103, the largest
+    whose walk breaks in C1 (after marks carried over three steps of 64,
+    a marked anchor on the steps' boundary): one mark too few reaches C0;
+    "gapped-near", the same with no noise, at max_skip 96: A's walk starts
+    in C1, its second predecessor marked by the first, and breaks one
+    mark short of C0; "walk", a colinear run of 1,400 anchors 5 apart at
+    a max_skip no walk reaches, so every anchor scans its whole window, up
+    to 1,399 back, marking through both routes.  f, pre and v equal the
+    plain version's."""
+    from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.chain.check import gapped_set
+
+    rng = np.random.default_rng(41)
+    if case == "gapped":
+        jobs, max_skip = [gapped_set(rng), _colinear(rng, 50, 7)], 25
+    elif case == "gapped-long":
+        jobs, max_skip = [gapped_set(rng, 1099, 150)], 103
+    elif case == "gapped-near":
+        jobs, max_skip = [gapped_set(np.random.default_rng(42), 0, 150)], 96
+    else:
+        jobs, max_skip = [_colinear(rng, 1400, 5)], 1 << 20
+    cj = CD.chain_jobs(jobs, 16000, 1000, 5000, "cpu")
+    local = torch.arange(cj.x.numel()) - torch.repeat_interleave(
+        cj.off[:-1], cj.off.diff())
+    if case != "gapped-near":
+        assert int((local - cj.st).max()) > CD.RING_REACH
+    p = (16000, 16000, 2000, max_skip, 0, 1.0)
+    want = CD.chain_fwd_plain(cj, *p)
+    if case in ("gapped", "gapped-long"):  # a predecessor past the ring
+        assert int((local - want[1])[want[1] >= 0].max()) > CD.RING_REACH
+    out = torch.full_like(want, 7)
+    assert CD.chain_launch(chain_sketch_libs["chain"], cj, *p, out,
+                           None) == 0
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
+def test_chain_source_short_chains_any_schedule(chain_sketch_libs, seed):
+    """C1 on chain.check's short_sets (1-12 anchors, and lengths that are
+    not multiples of 8), where a chain ends inside the walking warp's wait
+    for the producer warps' next anchors, under asm5's stage-2 gaps: with
+    the stub's fibers in their default order (seed 0) and in five random
+    orders, so that either producer may lag the other (a read of a slot not
+    yet scored sees the stub's 0xA5 fill).  f, pre and v equal the plain
+    version's, and each set chained to the end equals native.chain_dp."""
+    import ctypes
+
+    from winnowmap_tpu_torch import native
+    from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.chain.check import short_sets
+
+    p = dict(max_dist_x=16000, min_dist_x=1000, max_dist_y=16000, bw=2000,
+             max_skip=25, max_iter=5000, min_cnt=3, min_sc=40,
+             gap_scale=1.0, is_cdna=0)
+    jobs = short_sets(np.random.default_rng(50 + seed))
+    cj = CD.chain_jobs(jobs, p["max_dist_x"], p["min_dist_x"],
+                       p["max_iter"], "cpu")
+    args = (p["max_dist_x"], p["max_dist_y"], p["bw"], p["max_skip"],
+            p["is_cdna"], p["gap_scale"])
+    want = CD.chain_fwd_plain(cj, *args)
+    out = torch.full_like(want, 7)
+    lib = chain_sketch_libs["chain"]
+    lib.cuda_stub_schedule.argtypes = [ctypes.c_ulonglong]
+    lib.cuda_stub_schedule(seed)
+    try:
+        assert CD.chain_launch(lib, cj, *args, out, None) == 0
+    finally:
+        lib.cuda_stub_schedule(0)
+    assert torch.equal(out, want)
+    off = cj.off.tolist()
+    for b, (ax, ay) in enumerate(jobs):
+        f, pre, v = out[:, off[b]:off[b + 1]].numpy()
+        got = native.chain_finish(f, pre, v, p["min_cnt"], p["min_sc"], ax,
+                                  ay)
+        assert all(np.array_equal(x, y) for x, y in zip(
+            native.chain_dp(ax, ay, n_segs=1, **p), got))
+
+
 @pytest.mark.parametrize("k", [15, 28])
 def test_sketch_source_matches_plain(chain_sketch_libs, k):
     """S1 on 700 codes with ambiguous bases (three blocks, the last
@@ -183,7 +281,7 @@ def test_kcount_source_matches_plain(chain_sketch_libs, k, n, direction):
     from winnowmap_tpu_torch.kcount import device as KD
 
     codes = torch.from_numpy(_kc_codes(np.random.default_rng(k), n, k))
-    bufs = KD.kc_buffers(n - k + 1, "cpu")
+    bufs = KD.kc_buffers(n - k + 1, "cpu", k)
     assert KD.kcount_launch(chain_sketch_libs["kcount"], codes, k,
                             direction, bufs, None) == 0
     km, ct = KD.count_block_plain(codes, k, direction)
@@ -191,3 +289,41 @@ def test_kcount_source_matches_plain(chain_sketch_libs, k, n, direction):
     assert n_seg == len(km) > 0 and n_live == int(ct.sum())
     assert torch.equal(bufs["uniq"][:n_seg], km)
     assert torch.equal(bufs["counts"][:n_seg], ct)
+
+
+def _kc_tiles_codes(rng, n):
+    """n codes with N runs and a poly-G run of 9,000 codes from 10,000,
+    whose one k-mer's run of sorted keys spans whole tiles of 4096: tiles
+    of the run-length encode with no run start."""
+    c = rng.integers(0, 4, n).astype(np.uint8)
+    for at in rng.integers(0, n - 200, 12):
+        c[at:at + int(rng.integers(1, 200))] = 255
+    c[10_000:19_000] = 3
+    return c
+
+
+@pytest.mark.parametrize("k", [15, 19], ids=["u32", "u64"])
+@pytest.mark.parametrize("direction", ["canonical", "forward", "reverse"])
+def test_kcount_source_lookbacks_across_tiles(chain_sketch_libs, k,
+                                              direction):
+    """KC on 40,000 codes: ten tiles of 4096 keys, so every pass's
+    look-backs chain across tiles; k = 15 sorts u32 keys in four passes
+    of 8 bits, k = 19 u64 keys in five.  The results equal the plain
+    version's; a scratch table one word short is refused."""
+    from winnowmap_tpu_torch.kcount import device as KD
+
+    n = 40_000
+    codes = torch.from_numpy(_kc_tiles_codes(np.random.default_rng(k), n))
+    assert -(-(n - k + 1) // KD.KC_TILE) >= 8
+    bufs = KD.kc_buffers(n - k + 1, "cpu", k)
+    short = dict(bufs, tab=bufs["tab"][:-1])
+    assert KD.kcount_launch(chain_sketch_libs["kcount"], codes, k,
+                            direction, short, None) != 0
+    assert KD.kcount_launch(chain_sketch_libs["kcount"], codes, k,
+                            direction, bufs, None) == 0
+    km, ct = KD.count_block_plain(codes, k, direction)
+    n_live, n_seg = bufs["scal"].tolist()
+    assert n_seg == len(km) and n_live == int(ct.sum())
+    assert torch.equal(bufs["uniq"][:n_seg], km)
+    assert torch.equal(bufs["counts"][:n_seg], ct)
+    assert int(ct.max()) > 2 * KD.KC_TILE  # the poly-G run

@@ -808,6 +808,80 @@ def test_chain_kernel_matches_plain(cuda, case):
         assert all(np.array_equal(a, b) for a, b in zip(want, got))
 
 
+# asm5's stage-2 chain parameters (max gap 16000, bw 2000)
+CHAIN_P2 = dict(CHAIN_P, max_dist_x=16000, max_dist_y=16000, bw=2000)
+
+
+@pytest.mark.parametrize("case", ["wide", "gapped", "gapped-long"])
+def test_chain_kernel_stage2_past_the_ring(cuda, case):
+    """C1 == its plain version and, chained to the end, == native.chain_dp
+    under stage-2 parameters on chain.check's sets whose walks leave C1's
+    shared-memory ring: chain_sets' repeat cluster of 9,000 anchors
+    (windows past 8192), gapped_set (a predecessor taken and marks read
+    past RING_REACH) and its long form at max_skip 103 (the walk breaks
+    one mark short of a better predecessor, after three steps of 64)."""
+    from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.chain.check import chain_sets, gapped_set
+
+    p = CHAIN_P2
+    if case == "gapped-long":
+        jobs = [gapped_set(np.random.default_rng(41), 1099, 150)]
+        p = dict(CHAIN_P2, max_skip=103)
+    else:
+        jobs = [chain_sets()[-2 if case == "wide" else -1]]
+    cj = CD.chain_jobs(jobs, p["max_dist_x"], p["min_dist_x"],
+                       p["max_iter"], cuda)
+    local = (torch.arange(cj.x.numel(), device=cuda)
+             - torch.repeat_interleave(cj.off[:-1], cj.off.diff()))
+    assert int((local - cj.st).max()) > (8192 if case == "wide"
+                                         else CD.RING_REACH)
+    args = (p["max_dist_x"], p["max_dist_y"], p["bw"], p["max_skip"],
+            p["is_cdna"], float(np.float32(p["gap_scale"])))
+    kern = CD.chain_fwd(cj, *args)
+    plain = CD.chain_fwd_plain(cj, *args)
+    assert torch.equal(kern, plain)
+    if case != "wide":
+        has = plain[1] >= 0
+        assert int((local - plain[1])[has].max()) > CD.RING_REACH
+    res = CD.chain_dp_device_batch(
+        jobs, p["max_dist_x"], p["min_dist_x"], p["max_dist_y"], p["bw"],
+        p["max_skip"], p["max_iter"], p["min_cnt"], p["min_sc"],
+        p["gap_scale"], p["is_cdna"], cuda)
+    for (ax, ay), got in zip(jobs, res):
+        want = native.chain_dp(ax, ay, n_segs=1, **p)
+        assert all(np.array_equal(a, b) for a, b in zip(want, got))
+
+
+@pytest.mark.parametrize("case", ["stage 2", "skip1"])
+def test_chain_kernel_short_chains(cuda, case):
+    """C1 on chain.check's short_sets (1-12 anchors, and lengths that are
+    not multiples of 8), where a chain ends inside the walking warp's wait
+    for the producer warps' next anchors: 200 launches of the same jobs,
+    each == the plain version (a read of an anchor the producers have not
+    scored yet shows only under some timings), under stage-2 parameters
+    and at max_skip 1; and each set chained to the end ==
+    native.chain_dp."""
+    from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.chain.check import short_sets
+
+    p = CHAIN_P2 if case == "stage 2" else dict(CHAIN_P2, max_skip=1)
+    jobs = short_sets(np.random.default_rng(len(case)))
+    cj = CD.chain_jobs(jobs, p["max_dist_x"], p["min_dist_x"],
+                       p["max_iter"], cuda)
+    args = (p["max_dist_x"], p["max_dist_y"], p["bw"], p["max_skip"],
+            p["is_cdna"], float(np.float32(p["gap_scale"])))
+    plain = CD.chain_fwd_plain(cj, *args)
+    runs = [CD.chain_fwd(cj, *args) for _ in range(200)]
+    assert all(torch.equal(r, plain) for r in runs)
+    res = CD.chain_dp_device_batch(
+        jobs, p["max_dist_x"], p["min_dist_x"], p["max_dist_y"], p["bw"],
+        p["max_skip"], p["max_iter"], p["min_cnt"], p["min_sc"],
+        p["gap_scale"], p["is_cdna"], cuda)
+    for (ax, ay), got in zip(jobs, res):
+        want = native.chain_dp(ax, ay, n_segs=1, **p)
+        assert all(np.array_equal(a, b) for a, b in zip(want, got))
+
+
 @pytest.mark.parametrize("k", [1, 15, 19, 28])
 def test_sketch_kernel_matches_plain(cuda, k):
     """S1 == its plain version on 200,000 codes with ambiguous bases (a
@@ -911,6 +985,24 @@ def test_kcount_kernel_matches_plain(cuda, k, direction):
         assert KD.LAUNCHES["kcount"] == n0 + 1
         pk, pc = KD.count_block_plain(t, k, direction)
         assert torch.equal(km, pk) and torch.equal(ct, pc)
+
+
+@pytest.mark.parametrize("k", [15, 19], ids=["u32", "u64"])
+def test_kcount_kernel_full_block_matches_plain(cuda, k):
+    """KC == its plain version on a full block of BLOCK (4 Mi) codes with N
+    runs and a poly-G stretch (1,024 tiles: long look-back chains on the
+    card), u32 keys at k = 15 and u64 at k = 19, canonical."""
+    from winnowmap_tpu_torch.kcount import device as KD
+
+    rng = np.random.default_rng(4 + k)
+    codes = rng.integers(0, 4, KD.BLOCK).astype(np.uint8)
+    for at in rng.integers(0, KD.BLOCK - 200, 40):
+        codes[at:at + int(rng.integers(1, 200))] = 255
+    codes[1 << 20:(1 << 20) + 20_000] = 3
+    t = torch.from_numpy(codes).to(cuda)
+    km, ct = KD.count_block(t, k)
+    pk, pc = KD.count_block_plain(t, k)
+    assert torch.equal(km, pk) and torch.equal(ct, pc)
 
 
 def test_count_kmers_on_card_matches_host(cuda, monkeypatch):

@@ -10,8 +10,9 @@ exactly.
 
 The forward pass has
   * a wrapper, chain_fwd, that launches C1 (csrc/chain.cu, one warp per
-    job) for CUDA tensors and counts the launch in LAUNCHES, and uses the
-    plain version only for tensors on the CPU;
+    job, its last 1024 anchors in a shared-memory ring) for CUDA tensors
+    and counts the launch in LAUNCHES, and uses the plain version only for
+    tensors on the CPU;
   * a plain PyTorch version, chain_fwd_plain, batched over jobs of one
     size class and vectorised over each anchor's window, on any device.
 Unlike the JAX package's window cap (8192), any window width goes to the
@@ -40,6 +41,10 @@ NEG = -0x40000000
 # package's DEVICE_CHAIN_MIN_ANCHORS); the CPU default is 0, every chain on
 # the host's scalar DP
 DEVICE_CHAIN_MIN_ANCHORS = 50_000
+
+# predecessors C1 reads from its shared-memory ring (csrc/chain.cu's
+# kRing - 1); older ones it reads from global memory
+RING_REACH = 1023
 
 # kernel launches on this process; chip_smoke.py zeroes them around the
 # main path to show it went through the kernel

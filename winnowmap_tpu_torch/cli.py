@@ -40,6 +40,7 @@ from .options import (
     MM_F_LONG_CIGAR,
     MM_F_NO_DIAG,
     MM_F_NO_DUAL,
+    MM_F_NO_END_FLT,
     MM_F_NO_LJOIN,
     MM_F_NO_PRINT_2ND,
     MM_F_OUT_CG,
@@ -259,6 +260,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
             mo.max_qlen = _num(take())
         elif a == "--seed":
             mo.seed = int(take())
+        elif a == "--no-end-flt":
+            mo.flag |= MM_F_NO_END_FLT
         elif a == "--cap-sw-mem":
             mo.max_sw_mat = _num(take())
         elif a == "--version":

@@ -1,45 +1,65 @@
 // KC: the k-mers of one block of base codes, counted: encode and compact,
-// an LSD radix sort, a run-length encode.
+// a one-sweep LSD radix sort, a run-length encode.
 //
 // Replaces the device function _compiled_count_block
 // (winnowmap_tpu/kcount/device.py:28, a jax.jit pass, not Pallas).  Input:
 // n codes, 0..3 a base (meryl's A=0 C=1 T=2 G=3) and anything else an
 // invalid base.  Window i of the n - k + 1 is valid when its k codes are;
 // its key is the forward k-mer f = sum_j c[i+j] << 2(k-1-j), the reverse
-// complement r = sum_j (c[i+j] ^ 2) << 2j, or min(f, r) (canonical), in
-// u64.  Output: the valid keys' sorted unique values and their counts, and
-// how many there are (n_seg).  The JAX function marks an invalid window
-// with the all-ones key and so drops a valid all-ones k-mer (k = 32,
+// complement r = sum_j (c[i+j] ^ 2) << 2j, or min(f, r) (canonical).
+// Output: the valid keys' sorted unique values (as u64) and their counts,
+// and how many there are (n_seg).  The JAX function marks an invalid
+// window with the all-ones key and so drops a valid all-ones k-mer (k = 32,
 // poly-G forward, poly-C reverse); KC never makes such a mark and counts
 // it, as the host counter does.
 //
 // What bounds it on this card: bytes (a code read, a key written and read
 // back, a unique k-mer and its count written: ~0.04 ms at 4 Mi codes on an
 // H100 SXM's 3.35 TB/s), not operations (5k + 4 integer operations a
-// window).  The design keeps every step a stream over device memory that
-// no block waits on another for, and the result the same on every run (no
-// atomics):
-//   * the keys are sorted by LSD radix passes of 8 bits over the 2k
-//     significant bits only (k = 15: four passes), each pass three
-//     kernels: kc_hist (each tile's digit counts, into a digit x tile
-//     table), kc_scan_rows (a block per digit scans its row in place and
-//     writes the row's total) and kc_scatter (each tile ranks its keys
-//     again and writes each where the digit's base, the tile's prefix,
-//     its warp's prefix and its rank within the warp put it);
-//   * the ranks are stable: a warp takes its tile's keys 32 at a time in
-//     order; __match_any_sync gives the lanes with the same digit, the
-//     lanes below with the same digit give the rank in the round, and a
-//     per-warp, per-digit counter in shared memory the keys of that digit
-//     in the warp's earlier rounds;
-//   * the first pass encodes the windows from the codes (staged in shared
-//     memory with a k-1 halo) and so compacts the valid keys: an invalid
-//     window takes no digit;
-//   * the run-length encode is one more pass of the same kernels with one
-//     digit, a run's first key the only live one: kc_scatter writes the
-//     unique k-mer and the run's start, kc_counts the differences of the
-//     starts.
-// The number of live keys stays on the card (scal[0], written by the first
-// pass's kc_scatter), so the launches need no host round trip.
+// window).  So the design moves each key as few times as it can, in as
+// few bytes as it can, with every store coalesced:
+//   * the key is as wide as k needs: u32 for 2k <= 32 (meryl's and
+//     Winnowmap's k = 15), u64 above; one template, two instantiations;
+//   * kc_encode, the one upfront pass, reads the codes once (staged in
+//     shared memory with the k - 1 halo, each thread rolling the key over
+//     16 consecutive windows), compacts the valid windows' keys in window
+//     order, writes them once, and counts every sort pass's digits in the
+//     same read (shared-memory counters, added into the pass totals at the
+//     end of a block's tiles);
+//   * the sort takes ceil(2k / 8) passes of equal digits of at most 8 bits
+//     (k = 15: four of 8 bits, k = 19: five, k = 32: eight), one kernel
+//     each, kc_sort: a tile of 4096 keys is loaded coalesced and ranked
+//     once (stable: a warp takes its 512 keys 32 at a time in order; the
+//     lanes of one digit are grouped by a ballot a digit bit for u32 keys
+//     and by __match_any_sync for u64, whichever ran faster on the H100; a
+//     per-warp digit counter in shared memory carries the earlier rounds);
+//     the tile's place in each digit's order comes from a decoupled
+//     look-back over the previous tiles' per-digit status words (a flag
+//     and a count packed in one u32: an aggregate, or the inclusive
+//     prefix), kLook statuses a step, so a tile of the first wave, whose
+//     predecessors have published only aggregates, walks back in
+//     1 / kLook of the round trips; the keys are staged in shared memory
+//     in digit order and stored so that neighbouring threads write
+//     neighbouring addresses within a digit's bucket;
+//   * kc_rle marks each run's first key, compacts the run heads with its
+//     own look-back (a flag, the heads so far and the last head's index
+//     in one u64 word) and writes each unique k-mer and, from the run
+//     starts, the count of the run before it, so no further pass is
+//     needed.
+// A launch is a memset of the counters and totals and 2 + passes kernels
+// (k = 15: seven in all).  8-bit digits took less time than 10 or 11 bits
+// with one pass less (a tile's look-back and digit bookkeeping grow with
+// the radix).  Tile ids come from an atomic counter, so a tile waits in
+// its look-back only on tiles already running; the per-digit status rows
+// of the next pass are cleared by the pass before it.  The result is the
+// same on every run: the look-backs add exact integers, the tile counters
+// decide which block takes which tile and no value, and the digit totals
+// are integer atomic sums, the same in any order.
+//
+// Shared memory, a block of 256 threads: kc_encode 4 B x passes x 2^bits
+// of counters, 4096 keys and 4096 + 32 codes (k = 15: 24 KiB; k = 32:
+// 44 KiB); kc_sort max(8 warps x 2^bits u16 counters, 4096 keys) + 8 B x
+// 2^bits of digit offsets (k = 15: 18 KiB; k = 32: 34 KiB).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -49,38 +69,74 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRounds = 16;                  // rounds of 32 keys a warp
 constexpr int kWarpItems = 32 * kRounds;     // 512
-constexpr int kTile = kWarps * kWarpItems;   // 4096 windows a block
-constexpr int kDigitBits = 8;
-constexpr int kRadix = 1 << kDigitBits;      // == kThreads: a digit a thread
+constexpr int kTile = kWarps * kWarpItems;   // 4096 keys a tile
+constexpr int kEncItems = kTile / kThreads;  // 16 windows a thread
+constexpr int kMaxBits = 8;
+constexpr int kLook = 8;                     // statuses a look-back step
 constexpr int kMaxK = 32;
+constexpr int kCtrWords = 16;
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kRadix == kThreads, "a thread per digit");
+// a look-back status word: flag in the top two bits, a count below
+constexpr uint32_t kAgg = 1u << 30, kIncl = 2u << 30, kVal = kAgg - 1;
+constexpr unsigned long long kAgg64 = 1ull << 62, kIncl64 = 2ull << 62;
+constexpr unsigned long long kMask31 = (1ull << 31) - 1;
 
-// where a pass takes its keys from
-enum Src { kCodes = 0, kKeys = 1, kBounds = 2 };
 enum Dir { kCanonical = 0, kForward = 1, kReverse = 2 };
 
-struct KcIn {
-  const uint8_t* codes;   // kCodes: the block's codes
-  const uint64_t* keys;   // kKeys, kBounds: the previous pass's keys
-  int64_t n_win;          // windows
-  const uint32_t* n_live; // kKeys, kBounds: live keys (scal[0])
-  int k, dir;
+// Digits and scratch of a launch: counters (kCtrWords u32), the passes'
+// digit totals (passes x radix u32), kc_encode's tile statuses (tiles u32;
+// everything so far is zeroed before kc_encode), kc_rle's tile statuses
+// (tiles u64), two rows of kc_sort's per-digit statuses (2 x tiles x
+// radix u32).  Mirrored by kcount/device.py (kc_scratch_words).
+struct Plan {
+  int passes, bits, radix;
+  int64_t tiles;
+  int64_t hist, enc_st, rle_st, sort_st, words;  // offsets in u32 words
 };
 
-// window `s` (its k codes from s[0]) as a key; false when a code is invalid
-__device__ __forceinline__ bool encode(const uint8_t* s, int k, int dir,
-                                       uint64_t& key) {
-  uint64_t f = 0, r = 0;
-  bool ok = true;
-  for (int j = 0; j < k; ++j) {
-    const unsigned c = s[j];
-    ok = ok && c <= 3;
-    f = (f << 2) | (c & 3);
-    r |= (uint64_t)((c & 3) ^ 2) << (2 * j);
+Plan plan(int64_t n_win, int k) {
+  Plan p;
+  p.passes = (2 * k + kMaxBits - 1) / kMaxBits;
+  p.bits = (2 * k + p.passes - 1) / p.passes;
+  p.radix = 1 << p.bits;
+  p.tiles = (n_win + kTile - 1) / kTile;
+  p.hist = kCtrWords;
+  p.enc_st = p.hist + (int64_t)p.passes * p.radix;
+  p.rle_st = p.enc_st + p.tiles;
+  p.rle_st += p.rle_st & 1;
+  p.sort_st = p.rle_st + 2 * p.tiles;
+  p.words = p.sort_st + 2 * p.tiles * p.radix;
+  return p;
+}
+
+__device__ __forceinline__ void store_status(uint32_t* p, uint32_t v) {
+  *(volatile uint32_t*)p = v;
+}
+__device__ __forceinline__ uint32_t load_status(const uint32_t* p) {
+  return *(const volatile uint32_t*)p;
+}
+
+// The exclusive prefix of the tile before `tile` from statuses st[j *
+// stride] (j < tile), published as aggregates or inclusive prefixes: kLook
+// statuses loaded at once a step, so a walk over tiles that have only
+// published their aggregates takes 1 / kLook of the round trips.
+__device__ __forceinline__ uint32_t look_back(const uint32_t* st,
+                                              int64_t tile, int64_t stride) {
+  uint32_t sum = 0;
+  for (int64_t j = tile - 1;;) {
+    uint32_t s[kLook];
+#pragma unroll
+    for (int w = 0; w < kLook; ++w)
+      s[w] = j - w >= 0 ? load_status(st + (j - w) * stride) : kIncl;
+    int w = 0;
+#pragma unroll
+    for (; w < kLook; ++w) {
+      if (s[w] < kAgg) break;  // not published yet: poll again from it
+      sum += s[w] & kVal;
+      if (s[w] >= kIncl) return sum;
+    }
+    j -= w;
   }
-  key = dir == kForward ? f : dir == kReverse ? r : (f < r ? f : r);
-  return ok;
 }
 
 // inclusive prefix sum of v over the block; total gets the block's sum
@@ -104,235 +160,407 @@ __device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* ws,
   return v + before;
 }
 
-// The tile's codes and the k - 1 after them (invalid past n) into cs.
-__device__ __forceinline__ void stage_codes(const KcIn& in, int64_t first,
-                                            uint8_t* cs) {
-  const int64_t n = in.n_win + in.k - 1;
-  for (int s = threadIdx.x; s < kTile + in.k - 1; s += kThreads) {
-    const int64_t p = first + s;
-    cs[s] = p < n ? in.codes[p] : 255;
+// The lanes whose digit d (bits wide, or d == 2^bits for a dead lane)
+// equals this lane's: a ballot a bit.  Faster than __match_any_sync for u32
+// keys on the H100, not for u64 (the registers of 16 u64 keys).
+__device__ __forceinline__ unsigned match_bits(uint32_t d, int bits) {
+  unsigned m = kFull;
+  for (int b = 0; b <= bits; ++b) {
+    const unsigned v = __ballot_sync(kFull, d >> b & 1);
+    m &= (d >> b & 1) ? v : ~v;
+  }
+  return m;
+}
+
+// The tile id of this block from the counter at *ctr (block-uniform).
+__device__ __forceinline__ int64_t next_tile(uint32_t* ctr, uint32_t* s) {
+  if (threadIdx.x == 0) *s = atomicAdd(ctr, 1u);
+  __syncthreads();
+  const int64_t t = *s;
+  __syncthreads();  // *s is written again by the next call
+  return t;
+}
+
+// Upfront pass: blocks take tiles of kTile windows until none is left.  A
+// tile's valid keys go to keys[base ...) in window order, base being the
+// valid windows of the tiles before it (look-back over enc_st); every
+// pass's digits are counted into hist.  The last tile writes scal[0] (the
+// valid windows) and scal[1] = 0 (kc_rle writes n_seg); the blocks also
+// clear `clear_words` words at `clear` (kc_rle's statuses and the first
+// sort pass's status row).
+template <typename KeyT>
+__global__ void __launch_bounds__(kThreads)
+    kc_encode(const uint8_t* __restrict__ codes, int64_t n_win, int k,
+              int dir, int passes, int bits, int64_t tiles,
+              uint32_t* __restrict__ ctr, uint32_t* __restrict__ hist,
+              uint32_t* __restrict__ enc_st, uint32_t* __restrict__ clear,
+              int64_t clear_words, KeyT* __restrict__ keys,
+              uint32_t* __restrict__ scal) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ uint32_t ws[kWarps];
+  __shared__ uint32_t s_tile, s_base;
+  const int t = threadIdx.x;
+  const int radix = 1 << bits;
+  uint32_t* sh = (uint32_t*)smem;  // passes x radix digit counters
+  KeyT* stage = (KeyT*)(sh + passes * radix);
+  uint8_t* cs = (uint8_t*)(stage + kTile);
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + t; i < clear_words;
+       i += (int64_t)gridDim.x * kThreads)
+    clear[i] = 0;
+  for (int i = t; i < passes * radix; i += kThreads) sh[i] = 0;
+  const KeyT mask = 2 * k >= 8 * (int)sizeof(KeyT)
+                        ? ~(KeyT)0
+                        : (((KeyT)1 << (2 * k)) - 1);
+  const int top = 2 * (k - 1);
+  for (;;) {
+    const int64_t tile = next_tile(ctr, &s_tile);
+    if (tile >= tiles) break;
+    const int64_t first = tile * kTile;
+    const int64_t n = n_win + k - 1;
+    for (int s = t; s < kTile + k - 1; s += kThreads) {
+      const int64_t p = first + s;
+      cs[s] = p < n ? codes[p] : 255;
+    }
+    __syncthreads();
+    // the thread's windows first + w0 .. + kEncItems - 1, rolled
+    const int w0 = t * kEncItems;
+    KeyT f = 0, r = 0;
+    int run = 0;
+    for (int j = 0; j < k - 1; ++j) {
+      const unsigned c = cs[w0 + j];
+      run = c <= 3 ? run + 1 : 0;
+      f = ((f << 2) | (c & 3)) & mask;
+      r = (r >> 2) | ((KeyT)((c & 3) ^ 2) << top);
+    }
+    KeyT key[kEncItems];
+    uint32_t valid = 0;
+#pragma unroll
+    for (int j = 0; j < kEncItems; ++j) {
+      const unsigned c = cs[w0 + j + k - 1];
+      run = c <= 3 ? run + 1 : 0;
+      f = ((f << 2) | (c & 3)) & mask;
+      r = (r >> 2) | ((KeyT)((c & 3) ^ 2) << top);
+      key[j] = dir == kForward ? f : dir == kReverse ? r : (f < r ? f : r);
+      if (run >= k && first + w0 + j < n_win) valid |= 1u << j;
+    }
+    const uint32_t nv = __popc(valid);
+    uint32_t tot;
+    uint32_t o = block_scan(nv, ws, tot) - nv;
+    if (t == 0) {
+      uint32_t before = 0;
+      if (tile == 0) {
+        store_status(enc_st, kIncl | tot);
+      } else {
+        store_status(enc_st + tile, kAgg | tot);
+        before = look_back(enc_st, tile, 1);
+        store_status(enc_st + tile, kIncl | (before + tot));
+      }
+      s_base = before;
+    }
+#pragma unroll
+    for (int j = 0; j < kEncItems; ++j) {
+      if (!(valid >> j & 1)) continue;
+      stage[o++] = key[j];
+      for (int p = 0; p < passes; ++p)
+        atomicAdd(&sh[p * radix + (int)((key[j] >> (p * bits)) & (radix - 1))],
+                  1u);
+    }
+    __syncthreads();
+    const uint32_t base = s_base;
+    for (uint32_t i = t; i < tot; i += kThreads) keys[base + i] = stage[i];
+    if (tile == tiles - 1 && t == 0) {
+      scal[0] = base + tot;
+      scal[1] = 0;
+    }
+    __syncthreads();  // cs, stage and s_base are written again
+  }
+  for (int i = t; i < passes * radix; i += kThreads)
+    if (sh[i] != 0) atomicAdd(&hist[i], sh[i]);
+}
+
+// One sort pass: the tile's live keys of `in` (scal[0] of them in all) to
+// `out` in the order of their digit (in >> shift) & (2^bits - 1), stably.
+// hist: this pass's digit totals; st: its per-digit status row (tiles x
+// radix), next: the next pass's, cleared here for this tile.
+template <typename KeyT>
+__global__ void __launch_bounds__(kThreads)
+    kc_sort(const KeyT* __restrict__ in, KeyT* __restrict__ out,
+            const uint32_t* __restrict__ scal, int shift, int bits,
+            const uint32_t* __restrict__ hist, uint32_t* __restrict__ ctr,
+            uint32_t* __restrict__ st, uint32_t* __restrict__ next) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ uint32_t ws[kWarps];
+  __shared__ uint32_t s_tile;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int radix = 1 << bits;
+  const uint32_t dmask = radix - 1;
+  const int region = kWarps * radix * 2 > kTile * (int)sizeof(KeyT)
+                         ? kWarps * radix * 2
+                         : kTile * (int)sizeof(KeyT);
+  uint16_t* cnt = (uint16_t*)smem;  // [warp][digit], then the stage
+  KeyT* stage = (KeyT*)smem;
+  uint32_t* lstart = (uint32_t*)(smem + region);  // the tile's digit starts
+  int32_t* off = (int32_t*)(lstart + radix);      // out index - stage index
+  const int64_t tile = next_tile(ctr, &s_tile);
+  for (int d = t; d < radix; d += kThreads) next[tile * radix + d] = 0;
+  const int64_t n_live = scal[0];
+  const int64_t first = tile * kTile;
+  if (first >= n_live) return;  // the whole block
+  for (int i = t; i < kWarps * radix / 2; i += kThreads)
+    ((uint32_t*)cnt)[i] = 0;
+  __syncthreads();
+  // rank: digit << 16 | the key's rank among its warp's keys of the digit
+  const unsigned below = (1u << lane) - 1;
+  KeyT key[kRounds];
+  uint32_t dr[kRounds];
+  uint16_t* mine = cnt + w * radix;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int64_t i = first + w * kWarpItems + r * 32 + lane;
+    const bool live = i < n_live;
+    const KeyT x = live ? in[i] : 0;
+    const uint32_t d = live ? (uint32_t)(x >> shift) & dmask : radix;
+    const unsigned peers = sizeof(KeyT) == 4 ? match_bits(d, bits)
+                                             : __match_any_sync(kFull, d);
+    const int leader = 31 - __clz((int)peers);
+    uint32_t seen = 0;
+    if (live && lane == leader) {
+      seen = mine[d];
+      mine[d] = (uint16_t)(seen + __popc(peers));
+    }
+    seen = __shfl_sync(kFull, seen, leader);
+    __syncwarp();
+    key[r] = x;
+    dr[r] = d << 16 | (seen + __popc(peers & below));
+  }
+  __syncthreads();
+  // each thread's digits: the warps' exclusive prefixes in place, the
+  // tile's count of each, published; then the look-back
+  const int dpt = (radix + kThreads - 1) / kThreads;
+  const int d0 = t * dpt;
+  uint32_t csum = 0, hsum = 0;
+  for (int q = 0; q < dpt && d0 + q < radix; ++q) {
+    const int d = d0 + q;
+    uint32_t run = 0;
+    for (int v = 0; v < kWarps; ++v) {
+      const uint32_t c = cnt[v * radix + d];
+      cnt[v * radix + d] = (uint16_t)run;
+      run += c;
+    }
+    store_status(st + tile * radix + d, (tile == 0 ? kIncl : kAgg) | run);
+    lstart[d] = run;  // the count until the scan below
+    csum += run;
+    hsum += hist[d];
+  }
+  uint32_t c_all, h_all;
+  uint32_t cpre = block_scan(csum, ws, c_all) - csum;
+  uint32_t hpre = block_scan(hsum, ws, h_all) - hsum;
+  for (int q = 0; q < dpt && d0 + q < radix; ++q) {
+    const int d = d0 + q;
+    const uint32_t c = lstart[d];
+    uint32_t before = 0;
+    if (tile > 0) {
+      before = look_back(st + d, tile, radix);
+      store_status(st + tile * radix + d, kIncl | (before + c));
+    }
+    lstart[d] = cpre;
+    off[d] = (int32_t)(hpre + before) - (int32_t)cpre;
+    cpre += c;
+    hpre += hist[d];
+  }
+  __syncthreads();
+  uint32_t lpos[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const uint32_t d = dr[r] >> 16;
+    lpos[r] = d == (uint32_t)radix
+                  ? kTile
+                  : lstart[d] + cnt[w * radix + d] + (dr[r] & 0xffff);
+  }
+  __syncthreads();  // the counters become the stage
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r)
+    if (lpos[r] < kTile) stage[lpos[r]] = key[r];
+  __syncthreads();
+  const int n_tile = n_live - first < kTile ? (int)(n_live - first) : kTile;
+  for (int i = t; i < n_tile; i += kThreads) {
+    const KeyT x = stage[i];
+    out[off[(uint32_t)(x >> shift) & dmask] + i] = x;
   }
 }
 
-// Each of the thread's kRounds keys of the tile from `first`: the key, its
-// digit (kRadix when the key is not live) and its rank among the keys of
-// that digit before it in its warp; cnt[w][d] ends as warp w's count of
-// digit d.
-template <int S>
-__device__ __forceinline__ void rank_tile(const KcIn& in, int64_t first,
-                                          int64_t n_live, int shift,
-                                          const uint8_t* cs,
-                                          uint32_t (*cnt)[kRadix],
-                                          uint64_t (&key)[kRounds],
-                                          unsigned (&dig)[kRounds],
-                                          unsigned (&rank)[kRounds]) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int d = threadIdx.x; d < kWarps * kRadix; d += kThreads)
-    cnt[d / kRadix][d % kRadix] = 0;
+// The run-length encode of the scal[0] sorted keys s: each run's first key
+// to uniq[j] and the run's length to counts[j], j the run's order; scal[1]
+// = the number of runs.  st: the tiles' statuses, flag << 62 | heads << 31
+// | (last head's index + 1, 0 for none).
+template <typename KeyT>
+__global__ void __launch_bounds__(kThreads)
+    kc_rle(const KeyT* __restrict__ s, uint32_t* __restrict__ scal,
+           uint32_t* __restrict__ ctr, unsigned long long* __restrict__ st,
+           uint64_t* __restrict__ uniq, int64_t* __restrict__ counts) {
+  __shared__ uint32_t w_cnt[kWarps], w_last[kWarps];
+  __shared__ uint32_t s_tile, s_cnt, s_last;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int64_t tile = next_tile(ctr, &s_tile);
+  const int64_t n_live = scal[0];
+  const int64_t first = tile * kTile;
+  if (first >= n_live) return;
+  const int64_t wbase = first + w * kWarpItems;
+  KeyT key[kRounds];
+  uint32_t hb[kRounds];
+  uint32_t cnt = 0, last = 0;  // the warp's heads, its last head + 1
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int64_t i = wbase + r * 32 + lane;
+    const bool live = i < n_live;
+    const KeyT x = live ? s[i] : 0;
+    const bool head = live && (i == 0 || s[i - 1] != x);
+    const uint32_t b = __ballot_sync(kFull, head);
+    key[r] = x;
+    hb[r] = b;
+    if (b) {
+      cnt += __popc(b);
+      last = (uint32_t)(wbase + r * 32 + 31 - __clz((int)b)) + 1;
+    }
+  }
+  if (lane == 0) {
+    w_cnt[w] = cnt;
+    w_last[w] = last;
+  }
   __syncthreads();
+  if (t == 0) {
+    uint32_t tc = 0, tl = 0;
+    for (int v = 0; v < kWarps; ++v) {
+      tc += w_cnt[v];
+      if (w_last[v]) tl = w_last[v];
+    }
+    unsigned long long* me = st + tile;
+    uint32_t bc = 0, bl = 0;  // the tiles before: heads, last head + 1
+    if (tile > 0) {
+      *(volatile unsigned long long*)me =
+          kAgg64 | (unsigned long long)tc << 31 | tl;
+      for (int64_t j = tile - 1; j >= 0;) {
+        unsigned long long v[kLook];
+#pragma unroll
+        for (int w = 0; w < kLook; ++w)
+          v[w] = j - w >= 0 ? *(const volatile unsigned long long*)(st + j - w)
+                            : kIncl64;
+        int w = 0;
+#pragma unroll
+        for (; w < kLook; ++w) {
+          if (v[w] < kAgg64) break;
+          bc += (uint32_t)(v[w] >> 31 & kMask31);
+          if (bl == 0) bl = (uint32_t)(v[w] & kMask31);
+          if (v[w] >= kIncl64) break;
+        }
+        if (w < kLook && v[w] >= kIncl64) break;
+        j -= w;
+      }
+    }
+    *(volatile unsigned long long*)me =
+        kIncl64 | (unsigned long long)(bc + tc) << 31 | (tl ? tl : bl);
+    s_cnt = bc;
+    s_last = bl;
+  }
+  __syncthreads();
+  uint32_t c = s_cnt, l = s_last;
+  for (int v = 0; v < w; ++v) {
+    c += w_cnt[v];
+    if (w_last[v]) l = w_last[v];
+  }
   const unsigned below = (1u << lane) - 1;
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    const int local = w * kWarpItems + r * 32 + lane;
-    const int64_t i = first + local;
-    uint64_t x = 0;
-    bool live;
-    if constexpr (S == kCodes) {
-      live = encode(cs + local, in.k, in.dir, x) && i < in.n_win;
-    } else {
-      live = i < n_live;
-      if (live) x = in.keys[i];
-      // a run of equal keys: its first key is the one live
-      if constexpr (S == kBounds)
-        live = live && (i == 0 || in.keys[i - 1] != x);
+    const uint32_t b = hb[r];
+    const int64_t i = wbase + r * 32 + lane;
+    const uint32_t rbase = (uint32_t)(wbase + r * 32);
+    const uint32_t eb = b & below;  // the heads before this lane
+    const uint32_t prev = eb ? rbase + 31 - __clz((int)eb) + 1 : l;
+    if (b >> lane & 1) {
+      const uint32_t pos = c + __popc(eb);
+      uniq[pos] = (uint64_t)key[r];
+      if (pos > 0) counts[pos - 1] = i - (prev - 1);
     }
-    const unsigned d =
-        !live ? kRadix
-              : S == kBounds ? 0u : (unsigned)(x >> shift) & (kRadix - 1);
-    const unsigned peers = __match_any_sync(kFull, d);
-    const uint32_t seen = live ? cnt[w][d] : 0;
-    __syncwarp();
-    if (live && (peers & below) == 0) cnt[w][d] = seen + __popc(peers);
-    __syncwarp();
-    key[r] = x;
-    dig[r] = d;
-    rank[r] = seen + __popc(peers & below);
-  }
-  __syncthreads();
-}
-
-// Pass of kind S, step 1: tab[d * tiles + tile] = the tile's count of digit
-// d, for d < n_digits.
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-    kc_hist(KcIn in, int shift, int n_digits, uint32_t* __restrict__ tab) {
-  __shared__ uint8_t cs[kTile + kMaxK];
-  __shared__ uint32_t cnt[kWarps][kRadix];
-  const int64_t first = (int64_t)blockIdx.x * kTile;
-  const int64_t n_live = S == kCodes ? in.n_win : (int64_t)*in.n_live;
-  const int d = threadIdx.x;
-  if (S != kCodes && first >= n_live) {  // the whole block: no key
-    if (d < n_digits) tab[(int64_t)d * gridDim.x + blockIdx.x] = 0;
-    return;
-  }
-  if constexpr (S == kCodes) {
-    stage_codes(in, first, cs);
-    __syncthreads();
-  }
-  uint64_t key[kRounds];
-  unsigned dig[kRounds], rank[kRounds];
-  rank_tile<S>(in, first, n_live, shift, cs, cnt, key, dig, rank);
-  if (d < n_digits) {
-    uint32_t s = 0;
-    for (int w = 0; w < kWarps; ++w) s += cnt[w][d];
-    tab[(int64_t)d * gridDim.x + blockIdx.x] = s;
+    if (i == n_live - 1) {  // the last key ends the last run
+      const uint32_t ib = b & (below | 1u << lane);
+      const uint32_t lh = ib ? rbase + 31 - __clz((int)ib) + 1 : l;
+      const uint32_t n_seg = c + __popc(ib);
+      counts[n_seg - 1] = n_live - (lh - 1);
+      scal[1] = n_seg;
+    }
+    if (b) {
+      c += __popc(b);
+      l = rbase + 31 - __clz((int)b) + 1;
+    }
   }
 }
 
-// Step 2: block d replaces row d of tab (tiles entries) by its exclusive
-// prefix sums and writes the row's total to totals[d].
-__global__ void __launch_bounds__(kThreads)
-    kc_scan_rows(uint32_t* __restrict__ tab, int64_t tiles,
-                 uint32_t* __restrict__ totals) {
-  __shared__ uint32_t ws[kWarps];
-  uint32_t* row = tab + (int64_t)blockIdx.x * tiles;
-  uint32_t carry = 0;
-  for (int64_t c0 = 0; c0 < tiles; c0 += 4 * kThreads) {
-    uint32_t v[4], s = 0;
-    for (int q = 0; q < 4; ++q) {
-      const int64_t j = c0 + 4 * threadIdx.x + q;
-      v[q] = j < tiles ? row[j] : 0;
-      s += v[q];
-    }
-    uint32_t all;
-    uint32_t run = carry + block_scan(s, ws, all) - s;
-    for (int q = 0; q < 4; ++q) {
-      const int64_t j = c0 + 4 * threadIdx.x + q;
-      if (j < tiles) row[j] = run;
-      run += v[q];
-    }
-    carry += all;
+template <typename KeyT>
+int run(const Plan& p, const uint8_t* codes, int64_t n_win, int k, int dir,
+        KeyT* keys, uint32_t* tab, uint32_t* scal, uint64_t* uniq,
+        int64_t* counts, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int enc_smem =
+      4 * p.passes * p.radix + kTile * (int)sizeof(KeyT) + kTile + kMaxK;
+  const int region = kWarps * p.radix * 2 > kTile * (int)sizeof(KeyT)
+                         ? kWarps * p.radix * 2
+                         : kTile * (int)sizeof(KeyT);
+  const int sort_smem = region + 8 * p.radix;
+  cudaFuncSetAttribute(kc_encode<KeyT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, enc_smem);
+  cudaFuncSetAttribute(kc_sort<KeyT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       sort_smem);
+  uint32_t* ctr = tab;
+  uint32_t* hist = tab + p.hist;
+  uint32_t* sort_st = tab + p.sort_st;
+  const int64_t row = p.tiles * p.radix;
+  // blocks to keep the card busy; each adds its digit counters once
+  const int64_t enc_grid = p.tiles < 2 * sms ? p.tiles : 2 * (int64_t)sms;
+  kc_encode<KeyT><<<(unsigned)enc_grid, kThreads, enc_smem, st>>>(
+      codes, n_win, k, dir, p.passes, p.bits, p.tiles, ctr, hist,
+      tab + p.enc_st, tab + p.rle_st, 2 * p.tiles + row, keys, scal);
+  KeyT* buf[2] = {keys, keys + n_win};
+  for (int q = 0; q < p.passes; ++q) {
+    kc_sort<KeyT><<<(unsigned)p.tiles, kThreads, sort_smem, st>>>(
+        buf[q & 1], buf[(q + 1) & 1], scal, q * p.bits, p.bits,
+        hist + q * p.radix, ctr + 1 + q, sort_st + (q & 1) * row,
+        sort_st + ((q + 1) & 1) * row);
   }
-  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
-}
-
-// Step 3: each live key to out_keys[position] (kBounds: also its index to
-// out_pos), the position being the sum of its digit's base (the totals of
-// the digits below), the tile's prefix in the digit's row, its warp's
-// prefix in the tile and its rank in the warp.  Block 0 writes the number
-// of live keys to *n_out when n_out is given.
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-    kc_scatter(KcIn in, int shift, int n_digits,
-               const uint32_t* __restrict__ tab,
-               const uint32_t* __restrict__ totals,
-               uint64_t* __restrict__ out_keys,
-               int64_t* __restrict__ out_pos, uint32_t* __restrict__ n_out) {
-  __shared__ uint8_t cs[kTile + kMaxK];
-  __shared__ uint32_t cnt[kWarps][kRadix];
-  __shared__ uint32_t base[kRadix];
-  __shared__ uint32_t ws[kWarps];
-  const int t = threadIdx.x;
-  const uint32_t tv = t < n_digits ? totals[t] : 0;
-  uint32_t all;
-  base[t] = block_scan(tv, ws, all) - tv;
-  if (blockIdx.x == 0 && t == 0 && n_out != nullptr) *n_out = all;
-  const int64_t first = (int64_t)blockIdx.x * kTile;
-  const int64_t n_live = S == kCodes ? in.n_win : (int64_t)*in.n_live;
-  if (S != kCodes && first >= n_live) return;  // the whole block: no key
-  if constexpr (S == kCodes) stage_codes(in, first, cs);
-  __syncthreads();
-  uint64_t key[kRounds];
-  unsigned dig[kRounds], rank[kRounds];
-  rank_tile<S>(in, first, n_live, shift, cs, cnt, key, dig, rank);
-  // thread t: digit t's exclusive prefix over the warps, and the tile's
-  // place in the digit's order
-  {
-    uint32_t run = base[t] + (t < n_digits
-                                  ? tab[(int64_t)t * gridDim.x + blockIdx.x]
-                                  : 0);
-    for (int w = 0; w < kWarps; ++w) {
-      const uint32_t c = cnt[w][t];
-      cnt[w][t] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
-  const int w = t >> 5;
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    if (dig[r] == kRadix) continue;
-    const uint32_t pos = cnt[w][dig[r]] + rank[r];
-    out_keys[pos] = key[r];
-    if constexpr (S == kBounds)
-      out_pos[pos] = first + w * kWarpItems + r * 32 + (t & 31);
-  }
-}
-
-// counts[j] = start[j + 1] - start[j] for j < n_seg, start[n_seg] being
-// the number of sorted keys.
-__global__ void __launch_bounds__(kThreads)
-    kc_counts(const int64_t* __restrict__ start,
-              const uint32_t* __restrict__ scal,
-              int64_t* __restrict__ counts) {
-  const int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const int64_t n_seg = scal[1];
-  if (j < n_seg)
-    counts[j] = (j + 1 < n_seg ? start[j + 1] : (int64_t)scal[0]) - start[j];
+  kc_rle<KeyT><<<(unsigned)p.tiles, kThreads, 0, st>>>(
+      buf[p.passes & 1], scal, ctr + 1 + p.passes,
+      (unsigned long long*)(tab + p.rle_st), uniq, counts);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // KC on n codes at k, direction 0 canonical, 1 forward, 2 reverse, on
-// stream.  Scratch: keys (2 x n_win u64), tab (256 x tiles u32, tiles =
-// ceil(n_win / 4096)), totals (256 u32).  Out: scal[0] the valid windows,
-// scal[1] n_seg, uniq[0 .. n_seg) the sorted unique k-mers, counts[0 ..
-// n_seg) their counts (int64).  Returns the CUDA error of the launches.
+// stream.  Scratch: keys (2 x n_win u64), tab (tab_bytes, at least
+// kcount/device.py's kc_scratch_words x 4: a smaller one is refused).
+// Out: scal[0] the valid windows, scal[1] n_seg, uniq[0 .. n_seg) the
+// sorted unique k-mers, counts[0 .. n_seg) their counts (int64).  Returns
+// the CUDA error of the launches.
 extern "C" int wm_kcount_launch(const void* codes, int64_t n, int k,
                                 int direction, void* keys, void* tab,
-                                void* totals, void* scal, void* uniq,
+                                int64_t tab_bytes, void* scal, void* uniq,
                                 void* counts, void* stream) {
   const int64_t n_win = n - k + 1;
   if (k <= 0 || k > kMaxK || direction < 0 || direction > 2 || n_win <= 0 ||
-      n_win >= ((int64_t)1 << 31))
+      n_win >= ((int64_t)1 << 30))
     return (int)cudaErrorInvalidValue;
+  const Plan p = plan(n_win, k);
+  if (tab_bytes < 4 * p.words) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int64_t tiles = (n_win + kTile - 1) / kTile;
-  uint64_t* buf[2] = {(uint64_t*)keys, (uint64_t*)keys + n_win};
-  uint32_t* tb = (uint32_t*)tab;
-  uint32_t* tot = (uint32_t*)totals;
-  uint32_t* sc = (uint32_t*)scal;
-  KcIn in{(const uint8_t*)codes, nullptr, n_win, sc, k, direction};
-  const int passes = (2 * k + kDigitBits - 1) / kDigitBits;
-  for (int p = 0; p < passes; ++p) {
-    const int shift = p * kDigitBits;
-    uint64_t* dst = buf[p & 1];
-    in.keys = buf[(p + 1) & 1];
-    if (p == 0) {
-      kc_hist<kCodes><<<(unsigned)tiles, kThreads, 0, st>>>(in, shift,
-                                                             kRadix, tb);
-    } else {
-      kc_hist<kKeys><<<(unsigned)tiles, kThreads, 0, st>>>(in, shift, kRadix,
-                                                            tb);
-    }
-    kc_scan_rows<<<kRadix, kThreads, 0, st>>>(tb, tiles, tot);
-    if (p == 0) {
-      kc_scatter<kCodes><<<(unsigned)tiles, kThreads, 0, st>>>(
-          in, shift, kRadix, tb, tot, dst, nullptr, sc);
-    } else {
-      kc_scatter<kKeys><<<(unsigned)tiles, kThreads, 0, st>>>(
-          in, shift, kRadix, tb, tot, dst, nullptr, nullptr);
-    }
-  }
-  // the sorted keys are in buf[(passes - 1) & 1]; the other holds the
-  // runs' starts
-  in.keys = buf[(passes - 1) & 1];
-  int64_t* start = (int64_t*)buf[passes & 1];
-  kc_hist<kBounds><<<(unsigned)tiles, kThreads, 0, st>>>(in, 0, 1, tb);
-  kc_scan_rows<<<1, kThreads, 0, st>>>(tb, tiles, tot);
-  kc_scatter<kBounds><<<(unsigned)tiles, kThreads, 0, st>>>(
-      in, 0, 1, tb, tot, (uint64_t*)uniq, start, sc + 1);
-  kc_counts<<<(unsigned)((n_win + kThreads - 1) / kThreads), kThreads, 0,
-              st>>>(start, sc, (int64_t*)counts);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaMemsetAsync(tab, 0, 4 * p.rle_st, st);
+  if (e != cudaSuccess) return (int)e;
+  if (2 * k <= 32)
+    return run<uint32_t>(p, (const uint8_t*)codes, n_win, k, direction,
+                         (uint32_t*)keys, (uint32_t*)tab, (uint32_t*)scal,
+                         (uint64_t*)uniq, (int64_t*)counts, st);
+  return run<uint64_t>(p, (const uint8_t*)codes, n_win, k, direction,
+                       (uint64_t*)keys, (uint32_t*)tab, (uint32_t*)scal,
+                       (uint64_t*)uniq, (int64_t*)counts, st);
 }

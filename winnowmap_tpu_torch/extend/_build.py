@@ -109,7 +109,7 @@ def bind(lib) -> None:
         "wm_chain_fwd_launch": [vp] * 6 + [ci] * 6 + [ctypes.c_double]
         + [vp] * 5,
         "wm_sketch_launch": [vp, i64, ci] + [vp] * 6,
-        "wm_kcount_launch": [vp, i64, ci, ci] + [vp] * 7,
+        "wm_kcount_launch": [vp, i64, ci, ci, vp, vp, i64] + [vp] * 4,
     }
     for name, args in entries.items():
         if hasattr(lib, name):

@@ -12,8 +12,9 @@ the host with the out-of-core counter's chunked two-pointer merge.
 
 KC has
   * a wrapper, count_block, that launches the kernel (csrc/kcount.cu:
-    encode and compact, an LSD radix sort over the 2k key bits, a
-    run-length encode) for a CUDA tensor and counts the launch in
+    encode and compact, a one-sweep LSD radix sort over the 2k key bits in
+    u32 keys at k <= 16 and u64 above, a run-length encode) for a CUDA
+    tensor and counts the launch in
     LAUNCHES, and runs the plain version only for a tensor on the CPU;
   * a plain PyTorch version, count_block_plain, in int64: the same rolls,
     a sort of the valid keys (their top bit flipped, so the signed order
@@ -37,9 +38,11 @@ BLOCK = 4 << 20
 # all-ones k-mer (k = 32); KC makes no mark
 SENTINEL = 0xFFFFFFFFFFFFFFFF
 DIRECTIONS = {"canonical": 0, "forward": 1, "reverse": 2}
-# csrc/kcount.cu's tile of windows a block of threads, and its radix
+# csrc/kcount.cu's tile of keys a block of threads, its widest digit and
+# its counter words (kc_scratch_words mirrors its Plan)
 KC_TILE = 4096
-KC_RADIX = 256
+KC_MAX_BITS = 8
+KC_CTR_WORDS = 16
 _TOP = torch.iinfo(torch.int64).min  # the u64 top bit as an int64
 
 # kernel launches on this process; chip_smoke.py zeroes them around the
@@ -101,16 +104,32 @@ def count_block_plain(codes: torch.Tensor, k: int,
     return torch.unique_consecutive(s, return_counts=True)
 
 
-def kc_buffers(n_win: int, dev) -> dict:
-    """KC's scratch and outputs for n_win windows: the two key buffers of
-    the sort, the digit x tile table and its row totals, the live and
-    unique counts, the unique k-mers and their counts."""
+def kc_plan(k: int) -> tuple:
+    """KC's sort at k: (passes, digit bits), ceil(2k / KC_MAX_BITS) passes
+    of equal digits."""
+    passes = -(-2 * k // KC_MAX_BITS)
+    return passes, -(-2 * k // passes)
+
+
+def kc_scratch_words(n_win: int, k: int) -> int:
+    """u32 words of KC's scratch table (csrc/kcount.cu's Plan): counters,
+    the passes' digit totals, the encode pass's tile statuses, the run
+    encode's (u64) and two rows of per-digit tile statuses."""
+    passes, bits = kc_plan(k)
     tiles = -(-n_win // KC_TILE)
+    w = KC_CTR_WORDS + passes * (1 << bits) + tiles
+    w += w & 1
+    return w + 2 * tiles + 2 * tiles * (1 << bits)
+
+
+def kc_buffers(n_win: int, dev, k: int) -> dict:
+    """KC's scratch and outputs for n_win windows at k: the two key buffers
+    of the sort (u32 keys at k <= 16 take half of each), the scratch table,
+    the live and unique counts, the unique k-mers and their counts."""
     return {"keys": torch.empty((2, n_win), dtype=torch.int64, device=dev),
-            "tab": torch.empty(KC_RADIX * tiles, dtype=torch.int32,
+            "tab": torch.empty(kc_scratch_words(n_win, k), dtype=torch.int32,
                                device=dev),
-            "totals": torch.empty(KC_RADIX, dtype=torch.int32, device=dev),
-            "scal": torch.zeros(2, dtype=torch.int32, device=dev),
+            "scal": torch.empty(2, dtype=torch.int32, device=dev),
             "uniq": torch.empty(n_win, dtype=torch.int64, device=dev),
             "counts": torch.empty(n_win, dtype=torch.int64, device=dev)}
 
@@ -119,11 +138,13 @@ def kcount_launch(lib, codes, k: int, direction: str, bufs: dict,
                   stream) -> int:
     """KC's C entry on codes with kc_buffers' tensors: the first
     bufs["scal"][1] entries of bufs["uniq"] and bufs["counts"] are the
-    run.  Returns the CUDA error code."""
+    run.  Returns the CUDA error code (cudaErrorInvalidValue for a scratch
+    table smaller than kc_scratch_words)."""
     b = bufs
     return lib.wm_kcount_launch(codes.data_ptr(), codes.numel(), k,
                                 DIRECTIONS[direction], b["keys"].data_ptr(),
-                                b["tab"].data_ptr(), b["totals"].data_ptr(),
+                                b["tab"].data_ptr(),
+                                4 * b["tab"].numel(),
                                 b["scal"].data_ptr(), b["uniq"].data_ptr(),
                                 b["counts"].data_ptr(), stream)
 
@@ -138,13 +159,13 @@ def count_block_launch(codes: torch.Tensor, k: int,
         raise ValueError("codes must be a contiguous CUDA uint8 tensor")
     _check_args(k, direction)
     n_win = codes.numel() - k + 1
-    if not 0 < n_win < 1 << 31:
+    if not 0 < n_win < 1 << 30:
         raise ValueError(f"{codes.numel()} codes at k = {k}: KC takes "
-                         f"1 to 2^31 - 1 windows")
+                         f"1 to 2^30 - 1 windows")
     from ..extend import _build
 
     dev = codes.device
-    bufs = kc_buffers(n_win, dev)
+    bufs = kc_buffers(n_win, dev, k)
     rc = kcount_launch(_build.load(), codes, k, direction, bufs,
                        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

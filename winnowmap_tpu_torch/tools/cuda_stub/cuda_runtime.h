@@ -10,7 +10,12 @@
 // its own stack by setcontext and is switched by _setjmp/_longjmp, which
 // save no signal mask (compile with -U_FORTIFY_SOURCE: the fortified
 // longjmp refuses a jump to another stack).  __syncthreads() is a barrier over the block's
-// fibers, __syncwarp() one over the warp's 32.  A warp operation
+// fibers, __syncwarp() one over the warp's 32.  The next fiber to run is
+// the longest waiting one, or, after cuda_stub_schedule(seed) with a seed
+// other than 0, one picked at random from the runnable ones, each warp of
+// a block weighted by a random power of two up to 64 (a seeded generator,
+// so a seed's run is still deterministic): a test then tries orders where
+// one warp runs far ahead of another it waits on through memory.  A warp operation
 // (shuffles, votes, reductions) writes each lane's value into a per-warp
 // array, passes the warp's barrier, and reads what it needs; the array is
 // double-buffered, so one barrier an operation suffices (the writes of
@@ -54,9 +59,13 @@ struct dim3 {
 struct int2 {
   int x, y;
 };
-struct int4 {
+struct alignas(16) int4 {
   int x, y, z, w;
 };
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
@@ -67,6 +76,7 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum : int { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 
 // the running fiber's indices (one fiber runs at a time)
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
@@ -131,6 +141,10 @@ inline void Barrier::wait() {
 }
 
 inline int last_error = cudaSuccess;
+
+// 0: fibers run in the order they became runnable; else the seed of the
+// random order (see the header's note)
+inline uint64_t sched_seed = 0;
 
 inline void full_mask(unsigned m) {
   if (m != 0xffffffffu) {
@@ -200,9 +214,26 @@ void launch(F body, dim3 grid, dim3 block, size_t shm = 0,
       makecontext(&f.ctx, fiber_entry, 0);
       blk.runq.push_back(t);
     }
+    uint64_t rs = sched_seed ? sched_seed * 0x9E3779B97F4A7C15ull + b : 0;
+    auto rnd = [&rs] {  // xorshift64
+      rs ^= rs << 13;
+      rs ^= rs >> 7;
+      rs ^= rs << 17;
+      return rs;
+    };
+    std::vector<uint64_t> weight(blk.warps.size(), 1);
+    if (rs)
+      for (uint64_t& w : weight) w = uint64_t(1) << (rnd() % 7);
     while (!blk.runq.empty()) {
-      blk.cur = blk.runq.front();
-      blk.runq.pop_front();
+      size_t at = 0;
+      if (rs) {
+        uint64_t total = 0;
+        for (int t : blk.runq) total += weight[t >> 5];
+        uint64_t r = rnd() % total;
+        while (r >= weight[blk.runq[at] >> 5]) r -= weight[blk.runq[at++] >> 5];
+      }
+      blk.cur = blk.runq[at];
+      blk.runq.erase(blk.runq.begin() + (long)at);
       threadIdx = dim3((unsigned)blk.cur);
       Fiber& f = blk.fibers[blk.cur];
       if (!_setjmp(blk.main)) {
@@ -224,6 +255,12 @@ void launch(F body, dim3 grid, dim3 block, size_t shm = 0,
 }
 
 }  // namespace stub
+
+// the stub's order of fibers (see the header's note); 0 restores the
+// default order
+extern "C" void cuda_stub_schedule(unsigned long long seed) {
+  stub::sched_seed = seed;
+}
 
 inline void __syncthreads() { stub::block_->bar.wait(); }
 inline void __syncwarp(unsigned mask = 0xffffffffu) {
@@ -287,6 +324,20 @@ inline unsigned __reduce_min_sync(unsigned mask, unsigned v) {
   return reduce_(mask, v,
                  [](unsigned a, unsigned b) { return a < b ? a : b; });
 }
+// one fiber runs at a time: an atomic is a plain read-modify-write
+template <class T>
+inline T atomicAdd(T* p, T v) {
+  const T old = *p;
+  *p = old + v;
+  return old;
+}
+// blocks run one after another and fibers switch only at barriers: a
+// write is seen by every later read
+inline void __threadfence_block() {}
+inline void __nanosleep(unsigned) {}
+inline unsigned __reduce_or_sync(unsigned mask, unsigned v) {
+  return reduce_(mask, v, [](unsigned a, unsigned b) { return a | b; });
+}
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   const uint64_t v = (uint64_t)y << 32 | x;
   unsigned r = 0;
@@ -316,6 +367,20 @@ template <class F>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int* blocks, F, int, size_t) {
   *blocks = 1;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+// two "SMs": grids sized by the SM count still take several blocks
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n,
+                                   cudaStream_t = nullptr) {
+  std::memset(p, v, n);
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() {
