@@ -37,29 +37,39 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      asm5's stage-1 and stage-2 chain parameters (phase 9's), on
      eight under cDNA's gap cost and eight at max_skip 1 (where the
      oracle's break cuts walks short), every job chained to the end
-     against native.chain_dp; S1 (the sketch transform) against its plain
-     version on 200 kb with N bases, HPC off and on, and sketch_device
-     against native.sketch there with a weighted set; then kernel times
-     from CUDA events, with the card to themselves (S1 on 4 Mbp, held to
-     its plain version and native.sketch there too), and C1, the whole
-     device chain and native.chain_dp on single chains of 10k, 50k, 100k
-     and 300k anchors under stage 2's parameters, each chain against
-     native.chain_dp;
+     against native.chain_dp; S1 (the sketch's per-base work: transform,
+     down-weight membership, f64 order) against its plain version on 200
+     kb with N bases and on 4,000,000 bases, HPC off and on, k = 15, 19,
+     28, with no set, a sorted set and its bloom table, and sketch_device
+     against native.sketch on the 200 kb with a weighted set and in bloom
+     mode; then kernel times from CUDA events, with the card to themselves
+     (S1 on 4,000,000 codes at k = 19 with no set and sets of 3, 1,751
+     and 1,000,000 k-mers and a bloom table, each held to its plain
+     version; sketch_device by stage against native.sketch there), and
+     C1, the whole device chain and native.chain_dp on single chains of
+     10k, 50k, 100k and 300k anchors under stage 2's parameters, each
+     chain against native.chain_dp;
   3. the port's CLI on the golden corpora (tests/data/golden): --sv-off
      byte-equal to golden_svoff.sam, sv-aware equal to golden_svon.sam up
      to the reference's uninitialised rep_len fields (at most 6 lines);
      -x splice byte-equal to golden_splice.paf and golden_splice_cs.paf
-     (--cs), and to golden_splice.sam apart from @PG;
+     (--cs), and to golden_splice.sam apart from @PG; with each index
+     built through S1 (one launch), byte-equal to golden_mappb.paf (-x
+     map-pb -c), golden_asm20.paf (-x asm20 -c), golden_svoff_cs.paf,
+     golden_svoff_md.paf (--cs, --MD) and golden_svoff_nocig.paf (no
+     CIGAR); t_ref.fa's HPC index through S1 equal to the native build;
   4. map-ont SV-aware mapping at real read length: a 1 Mbp genome and 1000
      reads of 15 +- 5 kb at 8% error (tests/tools/make_testdata.py, seed 7),
-     its index built through S1 and equal to the native build,
+     its index built through S1 (one launch) and equal to the native
+     build, the device sketch by stage against native.sketch,
      reads/s, STATS and kernel launch counts of the run, and K1's and K2's
      summed device time (CUDA events around their C launch entries), K1's
      launches by flag and by launch, jobs and longest rows per call;
   5. spliced mapping (-x splice -a) at a real size: a 4 Mbp genome with 400
      genes and 5000 reads of their transcripts from both strands, made
-     with numpy (seed 20261016; the index through S1, equal to the native
-     build, S1 and native.sketch timed on it); reads/s, STATS and launch
+     with numpy (seed 20261016; the index through S1 in one launch, equal
+     to the native build, the device sketch by stage and native.sketch
+     timed on it); reads/s, STATS and launch
      counts; every K3 and traceback launch timed by CUDA events recorded
      around its C launch entry (their summed device time and share of the
      wall, K3's launches by flag and by launch, jobs and longest rows per
@@ -90,7 +100,8 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      contigs of 2-3 Mbp cut from a haplotype copy of it (0.1%
      substitutions, 0.01% indels of 1-20 bp, a 5 kb deletion, a 5 kb
      insertion, a 20 kb inversion, a tandem expansion), weighted by the
-     canonical 19-mers above distinct=0.9998; the index through S1, every
+     canonical 19-mers above distinct=0.9998; the index through S1 (one
+     launch for both chromosomes), every
      chain of 50,000 anchors or more through the engine's chain exchange
      onto C1; contigs/s, Mbp/s, the chains exported and their anchors, C1's,
      K1's and K2's device time, eng_chain_s, the index's seconds beside a
@@ -230,7 +241,17 @@ CHAIN_P2 = dict(CHAIN_P, max_dist_x=16000, max_dist_y=16000, bw=2000)
 # CHAIN_P2 (phase 9's contig chains hold 80-120k anchors)
 CHAIN_SIZES = (10_000, 50_000, 100_000, 300_000)
 # the codes S1 is timed on: about phase 5's 4 Mbp genome
+# (tools/time_sketch.py's timed_seq)
 SKETCH_TIMED = 4_000_000
+# S1's operations a base, counted from the reference's scalar code
+# (sketch.c:43-63, 70-89, 128-160), not from the kernel: the rolling k-mers
+# 6 (two shifts, or, and, shift, or), the canonical k-mer, z and sym 3, the
+# finalizer 8 (three shifts, three xors, two multiplies), the key mix 23,
+# the order 2 (the conversion and the scaling; a down-weighted base's three
+# products are not counted) and the flags byte 2; and 3 a probe of the
+# sorted set's binary search (load, compare, select), log2 |set| + 1 probes
+OPS_PER_BASE_S1 = 44
+OPS_PER_PROBE_S1 = 3
 
 
 def log(msg):
@@ -814,44 +835,74 @@ def sketch_seq(rng, n):
                       ).astype(np.uint8).tobytes()
 
 
+def s1_diff(torch, a, b) -> int:
+    """Words of S1's outputs (key, the order's bits, flags) that differ."""
+    return sum(int((x.view(torch.int64) if x.dtype == torch.float64 else x)
+                   .ne(y.view(torch.int64) if y.dtype == torch.float64
+                       else y).sum()) for x, y in zip(a, b))
+
+
 def check_sketch():
-    """S1 against its plain version on the transform codes of 200 kb with
-    N bases, HPC off and on, k = 15, 19, 28; sketch_device against
-    native.sketch there with a weighted set of every 37th k-mer (k = 15, w
-    = 50; k = 19, w = 19).  Runs in a process of its own."""
+    """S1 against its plain version on the codes of 200 kb with N bases and
+    of the SKETCH_TIMED bases (tools/time_sketch.py's timed_seq), HPC off
+    and on, k = 15, 19, 28, with no set, a sorted set of every 37th base's
+    canonical k-mer and its bloom table: every output word exactly;
+    sketch_device against native.sketch on the 200 kb with such a set and
+    in bloom mode (k = 15, w = 50; k = 19, w = 19).  Runs in a process of
+    its own."""
     import torch
 
     import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.index.build import weight_bloom
+    from winnowmap_tpu_torch.io.seqcode import encode
     from winnowmap_tpu_torch.sketch import device as SD
+    from winnowmap_tpu_torch.tools import time_sketch
 
-    rng = np.random.default_rng(20261016)
-    seq = sketch_seq(rng, 200_000)
+    small = sketch_seq(np.random.default_rng(20261016), 200_000)
+    checked = 0
+    for seq in (small, time_sketch.timed_seq(np)):
+        for hpc in (False, True):
+            codes = encode(seq)
+            if hpc:
+                codes = SD.compact_hpc(codes)[0]
+            ct = torch.from_numpy(codes).to(DEVICE)
+            for k in (15, 19, 28):
+                canon = SD.transform_plain(ct, k)[4]
+                ws = np.unique(canon[::37].cpu().numpy().view(np.uint64))
+                for mode, wt in (
+                        ("none", SD.weights_on(None, None, DEVICE)),
+                        ("set", SD.weights_on(ws, None, DEVICE)),
+                        ("bloom", SD.weights_on(None, weight_bloom(ws),
+                                                DEVICE))):
+                    err = s1_diff(torch, SD.sketch(ct, k, wt),
+                                  SD.sketch_plain(ct, k, wt))
+                    if err:
+                        fail(f"S1 != plain on {len(codes)} codes (k={k}, "
+                             f"hpc={hpc}, {mode}): {err} words differ")
+                    if mode != "none" and not SD.flagged_plain(
+                            canon, wt).any():
+                        fail(f"S1's check ({mode}) down-weights nothing")
+                    checked += 1
+    empty = np.zeros(0, np.uint64)
     for hpc in (False, True):
-        codes = SD._NT4[np.frombuffer(seq, np.uint8)]
-        if hpc:
-            prev = np.concatenate([[255], codes[:-1]])
-            codes = codes[(codes != prev) | (codes >= 4)]
-        ct = torch.from_numpy(codes).to(DEVICE)
-        for k in (15, 19, 28):
-            kern = SD.transform(ct, k)
-            plain = SD.transform_plain(ct, k)
-            err = max(int((a.long() != b.long()).sum())
-                      for a, b in zip(kern, plain))
-            if err:
-                fail(f"S1 != plain (k={k}, hpc={hpc}): {err} words differ")
         for k, w in ((15, 50), (19, 19)):
             ws = np.unique(np.array(
-                [native.encode_kmer(seq[o:o + k].upper())
-                 for o in range(0, len(seq) - k, 37)
-                 if b"N" not in seq[o:o + k]], np.uint64))
-            want = native.sketch(seq, w, k, 0, hpc, ws)
-            got = SD.sketch_device(seq, w, k, 0, hpc, ws, device=DEVICE)
-            if not all(np.array_equal(a, b) for a, b in zip(want, got)):
-                fail(f"sketch_device (k={k}, w={w}, hpc={hpc}) differs "
-                     f"from native.sketch")
-    log("[phase 2] S1: 200 kb with N bases, HPC off and on, k = 15, 19, "
-        "28: == plain; sketch_device == native.sketch with a weighted set "
-        "(k=15 w=50, k=19 w=19)")
+                [native.encode_kmer(small[o:o + k].upper())
+                 for o in range(0, len(small) - k, 37)
+                 if b"N" not in small[o:o + k]], np.uint64))
+            for wset, bloom in ((ws, None), (empty, weight_bloom(ws))):
+                want = native.sketch(small, w, k, 0, hpc, wset, bloom)
+                got = SD.sketch_device(small, w, k, 0, hpc, wset, bloom,
+                                       device=DEVICE)
+                if not all(np.array_equal(a, b) for a, b in zip(want, got)):
+                    fail(f"sketch_device (k={k}, w={w}, hpc={hpc}, "
+                         f"bloom={bloom is not None}) differs from "
+                         f"native.sketch")
+    log(f"[phase 2] S1: {checked} cases (200 kb with N bases and "
+        f"{SKETCH_TIMED} bases, HPC off and on, k = 15, 19, 28, no set, a "
+        f"sorted set, its bloom table) == plain; sketch_device == "
+        f"native.sketch with a weighted set and in bloom mode (k=15 w=50, "
+        f"k=19 w=19, HPC off and on)")
 
 
 def kernel_record(nm, src, rep, err, ms, pms, tb, to):
@@ -866,19 +917,16 @@ def kernel_record(nm, src, rep, err, ms, pms, tb, to):
             "library_ms": None}
 
 
-def phase2_chain_sketch_times(torch, native, CD, SD):
+def phase2_chain_times(torch, native, CD):
     """C1, the whole device chain (upload, C1, the host's tail) and
     native.chain_dp on single chains of CHAIN_SIZES anchors under CHAIN_P2,
-    each chain against native.chain_dp; S1 on SKETCH_TIMED codes timed by
-    CUDA events, held to its plain version and sketch_device to
-    native.sketch there, with the plain version's time and the bound
-    (S1's record for the kernels line; C1's comes from phase 9's
-    launch, c1_record)."""
+    each chain against native.chain_dp (C1's record for the kernels line
+    comes from phase 9's launch, c1_record)."""
     from winnowmap_tpu_torch.chain.check import anchor_set
     from winnowmap_tpu_torch.tools import time_ms
 
     dev = torch.device(DEVICE)
-    saved = (dict(CD.LAUNCHES), dict(SD.LAUNCHES))
+    saved = dict(CD.LAUNCHES)
     p = CHAIN_P2
     sizes = []
     rng = np.random.default_rng(20261021)
@@ -902,38 +950,99 @@ def phase2_chain_sketch_times(torch, native, CD, SD):
     log("[phase 2] single chains under asm5's stage-2 parameters, C1 (CUDA "
         "events), the whole device chain and native.chain_dp (host clock), "
         "each == native.chain_dp, JSON " + json.dumps(sizes))
-    rng = np.random.default_rng(20261022)
-    seq = sketch_seq(rng, SKETCH_TIMED)
-    codes = torch.from_numpy(SD._NT4[np.frombuffer(seq, np.uint8)]).to(dev)
-    kern = SD.transform(codes, 19)
-    plain = SD.transform_plain(codes, 19)
-    s_err = max(int((a.long() != b.long()).sum())
-                for a, b in zip(kern, plain))
-    if s_err:
-        fail(f"S1 != plain on {SKETCH_TIMED} codes: {s_err} words differ")
-    none = np.zeros(0, np.uint64)
-    want = native.sketch(seq, 19, 19, 0, False, none)
-    if not all(np.array_equal(a, b) for a, b in zip(
-            want, SD.sketch_device(seq, 19, 19, 0, False, none, device=dev))):
-        fail(f"sketch_device on {SKETCH_TIMED} bases differs from "
-             f"native.sketch")
-    s1_ms = time_ms(lambda: SD.transform(codes, 19), dev, 10)
+    CD.LAUNCHES.update(saved)  # comparison launches are not main-path
+
+
+def s1_bound(n, n_set):
+    """S1's bound on n codes with a sorted set of n_set entries: (bytes ms,
+    operations ms).  Each code byte read once, key, order and flags written
+    once, the set read once; the operations of OPS_PER_BASE_S1 and the
+    set's binary search."""
+    probes = int(np.log2(n_set)) + 1 if n_set else 0
+    tb = (18 * n + 8 * n_set) / HBM_BPS * 1e3
+    to = n * (OPS_PER_BASE_S1 + OPS_PER_PROBE_S1 * probes) / INT32_OPS * 1e3
+    return tb, to
+
+
+def phase2_sketch_times(torch, native, SD, seqcode):
+    """S1 on the SKETCH_TIMED codes (k = 19) with tools/time_sketch.py's
+    down-weight sets (none; 3 and 1,751, the sizes of phase 4's and phase
+    9's repeat lists; 1,000,000; the bloom table of the 1,751), each held
+    to its plain version and timed: the kernel by torch.profiler's device
+    time (ms), a wrapper call by CUDA events over a train of calls
+    (call_ms, which holds the wrapper's host time where the host is the
+    slower side); sketch_device by stage
+    (encode, upload, S1, copy-back, the automaton; the host clock) against
+    native.sketch on the same bases (w = 19, no set), equal.  Returns S1's
+    kernels-line record, on the 1,751-entry list."""
+    from winnowmap_tpu_torch.index.build import weight_bloom
+    from winnowmap_tpu_torch.tools import time_ms, time_sketch
+
+    dev = torch.device(DEVICE)
+    saved = dict(SD.LAUNCHES)
+    seq = time_sketch.timed_seq(np)
+    codes = torch.from_numpy(seqcode.encode(seq)).to(dev)
+    k = time_sketch.K
+    canon = SD.transform_plain(codes, k)[4]
+    sets = time_sketch.weight_sets(np, canon.cpu().numpy().view(np.uint64))
+    cases = {"none": SD.weights_on(None, None, dev)}
+    cases.update({nm: SD.weights_on(ws, None, dev)
+                  for nm, ws in sets.items()})
+    cases["bloom1751"] = SD.weights_on(None, weight_bloom(sets["list1751"]),
+                                       dev)
+    out = {}
+    for nm, wt in cases.items():
+        plain = SD.sketch_plain(codes, k, wt)
+        err = s1_diff(torch, SD.sketch(codes, k, wt), plain)
+        if err:
+            fail(f"S1 != plain on {SKETCH_TIMED} codes ({nm}): {err} words "
+                 f"differ")
+        def fn():
+            return SD.sketch(codes, k, wt)
+
+        tb, to = s1_bound(SKETCH_TIMED, len(wt.wset))
+        if time_sketch.kernel_ms(torch, fn, 2) <= 0:
+            fail("phase 2: torch.profiler saw no device time of S1")
+        out[nm] = {"ms": time_sketch.kernel_ms(torch, fn, 20),
+                   "call_ms": time_ms(fn, dev, 20), "bound_ms": max(tb, to),
+                   "down_weighted": int(SD.flagged_plain(canon, wt).sum())}
+    wt = cases["list1751"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    SD.transform_plain(codes, 19)
+    SD.sketch_plain(codes, k, wt)
     torch.cuda.synchronize()
-    s1_plain_ms = (time.perf_counter() - t0) * 1e3
-    # a code byte read, three u64 words and two flag bytes written a base
-    s1_bytes = 27 * SKETCH_TIMED
-    s1_tb = s1_bytes / HBM_BPS * 1e3
-    log(f"[phase 2] S1 on {SKETCH_TIMED} codes, k = 19: {s1_ms:.4f} ms; "
-        f"plain {s1_plain_ms:.2f} ms; bound {s1_tb:.5f} ms (bytes); == plain "
-        f"and sketch_device (k = 19, w = 19) == native.sketch there")
-    CD.LAUNCHES.update(saved[0])  # comparison launches are not main-path
-    SD.LAUNCHES.update(saved[1])
-    return kernel_record("sketch_transform", "sketch.cu",
-                         "winnowmap_tpu/sketch/device.py:30", s_err, s1_ms,
-                         s1_plain_ms, s1_tb, 0.0)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    none = np.zeros(0, np.uint64)
+    want = native.sketch(seq, 19, k, 0, False, none)
+    SD.sketch_device(seq, 19, k, 0, False, none, device=dev)
+    stages = {}
+    t0 = time.perf_counter()
+    got = SD.sketch_device(seq, 19, k, 0, False, none, device=dev,
+                           stages=stages)
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    native.sketch(seq, 19, k, 0, False, none)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.array_equal(a, b) for a, b in zip(want, got)):
+        fail(f"sketch_device on {SKETCH_TIMED} bases differs from "
+             f"native.sketch")
+    tb, to = s1_bound(SKETCH_TIMED, len(wt.wset))
+    log(f"[phase 2] S1 on {SKETCH_TIMED} codes, k = {k}, each case == plain"
+        f", kernel ms: " + ", ".join(
+            f"{nm} {o['ms']:.4f} (call {o['call_ms']:.4f}, bound "
+            f"{o['bound_ms']:.5f})" for nm, o in out.items())
+        + f"; plain {plain_ms:.2f} ms (list1751); sketch_device {dev_ms:.1f}"
+        f" ms against native.sketch {nat_ms:.1f} ms (w = 19, no set), == "
+        f"there; by stage (ms) " + ", ".join(
+            f"{nm} {v * 1e3:.2f}" for nm, v in stages.items()))
+    log("[phase 2] S1 JSON " + json.dumps({
+        "cases": out, "plain_ms": plain_ms, "sketch_device_ms": dev_ms,
+        "native_sketch_ms": nat_ms,
+        "stages_ms": {nm: v * 1e3 for nm, v in stages.items()}}))
+    SD.LAUNCHES.update(saved)  # comparison launches are not main-path
+    return kernel_record("sketch", "sketch.cu",
+                         "winnowmap_tpu/sketch/device.py:30", 0,
+                         out["list1751"]["ms"], plain_ms, tb, to)
 
 
 def chain_params(args):
@@ -985,10 +1094,13 @@ def c1_record(launch, ms, held):
 
 def build_both(phase, torch, build, recs, io_, wset):
     """The index through S1 (the device gate) and through native.sketch:
-    keys, start and pos must be equal.  Logs both builds' seconds, S1's
-    summed device ms and native.sketch's and sketch_device's host ms on the
-    same sequences; returns the S1-built index."""
+    keys, start and pos must be equal, and the build must launch S1 once.
+    Logs both builds' seconds, S1's event ms, and the device sketch of the
+    same sequences (sketch_records, as build_index calls it) by stage on
+    the host clock (encode, upload, S1, copy-back, the automaton) against
+    native.sketch; returns the S1-built index."""
     import winnowmap_tpu_torch.native as native
+    from winnowmap_tpu_torch.io.seqcode import encode
     from winnowmap_tpu_torch.sketch import device as SD
 
     SD.reset_launches()
@@ -1006,22 +1118,36 @@ def build_both(phase, torch, build, recs, io_, wset):
         if not np.array_equal(getattr(mi, f), getattr(ref, f)):
             fail(f"{phase}: the S1-built index's {f} differs from the "
                  f"native build's")
-    if n == 0:
-        fail(f"{phase}: the index build did not launch S1")
+    if n != 1:
+        fail(f"{phase}: the index build launched S1 {n} times, not once")
     t0 = time.perf_counter()
-    for rid, r in enumerate(recs):
-        native.sketch(r.seq, io_.w, io_.k, rid, False, wset)
+    want = [native.sketch(r.seq, io_.w, io_.k, rid, False, wset)
+            for rid, r in enumerate(recs)]
     nat_ms = (time.perf_counter() - t0) * 1e3
+    wt = SD.weights_on(wset, None, DEVICE)
     torch.cuda.synchronize()
+    stages = {}
     t0 = time.perf_counter()
-    for rid, r in enumerate(recs):
-        SD.sketch_device(r.seq, io_.w, io_.k, rid, False, wset)
-    dev_ms = (time.perf_counter() - t0) * 1e3
-    log(f"[{phase}] index of {sum(len(r.seq) for r in recs)} bp through S1 "
-        f"({n} launches, {s1_ms:.3f} ms of S1 events) == the native "
-        f"build (keys, start, pos); build {dev_s:.2f} s against {host_s:.2f} "
-        f"s; sketch_device {dev_ms:.1f} ms against native.sketch "
-        f"{nat_ms:.1f} ms on the same sequences")
+    codes = [encode(r.seq) for r in recs]
+    stages["encode"] = time.perf_counter() - t0
+    got = SD.sketch_records(codes, io_.w, io_.k, list(range(len(recs))),
+                            False, wt, stages)
+    dev_ms = sum(stages.values()) * 1e3
+    if not all(np.array_equal(a, b) for w_, g in zip(want, got)
+               for a, b in zip(w_, g)):
+        fail(f"{phase}: sketch_records differs from native.sketch")
+    log(f"[{phase}] index of {sum(len(r.seq) for r in recs)} bp in "
+        f"{len(recs)} sequences through S1 ({n} launch, {s1_ms:.3f} ms of "
+        f"S1 events) == the native build (keys, start, pos); build "
+        f"{dev_s:.3f} s against {host_s:.3f} s; the device sketch "
+        f"{dev_ms:.1f} ms against native.sketch {nat_ms:.1f} ms on the same "
+        f"sequences, by stage (ms) " + ", ".join(
+            f"{nm} {v * 1e3:.2f}" for nm, v in stages.items()))
+    log(f"[{phase}] sketch JSON " + json.dumps({
+        "bp": sum(len(r.seq) for r in recs), "s1_launches": n,
+        "s1_event_ms": s1_ms, "build_s": dev_s, "native_build_s": host_s,
+        "device_sketch_ms": dev_ms, "native_sketch_ms": nat_ms,
+        "stages_ms": {nm: v * 1e3 for nm, v in stages.items()}}))
     SD.reset_launches()
     return mi
 
@@ -1102,6 +1228,70 @@ def phase3(cli):
             fail(f"-x splice {' '.join(extra)} differs from {golden}")
         log(f"[phase 3] -x splice {' '.join(extra)} == {golden} "
             f"({dt:.2f} s)")
+    phase3_pinned(cli)
+
+
+# the goldens tests/test_torch_golden_*.py pin on a few reads: the CLI's
+# arguments before t_ref.fa and t_reads.fa (list files in GOLD), the golden
+PINNED_GOLDENS = (
+    (["-x", "map-pb", "-c", "-W", "t_rep_k19_pb.txt"], "golden_mappb.paf"),
+    (["-x", "asm20", "-c", "-W", "t_rep_k19_empty.txt"], "golden_asm20.paf"),
+    (["--sv-off", "-c", "--cs", "-W", "t_rep_k15.txt"],
+     "golden_svoff_cs.paf"),
+    (["--sv-off", "-c", "--MD", "-W", "t_rep_k15.txt"],
+     "golden_svoff_md.paf"),
+    (["--sv-off", "-W", "t_rep_k15.txt"], "golden_svoff_nocig.paf"))
+
+
+def phase3_pinned(cli):
+    """PINNED_GOLDENS in full on the card, each index built through S1
+    (sketch_min_bp 0, one launch), byte-equal; and t_ref.fa's index with
+    HPC (-H, map-pb's k and w: no golden sketches with HPC) through S1 ==
+    the native build."""
+    from winnowmap_tpu_torch.index import build
+    from winnowmap_tpu_torch.io import fastx
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    real = cli.build_index
+
+    def via_s1(*a, **kw):
+        return real(*a, **kw, sketch_min_bp=0)
+
+    cli.build_index = via_s1
+    try:
+        for argv, golden in PINNED_GOLDENS:
+            argv = [str(GOLD / a) if a.endswith(".txt") else a for a in argv]
+            SD.reset_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv + [str(GOLD / "t_ref.fa"),
+                                      str(GOLD / "t_reads.fa")])
+            dt = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"CLI {' '.join(argv[:-2])} exited {rc}")
+            if SD.LAUNCHES["sketch"] != 1:
+                fail(f"phase 3: {golden}'s index launched S1 "
+                     f"{SD.LAUNCHES['sketch']} times, not once")
+            if buf.getvalue() != (GOLD / golden).read_text():
+                fail(f"phase 3: the CLI's PAF differs from {golden}")
+            log(f"[phase 3] {' '.join(argv[:-2])} (index through S1) == "
+                f"{golden} ({dt:.2f} s)")
+    finally:
+        cli.build_index = real
+    recs = fastx.read_all(str(GOLD / "t_ref.fa"))
+    wset = build.load_weight_set(str(GOLD / "t_rep_k15.txt"), 15)
+    SD.reset_launches()
+    mi = build.build_index(recs, 10, 15, 1, wset, True, sketch_min_bp=0)
+    ref = build.build_index(recs, 10, 15, 1, wset, True, sketch_min_bp=None)
+    if SD.LAUNCHES["sketch"] != 1 or not all(
+            np.array_equal(getattr(mi, f), getattr(ref, f))
+            for f in ("keys", "start", "pos")):
+        fail("phase 3: t_ref.fa's HPC index through S1 differs from the "
+             "native build")
+    SD.reset_launches()
+    log(f"[phase 3] t_ref.fa with HPC (k = 15, w = 10), index through S1 "
+        f"== the native build ({len(mi.keys)} keys)")
 
 
 def rep_kmers(seqs, k: int, frac: float):
@@ -2006,8 +2196,9 @@ def phase9(torch, K, build, fastx, options, batch, pipeline):
         fail(f"phase 9: {exported} chains exported with "
              f"{st.get('chain_dev_anchors')} anchors, C1 took {len(sizes)} "
              f"with {sum(sizes)}: an exported chain was chained elsewhere")
-    if launches["sketch"] == 0 or launches["extd"] == 0:
-        fail(f"phase 9: S1 or K1 was not launched: {launches}")
+    if launches["sketch"] != 1 or launches["extd"] == 0:
+        fail(f"phase 9: S1 was not launched once or K1 not at all: "
+             f"{launches}")
     if sum(1 for r in results if r.regs) < len(seqs):
         fail("phase 9: a contig did not map")
     check_mapped("phase 9", st, results, len(seqs))
@@ -2020,8 +2211,9 @@ def phase9(torch, K, build, fastx, options, batch, pipeline):
         if not np.array_equal(getattr(mi, f), getattr(ref, f)):
             fail(f"phase 9: the S1-built index's {f} differs from the "
                  f"native build's")
-    log(f"[phase 9] index through S1 {t_index:.2f} s against a native build "
-        f"{t_native:.2f} s: keys, start, pos equal")
+    log(f"[phase 9] index through S1 ({launches['sketch']} launch) "
+        f"{t_index:.3f} s against a native build {t_native:.3f} s: keys, "
+        f"start, pos equal")
 
     batch.STATS.clear()
     t0 = time.perf_counter()
@@ -2543,7 +2735,8 @@ def main():
                                main_batch)
     records += phase2_splice_times(K, check, native, torch, gen_simple_mat,
                                    s_err)
-    s1_record = phase2_chain_sketch_times(torch, native, CD, SD)
+    phase2_chain_times(torch, native, CD)
+    s1_record = phase2_sketch_times(torch, native, SD, seqcode)
     log(f"[phase 2] times: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase3(cli)

@@ -1,12 +1,13 @@
 """K1 (csrc/extd.cu) and K4 (csrc/extz.cu), C1 (csrc/chain.cu), S1
-(csrc/sketch.cu) and KC (csrc/kcount.cu), the CUDA sources themselves, run
+(csrc/sketch.cu: the transform, the down-weight membership and the f64
+order) and KC (csrc/kcount.cu), the CUDA sources themselves, run
 on the CPU against their plain PyTorch versions: the sources are compiled
 by g++ against the stub CUDA runtime of winnowmap_tpu_torch/tools/cuda_stub
 (one fiber per CUDA thread) and launched through kernels.ext_launch,
 chain.chain_launch, sketch.sketch_launch and kcount.device.kcount_launch,
 the marshalling the wrappers use on the card.
-Integer DP and u64 words: every result field, every direction byte and
-every output word must be equal.
+Integer DP, u64 words and S1's f64 order: every result field, every
+direction byte and every output word (the order's bits) must be equal.
 
 Each case is about four jobs of 100-400 bases, at one launch of
 kernels.ext_geometry: 128 threads with 1-8 ring slots a thread (rings of
@@ -237,21 +238,99 @@ def test_chain_source_short_chains_any_schedule(chain_sketch_libs, seed):
             native.chain_dp(ax, ay, n_segs=1, **p), got))
 
 
-@pytest.mark.parametrize("k", [15, 28])
-def test_sketch_source_matches_plain(chain_sketch_libs, k):
-    """S1 on 700 codes with ambiguous bases (three blocks, the last
-    partial): every output word and flag equals the plain version's."""
+def _sketch_case(k, n, mode, seed):
+    """n codes with N runs (a partial last stretch of the kernel's 512) and
+    the weights of `mode`: none; a sorted set of every 9th canonical k-mer
+    from the second to the second-to-last (its ends hit, the smallest and
+    largest k-mer just outside), `n_set` entries long with values no window
+    holds; or the bloom table of that set."""
+    from winnowmap_tpu_torch.index.build import weight_bloom
     from winnowmap_tpu_torch.sketch import device as SD
 
-    codes = torch.from_numpy(
-        np.random.default_rng(k).integers(0, 5, 700).astype(np.uint8))
-    words = torch.zeros((3, 700), dtype=torch.int64)
-    flags = torch.zeros((2, 700), dtype=torch.uint8)
-    assert SD.sketch_launch(chain_sketch_libs["sketch"], codes, k, words,
-                            flags, None) == 0
-    key, h, z, sym, canon = SD.transform_plain(codes, k)
-    assert torch.equal(words, torch.stack([key, h, canon]))
-    assert torch.equal(flags, torch.stack([z, sym]))
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    for at in rng.integers(0, n - 40, 5):
+        codes[at:at + int(rng.integers(1, 40))] = 4
+    ct = torch.from_numpy(codes)
+    if mode == "none":
+        return ct, SD.weights_on(None, None, "cpu")
+    u = np.unique(SD.transform_plain(ct, k)[4].numpy().view(np.uint64))
+    inner = u[1:-1]
+    extra = rng.integers(int(inner[0]) + 1, int(inner[-1]), 3 * len(inner),
+                         dtype=np.uint64)
+    ws = np.unique(np.concatenate([inner[::9], inner[-1:], extra]))
+    if mode == "set":
+        return ct, SD.weights_on(ws, None, "cpu")
+    return ct, SD.weights_on(None, weight_bloom(ws), "cpu")
+
+
+def _run_sketch(lib, codes, k, wt):
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    n = len(codes)
+    out = (torch.full((n,), 7, dtype=torch.int64),
+           torch.full((n,), 7.0, dtype=torch.float64),
+           torch.full((n,), 7, dtype=torch.uint8))
+    assert SD.sketch_launch(lib, codes, k, wt, *out, None) == 0
+    key, ordv, flags = SD.sketch_plain(codes, k, wt)
+    assert torch.equal(out[0], key)
+    assert torch.equal(out[1].view(torch.int64), ordv.view(torch.int64))
+    assert torch.equal(out[2], flags)
+
+
+@pytest.mark.parametrize("k", [15, 28])
+def test_sketch_source_matches_plain(chain_sketch_libs, k):
+    """S1 on 1,301 codes with ambiguous bases (three stretches of 512, the
+    last partial), with no set, with a sorted set (its first and last
+    entries hit) and in bloom mode: the key, the order's bits and the flags
+    byte equal the plain version's."""
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    for mode in ("none", "set", "bloom"):
+        codes, wt = _sketch_case(k, 1301, mode, k)
+        _run_sketch(chain_sketch_libs["sketch"], codes, k, wt)
+        down = SD.flagged_plain(SD.transform_plain(codes, k)[4], wt)
+        assert down.any() == (mode != "none")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sketch_source_two_level_set_any_schedule(chain_sketch_libs, seed):
+    """S1 at k = 19 on 5,000 codes with a sorted set of over 2,048 entries
+    (more than the shared prefix holds, so each lookup also searches a
+    stretch in device memory), in bloom mode and at k = 5; the stub's
+    fibers in their default order (seed 0) and in two random orders."""
+    import ctypes
+
+    lib = chain_sketch_libs["sketch"]
+    lib.cuda_stub_schedule.argtypes = [ctypes.c_ulonglong]
+    lib.cuda_stub_schedule(seed)
+    try:
+        for k, mode in ((19, "set"), (19, "bloom"), (5, "set")):
+            codes, wt = _sketch_case(k, 5000, mode, 40 + seed)
+            if k == 19 and mode == "set":
+                assert len(wt.wset) > 2048
+            _run_sketch(lib, codes, k, wt)
+    finally:
+        lib.cuda_stub_schedule(0)
+
+
+def test_sketch_source_refuses_misaligned(chain_sketch_libs):
+    """The C entry reads and writes 16-byte vectors: codes or outputs off a
+    16-byte boundary are refused (cudaErrorInvalidValue), as is k = 29."""
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    lib = chain_sketch_libs["sketch"]
+    codes, wt = _sketch_case(15, 1000, "none", 3)
+    buf = torch.zeros(1001, dtype=torch.uint8)
+    out = (torch.zeros(1000, dtype=torch.int64),
+           torch.zeros(1000, dtype=torch.float64),
+           torch.zeros(1000, dtype=torch.uint8))
+    assert SD.sketch_launch(lib, buf[1:], 15, wt, *out, None) == 1
+    assert SD.sketch_launch(lib, codes, 29, wt, *out, None) == 1
+    flags = torch.zeros(1001, dtype=torch.uint8)[1:]
+    assert SD.sketch_launch(lib, codes, 15, wt, out[0], out[1], flags,
+                            None) == 1
+    assert SD.sketch_launch(lib, codes, 15, wt, *out, None) == 0
 
 
 def _kc_codes(rng, n, k):

@@ -884,17 +884,28 @@ def test_chain_kernel_short_chains(cuda, case):
 
 @pytest.mark.parametrize("k", [1, 15, 19, 28])
 def test_sketch_kernel_matches_plain(cuda, k):
-    """S1 == its plain version on 200,000 codes with ambiguous bases (a
-    partial last block), every output, in one launch."""
+    """S1 == its plain version on 200,001 codes with ambiguous bases (a
+    partial last stretch), every output (the order's bits), one launch a
+    call: with no set, a sorted set of 3,000 canonical k-mers and its
+    bloom table."""
+    from winnowmap_tpu_torch.index.build import weight_bloom
     from winnowmap_tpu_torch.sketch import device as SD
 
-    codes = torch.from_numpy(np.random.default_rng(k).integers(
-        0, 5, 200_001).astype(np.uint8)).to(cuda)
-    n0 = SD.LAUNCHES["sketch"]
-    kern = SD.transform(codes, k)
-    assert SD.LAUNCHES["sketch"] == n0 + 1
-    for a, b in zip(kern, SD.transform_plain(codes, k)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    rng = np.random.default_rng(k)
+    codes = torch.from_numpy(rng.integers(0, 5, 200_001).astype(
+        np.uint8)).to(cuda)
+    canon = SD.transform_plain(codes, k)[4].cpu().numpy().view(np.uint64)
+    ws = np.unique(rng.choice(canon, 3000))
+    for wset, bl in ((None, None), (ws, None), (None, weight_bloom(ws))):
+        wt = SD.weights_on(wset, bl, cuda)
+        n0 = SD.LAUNCHES["sketch"]
+        kern = SD.sketch(codes, k, wt)
+        assert SD.LAUNCHES["sketch"] == n0 + 1
+        for a, b in zip(kern, SD.sketch_plain(codes, k, wt)):
+            assert a.dtype == b.dtype
+            if a.dtype == torch.float64:
+                a, b = a.view(torch.int64), b.view(torch.int64)
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("hpc", [False, True], ids=["plain", "hpc"])
@@ -917,7 +928,7 @@ def test_sketch_device_on_card_matches_native(cuda, hpc):
 
 def test_build_index_on_card_matches_native(cuda):
     """A 1 Mbp genome in two sequences: the index built through S1 (the
-    default device) == the native build, one S1 launch a sequence."""
+    default device) == the native build, one S1 launch for both."""
     from winnowmap_tpu_torch.index import build
     from winnowmap_tpu_torch.io.fastx import SeqRecord
     from winnowmap_tpu_torch.sketch import device as SD
@@ -928,7 +939,7 @@ def test_build_index_on_card_matches_native(cuda):
             SeqRecord("c2", g[600_000:], None, None)]
     n0 = SD.LAUNCHES["sketch"]
     dev = build.build_index(recs, 10, 15)
-    assert SD.LAUNCHES["sketch"] == n0 + 2
+    assert SD.LAUNCHES["sketch"] == n0 + 1
     host = build.build_index(recs, 10, 15, sketch_min_bp=None)
     for f in ("keys", "start", "pos", "codes"):
         assert np.array_equal(getattr(dev, f), getattr(host, f)), f

@@ -1,10 +1,12 @@
 """The port's device sketch (winnowmap_tpu_torch/sketch/device.py, the
 plain PyTorch version of S1 on the CPU) against the JAX package's
-sketch_device and _compiled_transform (jax.enable_x64 on the CPU) and
-against the native oracle native.sketch: HPC, ambiguous bases, symmetric
-k-mers, weighted sets and the bloom membership mode; the golden
-minimizer dump; and the index build's device gate at 1 Mbp.  u64
-arithmetic: every comparison is exact."""
+sketch_device, _compiled_transform and _transform_device (jax.enable_x64
+on the CPU) and against the native oracle native.sketch: HPC, ambiguous
+bases, symmetric k-mers, weighted sets (hits on their first and last
+entries, k-mers just outside them) and the bloom membership mode; the
+golden minimizer dump; the index build's one launch over records of 0, 1,
+k - 1 and k bases; and its device gate at 1 Mbp.  u64 arithmetic and the
+f64 order: every comparison is exact."""
 from pathlib import Path
 
 import numpy as np
@@ -12,6 +14,8 @@ import pytest
 import torch
 
 import winnowmap_tpu_torch.native as native
+from winnowmap_tpu_torch.index.build import weight_bloom
+from winnowmap_tpu_torch.io.seqcode import encode
 from winnowmap_tpu_torch.sketch import device as SD
 
 torch.set_num_threads(1)
@@ -66,7 +70,7 @@ def test_transform_matches_jax(k):
     codes[100:140] = np.tile([0, 3], 20)  # symmetric k-mers (ATAT...)
     with jax.enable_x64():
         want = [np.asarray(a) for a in _compiled_transform(k, False)(codes)]
-    got = [t.numpy() for t in SD.transform(torch.from_numpy(codes), k)]
+    got = [t.numpy() for t in SD.transform_plain(torch.from_numpy(codes), k)]
     names = ("key", "h", "z", "sym", "canon")
     for name, w, g in zip(names, want, got):
         w = w.astype(np.uint8) if w.dtype == bool else w
@@ -133,23 +137,24 @@ def _genome(total):
 
 
 def test_build_index_device_gate(monkeypatch):
-    """A 1 Mbp genome (two sequences) sketches through the device transform
-    (its plain version on device="cpu") and gives the native build's index
-    arrays; below the gate the device is not used."""
+    """A 1 Mbp genome (two sequences) sketches through S1 (its plain
+    version on device="cpu"), in one call over both sequences with 14 pad
+    codes before each, and gives the native build's index arrays; below
+    the gate the device is not used."""
     from winnowmap_tpu_torch.index import build
 
     recs = _genome(1_000_000)
     wset = _wset(recs[0].seq[:200_000], 15)
     calls = []
-    transform = SD.transform
+    sketch = SD.sketch
 
-    def counted(codes, k):
+    def counted(codes, k, wt, out=None):
         calls.append(len(codes))
-        return transform(codes, k)
+        return sketch(codes, k, wt, out)
 
-    monkeypatch.setattr(SD, "transform", counted)
+    monkeypatch.setattr(SD, "sketch", counted)
     dev = build.build_index(recs, 10, 15, 0, wset, device="cpu")
-    assert sum(calls) == 1_000_000
+    assert calls == [1_000_000 + 2 * 14]
     calls.clear()
     host = build.build_index(recs, 10, 15, 0, wset, sketch_min_bp=1_000_001)
     assert not calls
@@ -168,3 +173,216 @@ def test_build_index_default_device_is_cuda():
                     "test_torch_gpu.py")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_index(_genome(1_000_000), 10, 15)
+
+
+def _codes_with_edges(rng, n, k):
+    """n codes 0..4 with N runs, a palindromic (AT)* run and a
+    homopolymer run (HPC compacts it)."""
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    for at in rng.integers(0, n - 40, 6):
+        codes[at:at + int(rng.integers(1, 30))] = 4
+    codes[100:140] = np.tile([0, 3], 20)
+    codes[300:360] = 2
+    return codes
+
+
+def _edge_set(canon, rng):
+    """A sorted set over the canonical k-mers in `canon`: every 5th of them
+    from the second to the second-to-last (so the smallest and the largest
+    k-mer lie just outside it and its first and last entries are hit), and
+    as many values that no window holds."""
+    u = np.unique(canon)
+    inner = u[1:-1]
+    picks = np.concatenate([inner[::5], inner[-1:],
+                            rng.integers(int(inner[0]) + 1, int(inner[-1]),
+                                         len(inner) // 5 + 1,
+                                         dtype=np.uint64)])
+    ws = np.unique(picks.astype(np.uint64))
+    assert ws[0] == inner[0] and ws[-1] == inner[-1]
+    return ws
+
+
+@pytest.mark.parametrize("mode", ["none", "set", "bloom"])
+@pytest.mark.parametrize("hpc", [False, True], ids=["plain", "hpc"])
+@pytest.mark.parametrize("k", [15, 19, 28])
+def test_s1_plain_matches_jax(k, hpc, mode):
+    """sketch_plain (the new S1's function) == the JAX package's
+    _transform_device (transform and membership) and its sketch_device's
+    f64 order (winnowmap_tpu/sketch/device.py:157-164), on the same
+    numpy-seeded codes: key, the order's bits, z | sym << 1, and which
+    k-mers are down-weighted."""
+    import jax
+
+    from winnowmap_tpu.sketch.device import _transform_device
+
+    rng = np.random.default_rng(1000 * k + 10 * hpc + len(mode))
+    codes = _codes_with_edges(rng, 4000, k)
+    if hpc:
+        codes = SD.compact_hpc(codes)[0]
+    canon = SD.transform_plain(torch.from_numpy(codes), k)[4].numpy().view(
+        np.uint64)
+    ws, bloom = np.zeros(0, np.uint64), None
+    if mode != "none":
+        ws = _edge_set(canon, rng)
+    if mode == "bloom":
+        bloom, ws = weight_bloom(ws), np.zeros(0, np.uint64)
+    with jax.enable_x64():
+        key, h, z, sym, flagged = _transform_device(codes, ws, k, hpc,
+                                                    bloom=bloom)
+    x = h.astype(np.float64) / np.float64(np.uint64(0xFFFFFFFFFFFFFFFF))
+    ordv = -x
+    if flagged.any():
+        xf = x[flagged]
+        p2 = xf * xf
+        p4 = p2 * p2
+        ordv[flagged] = -(p4 * p4)
+    wt = SD.weights_on(ws, bloom, "cpu")
+    gk, go, gf = (t.numpy() for t in SD.sketch_plain(torch.from_numpy(codes),
+                                                     k, wt))
+    got_flagged = SD.flagged_plain(torch.from_numpy(canon.view(np.int64)),
+                                   wt).numpy()
+    assert np.array_equal(got_flagged, flagged)
+    if mode == "set":
+        assert flagged[canon == ws[0]].any() and flagged[canon == ws[-1]].any()
+        assert not flagged[(canon < ws[0]) | (canon > ws[-1])].any()
+        assert (canon < ws[0]).any() and (canon > ws[-1]).any()
+    if mode != "none":
+        assert 0 < flagged.sum() < len(flagged)
+    assert np.array_equal(gk.view(np.uint64), key)
+    assert np.array_equal(go.view(np.uint64), ordv.view(np.uint64))
+    assert np.array_equal(gf, np.asarray(z).astype(np.uint8)
+                          | (np.asarray(sym).astype(np.uint8) << 1))
+
+
+@pytest.mark.parametrize("hpc", [False, True], ids=["plain", "hpc"])
+@pytest.mark.parametrize("k,w", [(19, 19), (28, 10)])
+def test_sketch_device_k_matches_native_and_jax(k, w, hpc):
+    """sketch_device(device="cpu") == native.sketch == the JAX
+    sketch_device at k = 19 and 28, with a weighted set of every 37th
+    k-mer."""
+    from winnowmap_tpu.sketch.device import sketch_device as jsketch
+
+    rng = np.random.default_rng(k + hpc)
+    for trial in range(3):
+        seq = _random_seq(rng, int(rng.integers(200, 3000)))
+        wset = _wset(seq.upper(), k)
+        want = native.sketch(seq, w, k, trial, hpc, wset)
+        got = SD.sketch_device(seq, w, k, trial, hpc, wset, device="cpu")
+        jx = jsketch(seq, w, k, trial, hpc, wset)
+        assert all(np.array_equal(a, b) for a, b in zip(want, got)), trial
+        assert all(np.array_equal(a, b) for a, b in zip(jx, got)), trial
+
+
+@pytest.mark.parametrize("mode", ["set", "bloom"])
+@pytest.mark.parametrize("hpc", [False, True], ids=["plain", "hpc"])
+def test_build_index_one_launch_over_records(monkeypatch, hpc, mode):
+    """Records of 0, 1, k - 1, k and a few thousand bases, with N runs at
+    their edges, through build_index's one S1 call (sketch_min_bp 0, the
+    plain version on the CPU) == the native build, array for array."""
+    from winnowmap_tpu_torch.index import build
+    from winnowmap_tpu_torch.io.fastx import SeqRecord
+
+    k, w = 15, 10
+    rng = np.random.default_rng(31 + hpc)
+    lens = [0, 1, k - 1, k, 2500, 0, 1800, k + 1, 3100]
+    recs = []
+    for i, n in enumerate(lens):
+        s = bytearray(rng.choice(list(b"ACGTacgt"), n).astype(np.uint8))
+        if n > 40:  # N runs at both edges, a homopolymer run
+            s[:7], s[-5:] = b"NNNNNNN", b"NNNNN"
+            s[600:640] = b"A" * 40
+        elif n == k:
+            s[-1:] = b"N"
+        recs.append(SeqRecord(f"r{i}", bytes(s), None, None))
+    wset = _wset(b"".join(r.seq for r in recs).upper(), k)
+    bloom = None
+    if mode == "bloom":
+        bloom, wset = weight_bloom(wset), np.zeros(0, np.uint64)
+    calls = []
+    sketch = SD.sketch
+
+    def counted(codes, k_, wt, out=None):
+        calls.append(len(codes))
+        return sketch(codes, k_, wt, out)
+
+    monkeypatch.setattr(SD, "sketch", counted)
+    dev = build.build_index(recs, w, k, 0, wset, hpc, bloom, device="cpu",
+                            sketch_min_bp=0)
+    assert len(calls) == 1
+    host = build.build_index(recs, w, k, 0, wset, hpc, bloom,
+                             sketch_min_bp=None)
+    assert len(host.pos) > 100
+    for f in ("keys", "start", "pos", "codes"):
+        a, b = getattr(host, f), getattr(dev, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+@pytest.mark.parametrize("seed", [0, 1, 5, 6])
+def test_sketch_device_symmetric_around_ambiguous_base(seed):
+    """A reverse-complement palindrome of 7 + N + 7 bases (k = 15): the
+    positional k-mer (N as 0) is symmetric at its end, the oracle's
+    (which skips the N and keeps the base before it) is not.  The port
+    decides the symmetric test on the oracle's k-mer, so it equals
+    native.sketch at w = 3, 5, 10, HPC off and on (the positional test
+    made l differ and shifted minimizers on these inputs)."""
+    rng = np.random.default_rng(seed)
+    s = bytearray(rng.choice(list(b"ACGT"), 400).astype(np.uint8))
+    left = bytes(rng.choice(list(b"ACGT"), 7).astype(np.uint8))
+    mid = left + b"N" + left.translate(bytes.maketrans(b"ACGT",
+                                                       b"TGCA"))[::-1]
+    s[200:215] = mid
+    seq = bytes(s)
+    sym = SD.transform_plain(torch.from_numpy(encode(seq)), 15)[3]
+    assert sym[214] == 1
+    none = np.zeros(0, np.uint64)
+    for hpc in (False, True):
+        for w in (3, 5, 10):
+            want = native.sketch(seq, w, 15, 0, hpc, none)
+            got = SD.sketch_device(seq, w, 15, 0, hpc, none, device="cpu")
+            assert all(np.array_equal(a, b) for a, b in zip(want, got)), \
+                (hpc, w)
+
+
+def test_build_index_launch_groups(monkeypatch):
+    """A genome above SKETCH_MAX_CODES goes to S1 in several launches of
+    whole records (a record longer than the cap alone): the index still
+    equals the native build."""
+    from winnowmap_tpu_torch.index import build
+    from winnowmap_tpu_torch.io.fastx import SeqRecord
+
+    rng = np.random.default_rng(41)
+    recs = [SeqRecord(f"r{i}", _random_seq(rng, n), None, None)
+            for i, n in enumerate([900, 1200, 3000, 400, 700])]
+    monkeypatch.setattr(build, "SKETCH_MAX_CODES", 2000)
+    assert [len(g) for g in build._launch_groups(
+        build.build_index(recs, 10, 15, sketch_min_bp=None).seqs)] == \
+        [1, 1, 1, 2]
+    calls = []
+    sketch = SD.sketch
+
+    def counted(codes, k, wt, out=None):
+        calls.append(len(codes))
+        return sketch(codes, k, wt, out)
+
+    monkeypatch.setattr(SD, "sketch", counted)
+    dev = build.build_index(recs, 10, 15, device="cpu", sketch_min_bp=0)
+    assert calls == [914, 1214, 3014, 1128]
+    host = build.build_index(recs, 10, 15, sketch_min_bp=None)
+    for f in ("keys", "start", "pos"):
+        assert np.array_equal(getattr(host, f), getattr(dev, f)), f
+
+
+def test_build_index_hpc_golden_reference():
+    """t_ref.fa with HPC (-H), map-pb's k = 15 and w = 10 and the golden
+    down-weight list: the index through S1 (plain, sketch_min_bp 0) == the
+    native build."""
+    from winnowmap_tpu_torch.index import build
+    from winnowmap_tpu_torch.io.fastx import read_all
+
+    recs = read_all(str(GOLD / "t_ref.fa"))
+    wset = build.load_weight_set(str(GOLD / "t_rep_k15.txt"), 15)
+    dev = build.build_index(recs, 10, 15, 1, wset, True, device="cpu",
+                            sketch_min_bp=0)
+    host = build.build_index(recs, 10, 15, 1, wset, True, sketch_min_bp=None)
+    for f in ("keys", "start", "pos"):
+        assert np.array_equal(getattr(host, f), getattr(dev, f)), f

@@ -108,7 +108,8 @@ def bind(lib) -> None:
         "wm_traceback_launch": [vp, vp, vp, vp, ci, vp, i64, vp, ci, vp],
         "wm_chain_fwd_launch": [vp] * 6 + [ci] * 6 + [ctypes.c_double]
         + [vp] * 5,
-        "wm_sketch_launch": [vp, i64, ci] + [vp] * 6,
+        "wm_sketch_launch": [vp, i64, ci, vp, i64, vp, ctypes.c_uint64,
+                             ctypes.c_uint32, ctypes.c_uint32] + [vp] * 4,
         "wm_kcount_launch": [vp, i64, ci, ci, vp, vp, i64] + [vp] * 4,
     }
     for name, args in entries.items():

@@ -8,12 +8,13 @@ src/index.c:200-360).
   codes : the reference as 0..4 codes, all sequences concatenated
 
 A genome of build_index's sketch_min_bp (DEVICE_SKETCH_MIN_BP by default)
-or more bases is sketched with the per-base
-transform on the device (sketch/device.py, S1 on a card), as the JAX
-package's index build does; a smaller one with the native weighted-minimizer
-sketch (native/src/wm_sketch.cpp).  Both give the same minimizers.  The
-index arrays stay on the host; MapEngine uploads ``codes`` to the device
-once per batch (extend/kernels.PoolContext).
+or more bases is sketched with the per-base work on the device
+(sketch/device.sketch_records: S1 on a card, one launch for the genome's
+records, the winnowing automaton on the host), as the JAX package's index
+build sketches on its device; a smaller one with the native
+weighted-minimizer sketch (native/src/wm_sketch.cpp).  Both give the same
+minimizers.  The index arrays stay on the host; MapEngine uploads
+``codes`` to the device once per batch (extend/kernels.PoolContext).
 """
 from __future__ import annotations
 
@@ -25,11 +26,15 @@ import numpy as np
 from .. import native
 from ..device import resolve_device
 from ..io.seqcode import encode
-from ..sketch.device import sketch_device
+from ..sketch.device import sketch_records, weights_on
 
 # genomes of at least this many bases sketch through the device transform
 # (the JAX package's gate, winnowmap_tpu/index/build.py:257-267)
 DEVICE_SKETCH_MIN_BP = 1_000_000
+# codes an S1 launch takes at most (its outputs take 17 bytes a code on the
+# card and as many in pinned host memory): a larger genome's records go in
+# several launches
+SKETCH_MAX_CODES = 1 << 28
 
 
 @dataclass
@@ -137,16 +142,21 @@ def load_weight_bloom(path: str | None, k: int) -> tuple | None:
     array, table_bits, salt0, salt1), or None for no list."""
     if not path:
         return None
-    arr = _read_kmers(path, k)
+    return weight_bloom(_read_kmers(path, k))
+
+
+def weight_bloom(kmers: np.ndarray) -> tuple:
+    """The reference-exact bloom filter of canonical k-mer codes (u64):
+    (table u8 array, table_bits, salt0, salt1)."""
     L = native.lib()
     bits = ctypes.c_uint64()
     s0 = ctypes.c_uint32()
     s1 = ctypes.c_uint32()
-    L.wm_bloom_params(max(len(arr), 1), ctypes.byref(bits), ctypes.byref(s0),
-                      ctypes.byref(s1))
+    L.wm_bloom_params(max(len(kmers), 1), ctypes.byref(bits),
+                      ctypes.byref(s0), ctypes.byref(s1))
     table = np.zeros(int(bits.value) // 8, np.uint8)
-    if len(arr):
-        L.wm_bloom_build(np.ascontiguousarray(arr), len(arr),
+    if len(kmers):
+        L.wm_bloom_build(np.ascontiguousarray(kmers, np.uint64), len(kmers),
                          bits.value, s0.value, s1.value, table)
     return (table, int(bits.value), int(s0.value), int(s1.value))
 
@@ -159,6 +169,19 @@ def load_weight_set(path: str | None, k: int) -> np.ndarray:
     return np.sort(_read_kmers(path, k))
 
 
+def _launch_groups(seqs) -> list[list[int]]:
+    """The rids of consecutive records, grouped for S1 launches of at most
+    SKETCH_MAX_CODES codes (a longer record alone)."""
+    groups, size = [[]], 0
+    for rid, s in enumerate(seqs):
+        if groups[-1] and size + s.length > SKETCH_MAX_CODES:
+            groups.append([])
+            size = 0
+        groups[-1].append(rid)
+        size += s.length
+    return groups
+
+
 def build_index(records, w: int, k: int, flag: int = 0,
                 weight_set: np.ndarray | None = None, is_hpc: bool = False,
                 weight_bloom: tuple | None = None, device=None,
@@ -167,8 +190,9 @@ def build_index(records, w: int, k: int, flag: int = 0,
     """Build the flat sorted index from SeqRecords (reference mm_idx_gen +
     mm_idx_post, src/index.c:289-360,200-257).  A genome of sketch_min_bp
     or more bases sketches on `device` (None: the card, which raises when
-    there is none); a smaller one, or any with sketch_min_bp None, with the
-    native sketch, and the device is not asked for."""
+    there is none) in one S1 launch (one a SKETCH_MAX_CODES of records); a
+    smaller one, or any with sketch_min_bp None, with the native sketch,
+    and the device is not asked for."""
     mi = MinimizerIndex(w=w, k=k, flag=flag)
     if weight_set is not None:
         mi.wset = weight_set
@@ -177,22 +201,25 @@ def build_index(records, w: int, k: int, flag: int = 0,
     for rec in records:
         mi.seqs.append(SeqMeta(rec.name, total, len(rec.seq)))
         total += len(rec.seq)
-    if sketch_min_bp is not None and total >= sketch_min_bp:
-        dev = resolve_device(device)
-
-        def sketch(seq, w, k, rid, is_hpc, wset, bloom):
-            return sketch_device(seq, w, k, rid, is_hpc, wset, bloom, dev)
-    else:
-        sketch = native.sketch
     codes = np.empty(total, dtype=np.uint8)
-    xs, ys = [], []
-    for rid, rec in enumerate(records):
-        s = mi.seqs[rid]
+    for s, rec in zip(mi.seqs, records):
         codes[s.offset:s.offset + s.length] = encode(rec.seq)
-        if s.length > 0:
-            x, y = sketch(rec.seq, w, k, rid, is_hpc, mi.wset, mi.bloom)
-            xs.append(x)
-            ys.append(y)
+    xs, ys = [], []
+    if sketch_min_bp is not None and total >= sketch_min_bp:
+        wt = weights_on(mi.wset, mi.bloom, resolve_device(device))
+        for group in _launch_groups(mi.seqs):
+            res = sketch_records([codes[mi.seqs[r].offset:mi.seqs[r].offset
+                                        + mi.seqs[r].length] for r in group],
+                                 w, k, group, is_hpc, wt)
+            xs += [x for x, _ in res]
+            ys += [y for _, y in res]
+    else:
+        for rid, rec in enumerate(records):
+            if len(rec.seq) > 0:
+                x, y = native.sketch(rec.seq, w, k, rid, is_hpc, mi.wset,
+                                     mi.bloom)
+                xs.append(x)
+                ys.append(y)
     mi.codes = codes
     x = np.concatenate(xs) if xs else np.zeros(0, np.uint64)
     y = np.concatenate(ys) if ys else np.zeros(0, np.uint64)

@@ -9,6 +9,7 @@ for _b, _c in zip(b"ACGT", range(4)):
 for _b, _c in zip(b"acgt", range(4)):
     NT4[_b] = _c
 NT4[ord("U")] = NT4[ord("u")] = 3
+_NT4_TABLE = NT4.tobytes()
 
 CODE2CHAR = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
@@ -25,8 +26,10 @@ for _a, _b in [
 
 
 def encode(seq: bytes) -> np.ndarray:
-    """ASCII -> 0..4 codes."""
-    return NT4[np.frombuffer(seq, dtype=np.uint8)]
+    """ASCII -> 0..4 codes (bytes.translate: a third of an index's
+    time)."""
+    return np.frombuffer(bytes(seq).translate(_NT4_TABLE),
+                         dtype=np.uint8).copy()
 
 
 def revcomp_codes(codes: np.ndarray) -> np.ndarray:

@@ -266,10 +266,9 @@ def lib() -> ctypes.CDLL:
         L.wm_batch_free.argtypes = [ctypes.c_void_p]
 
         L.wm_winnow.argtypes = [
-            ctypes.c_int64, u8p, u64p, u8p, u8p,
+            ctypes.c_int64, u8p, u64p, u8p,
             np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
-            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
-            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+            ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int,
             ctypes.POINTER(pu64), ctypes.POINTER(pu64),
         ]
@@ -533,22 +532,27 @@ def sketch(seq: bytes, w: int, k: int, rid: int, is_hpc: bool,
     return x, y
 
 
-def winnow(codes, key, z, sym, ordv, skip_len, base_pos, w, k, rid, is_hpc):
+def winnow(codes, key, flags, ordv, w, k, rid, is_hpc, skip_len=None,
+           base_pos=None):
     """Robust-winnowing automaton tail of the device sketch
-    (sketch/device.py); inputs are the device-computed per-slot arrays."""
+    (sketch/device.py) over S1's per-slot outputs: key, flags (z in bit 0;
+    the symmetric test is the automaton's own, on the oracle's k-mer, see
+    wm_sketch.cpp) and ordv.  skip_len and base_pos (int64) are read only
+    with HPC; without them a slot's run is 1 and its position its index."""
     L = lib()
     codes = np.ascontiguousarray(codes, np.uint8)
     key = np.ascontiguousarray(key, np.uint64)
-    z = np.ascontiguousarray(z, np.uint8)
-    sym = np.ascontiguousarray(sym, np.uint8)
+    flags = np.ascontiguousarray(flags, np.uint8)
     ordv = np.ascontiguousarray(ordv, np.float64)
-    skip_len = np.ascontiguousarray(skip_len, np.int64)
-    base_pos = np.ascontiguousarray(base_pos, np.int64)
+    if is_hpc:
+        skip_len = np.ascontiguousarray(skip_len, np.int64)
+        base_pos = np.ascontiguousarray(base_pos, np.int64)
+    sp = None if skip_len is None else skip_len.ctypes.data
+    bp = None if base_pos is None else base_pos.ctypes.data
     px = ctypes.POINTER(ctypes.c_uint64)()
     py = ctypes.POINTER(ctypes.c_uint64)()
-    n = L.wm_winnow(len(codes), codes, key, z, sym, ordv, skip_len,
-                    base_pos, w, k, rid, int(is_hpc), ctypes.byref(px),
-                    ctypes.byref(py))
+    n = L.wm_winnow(len(codes), codes, key, flags, ordv, sp, bp, w, k, rid,
+                    int(is_hpc), ctypes.byref(px), ctypes.byref(py))
     if n == 0:
         return _EMPTY_U64, _EMPTY_U64
     x = np.ctypeslib.as_array(px, (n,)).copy()

@@ -217,19 +217,19 @@ uint64_t wm_encode_kmer(const char* s, int k) {
 extern "C" {
 
 // Robust-winnowing selection automaton over precomputed per-slot inputs
-// (the device sketch path, winnowmap_tpu/sketch/device.py: the heavy
-// per-base transform -- k-mer roll, murmur, membership -- runs on the TPU;
-// this tail replicates the oracle's window scan, reference
-// sketch.c:128-219 selection semantics, bit-for-bit).
+// (the device sketch path, sketch/device.py: S1 computes the per-base work
+// -- k-mer roll, murmur, membership, the f64 order -- on the card; this
+// tail replicates the oracle's window scan, reference sketch.c:128-219
+// selection semantics, bit-for-bit).
 //   codes[i]  : nt4 code of slot i (4 = ambiguous resets the window)
 //   key[i]    : mixed canonical k-mer key (device)
-//   z[i]      : strand bit (device)
-//   sym[i]    : strand-symmetric k-mer (skipped without pushing)
-//   ordv[i]   : IEEE-double selection order (host f64, oracle-identical)
-//   skip_len  : HPC run length per slot (1s when !is_hpc)
-//   base_pos  : reference position of the slot's last base
+//   flags[i]  : strand bit z (bit 0; bit 1, the device's symmetric flag,
+//               is not read: see below) (device)
+//   ordv[i]   : IEEE-double selection order (device, oracle-identical)
+//   skip_len  : HPC run length per slot (read only when is_hpc)
+//   base_pos  : reference position of the slot's last base (null: i)
 int64_t wm_winnow(int64_t n, const uint8_t* codes, const uint64_t* key,
-                  const uint8_t* z, const uint8_t* sym, const double* ordv,
+                  const uint8_t* flags, const double* ordv,
                   const int64_t* skip_len, const int64_t* base_pos, int w,
                   int k, uint32_t rid, int is_hpc, uint64_t** out_x,
                   uint64_t** out_y) {
@@ -242,6 +242,13 @@ int64_t wm_winnow(int64_t n, const uint8_t* codes, const uint64_t* key,
   double min_order = 2.0;
   int min_pos = 0, buf_pos = 0, l = 0, kmer_span = 0;
   HpcQueue tq;
+  // the oracle's k-mer pair: an ambiguous code is skipped, not shifted in,
+  // so within k - 1 codes after one it still holds the codes before it,
+  // where the device's k-mer (an ambiguous code as 0) may be symmetric when
+  // the oracle's is not, or the other way; the symmetric test that decides
+  // whether l counts the slot is made here, on the oracle's pair
+  const uint64_t shift1 = 2 * (k - 1), mask = (1ULL << 2 * k) - 1;
+  uint64_t kmer_f = 0, kmer_r = 0;
 
   for (int64_t i = 0; i < n; ++i) {
     int c = codes[i];
@@ -254,11 +261,14 @@ int64_t wm_winnow(int64_t n, const uint8_t* codes, const uint64_t* key,
         if (tq.count > k) kmer_span -= tq.shift();
       } else
         kmer_span = l + 1 < k ? l + 1 : k;
-      if (sym[i]) continue;  // strand-ambiguous symmetric k-mer
+      kmer_f = (kmer_f << 2 | c) & mask;
+      kmer_r = (kmer_r >> 2) | (3ULL ^ c) << shift1;
+      if (kmer_f == kmer_r) continue;  // strand-ambiguous symmetric k-mer
       ++l;
       if (l >= k && kmer_span < 256) {
+        const uint32_t pos = base_pos ? (uint32_t)base_pos[i] : (uint32_t)i;
         infox = key[i] << 8 | kmer_span;
-        infoy = (uint64_t)rid << 32 | (uint32_t)base_pos[i] << 1 | z[i];
+        infoy = (uint64_t)rid << 32 | pos << 1 | (flags[i] & 1);
         info_order = ordv[i];
       }
     } else {

@@ -69,6 +69,9 @@ inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
 inline int2 make_int2(int x, int y) { return {x, y}; }
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 
@@ -331,6 +334,12 @@ inline T atomicAdd(T* p, T v) {
   *p = old + v;
   return old;
 }
+template <class T>
+inline T atomicOr(T* p, T v) {
+  const T old = *p;
+  *p = old | v;
+  return old;
+}
 // blocks run one after another and fibers switch only at barriers: a
 // write is seen by every later read
 inline void __threadfence_block() {}
@@ -355,6 +364,15 @@ inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 // -ffast-math: each rounds once, as the intrinsics do on the card
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __ull2double_rn(unsigned long long x) { return (double)x; }
+inline long long __double_as_longlong(double x) {
+  return stub::from_bits<long long>(stub::bits(x));
+}
+inline unsigned long long __brevll(unsigned long long x) {
+  unsigned long long r = 0;
+  for (int i = 0; i < 64; ++i) r |= ((x >> i) & 1ull) << (63 - i);
+  return r;
+}
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
