@@ -7,10 +7,22 @@
 // in winnowmap_tpu_torch/tools/probe_{bisect,l0,core}.py.
 //
 // What they measure: not bytes nor arithmetic but the fixed costs of the
-// row structure K1 first had (before ext_kernel kept its ring slots in
-// registers): one block of 128 threads per job, the state rows in shared
-// memory, a carry read, a barrier, the cells of each thread's segment of
-// consecutive lanes, a second barrier.
+// row structure the extension kernels run (ext_common.cuh's design notes).
+// P3 is built on K1's row: each thread owns groups of 4 consecutive lanes
+// and keeps their state in registers across rows; lane t-1's old x, x2, v
+// comes by __shfl_up_sync inside a warp and from a double-buffered edge
+// array at warp boundaries; a job that spans several warps takes one block
+// barrier a row, a job of one warp none.  P2 keeps a step's state the same
+// way, a thread a 4-lane word.  P1 keeps the row structure K1 first had:
+// one block of 128 threads per job, the state in shared memory, one
+// barrier a step.
+//
+// What bounds them on this card.  P3 at level 6 and the timed inputs: its
+// jobs set done near row 293, so most of its dirs rows are zeros, bytes at
+// the memory rate; the rows before are the issue rate of the 16-lane
+// integer pipe of each SM's schedulers (a cell is some 65 instructions,
+// four jobs an SM).  P2: a launch's own latency (its 63 steps are one
+// bytewise add each).
 // The TPU grid's sequential step axis (KR steps of ROWS rows) is a loop
 // inside the block; TB, the TPU's tile height, has no counterpart.  Every
 // probe writes its final state to a device output (the TPU's VMEM scratch),
@@ -27,12 +39,19 @@ namespace {
 
 constexpr int kNeg = -1000000000;  // the probes' -10**9
 constexpr int kMaxSeg = 8;         // P1 rolls: lanes a thread holds
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
 }
 __device__ __forceinline__ int wsub(int a, int b) {
   return (int)((unsigned)a - (unsigned)b);
+}
+// the value as the compiler must recompute it: a loop of adds on it stays
+// a loop (the probes time round trips, not their closed form)
+template <class T>
+__device__ __forceinline__ void opaque(T& v) {
+  asm volatile("" : "+r"(v));
 }
 
 // ---------------------------------------------------------------------------
@@ -41,7 +60,45 @@ __device__ __forceinline__ int wsub(int a, int b) {
 // level 0 state round trip, 1 + the recurrence, 2 + band masks, 3 + dirs,
 // 4 + the approx-max / z-drop walk, 5 + the window slide, 6 + the query
 // slice.  DM: dirs 0 none, 1 uint8 rows, 2 int32 words of 4 rows (row j
-// at bits 8 (j % 4)).  S32: the state rows are int32 (no wrap).
+// at bits 8 (j % 4)).  S32: the state is int32 between steps (no wrap).
+//
+// Layout.  A job's window holds kCoreLanes = 640 lanes, five chunks of 128;
+// Wb is a multiple of 128 up to 640.  Thread tid of a job's NT = 32 NW
+// threads owns the groups of 4 lanes g = k NT + tid, k < G (its slots):
+// lanes 4g .. 4g + 3.  A warp's slot k is chunk k NW + w, so a u8 dirs row
+// leaves as 32-bit words, 128 contiguous bytes a warp instruction, and the
+// band (rounded to 16) is skipped chunk by chunk without divergence.  G = 5
+// is one warp a job (140 state registers a thread); G = 1 is five warps of
+// one group a thread with one barrier a row, as K1 at 128 threads has.
+// G = 1 is the launch taken (kCoreGroups): it timed faster at level 6, its
+// chunks' rows running on more schedulers at once (PERF.md).
+//   * u v x y x2 y2 s of a thread's lanes stay in registers as int32 (as
+//     the probe computes them), wrapped to int8 at each step's end.
+//   * Slots are computed in descending order, and a slot's four old carries
+//     are read before its lanes change, so every cell sees lane t-1's old
+//     x, x2, v.  One warp: the last lane of slot k-1 (lane 31's) reaches
+//     lane 0 of slot k in the same shuffle.  Several warps: each warp's
+//     lane 31 writes its chunks' last lanes after the row (after the step's
+//     wrap) into `edge`, double-buffered by row parity, and one barrier
+//     orders them before the next row's reads.
+//   * Level 4's walk reads v[lH0t] and u[lH0t + 1] from a mirror of u and
+//     v in shared memory: one warp writes the chunks it computed and, at a
+//     step's end, the wrapped state (__syncwarp orders the reads); several
+//     warps write every chunk into the buffer of the row's parity before
+//     the row's barrier.  mx, H0, lH0t and done are computed alike by every
+//     thread.
+//   * After done (from the next step on: the state no longer changes) warp
+//     0 walks over the mirror while the other warps (one warp a job: that
+//     warp, first) write the step's dirs rows as 16-byte zero stores: no
+//     barrier, no cell.
+//   * Level 5's slide moves the state by 16 lanes once a step into shared
+//     memory (its result is overwritten at the step's end, as the probe's).
+//   * Level 6's query block, roll(qbuf[:, :Wb + 256], 7), is staged in
+//     shared memory once a job; a group reads its 4 bytes as two words.
+
+constexpr int kChunk = 128;      // lanes of a warp's slot: 32 threads x 4
+constexpr int kCoreLanes = 640;  // a job's window: five chunks
+constexpr int kCoreGroups = 1;   // the launch taken when none is asked
 
 struct CoreArgs {
   const uint8_t* qbuf;
@@ -54,149 +111,356 @@ struct CoreArgs {
   int B, Wb, ROWS, KR;
 };
 
-__host__ __device__ inline size_t core_smem(int Wb, bool s32) {
-  // 7 int32 working rows, the packed dirs row, 7 state rows, the query
-  // block (Wb + 256 bytes), each 16-byte aligned
-  const size_t w = (size_t)8 * Wb * 4;
-  const size_t s = ((size_t)7 * Wb * (s32 ? 4 : 1) + 15) / 16 * 16;
-  return w + s + ((size_t)Wb + 256 + 15) / 16 * 16;
+// The offsets of a job's shared memory: the query block, the slide's rows,
+// the walk's mirror of u and v, the chunk edges.
+struct CoreGeo {
+  int q_off, sl_off, m_off, edge_off, shm;
+};
+
+__host__ __device__ inline int core_take(int& at, int bytes) {
+  const int here = at;
+  at += (bytes + 15) / 16 * 16;
+  return here;
 }
 
-template <int L, int DM, bool S32>
-__global__ void __launch_bounds__(128) core_kernel(CoreArgs A) {
+__host__ __device__ inline CoreGeo core_geo(int L, int NW, bool s32, int Wb) {
+  CoreGeo g;
+  int at = 0;
+  g.q_off = core_take(at, L >= 6 ? Wb + 256 + 16 : 0);
+  g.sl_off = core_take(at, L >= 5 ? 7 * Wb * (s32 ? 4 : 1) : 0);
+  g.m_off = core_take(at, L >= 4 ? 2 * 2 * Wb * 4 : 0);
+  g.edge_off = core_take(at, NW > 1 ? 2 * (kCoreLanes / kChunk) * 4 * 4 : 0);
+  g.shm = at;
+  return g;
+}
+
+// lanes [at, at + 4) of a row of St from four int32 values
+template <class St>
+__device__ __forceinline__ void put4(St* row, int at, int a0, int a1, int a2,
+                                     int a3) {
+  if constexpr (sizeof(St) == 1)
+    *(uint32_t*)(row + at) = (uint32_t)(a0 & 255) | (uint32_t)(a1 & 255) << 8 |
+                             (uint32_t)(a2 & 255) << 16 | (uint32_t)a3 << 24;
+  else
+    *(uint4*)(row + at) = make_uint4(a0, a1, a2, a3);
+}
+
+__device__ __forceinline__ void walk_step(int d0, int d1, int l1, int& mx,
+                                          int& H0, int& lH0t, int& done) {
+  H0 = wadd(H0, max(d0, d1));
+  if (d1 > d0) lH0t = l1;
+  if (H0 > mx)
+    mx = H0;
+  else if (wsub(mx, H0) > 400)
+    done = 1;
+}
+
+// The band a row computes before done: lanes [lo, hi], 16-rounded (hi < lo
+// once the band has left the window)
+__device__ __forceinline__ void core_band(int r, int ql, int Wb, int& lo,
+                                          int& hi) {
+  const int st0 = max(max(0, r - ql + 1), (r - 500) >> 1);
+  const int en0 = min(min(ql - 1, r), (r + 501) >> 1);
+  lo = max((st0 >> 4) * 16, 0);
+  hi = min(((en0 + 16) >> 4) * 16 - 1, Wb - 1);
+}
+
+template <int L, int DM, bool S32, int G>
+__global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
   using St = typename std::conditional<S32, int32_t, int8_t>::type;
+  constexpr int N = 4 * G;                              // lanes a thread
+  constexpr int NT = kCoreLanes / 4 / G, NW = NT / 32;  // threads, warps
+  constexpr int C = kCoreLanes / kChunk;                // chunks
   extern __shared__ __align__(16) uint8_t smem[];
-  const int b = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
+  const CoreGeo geo = core_geo(L, NW, S32, A.Wb);
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
+            w = tid >> 5;
   const int Wb = A.Wb, ROWS = A.ROWS, B = A.B, QR = Wb + 256;
-  // the i32 values of a step: u v x y x2 y2 s (the TPU's vregs)
-  int32_t* W = (int32_t*)smem;
-  int32_t *U = W, *V = W + Wb, *X = W + 2 * Wb, *Y = W + 3 * Wb,
-          *X2 = W + 4 * Wb, *Y2 = W + 5 * Wb, *Sc = W + 6 * Wb;
-  int32_t* Pk = W + 7 * Wb;  // DM 2: the word being packed, per lane
-  St* S = (St*)(smem + (size_t)8 * Wb * 4);  // state between steps
-  uint8_t* Q = smem + core_smem(Wb, S32) - ((size_t)Wb + 256 + 15) / 16 * 16;
+  const uint32_t* Q32 = (const uint32_t*)(smem + geo.q_off);
+  St* Sl = (St*)(smem + geo.sl_off);
+  int* mU = (int*)(smem + geo.m_off);       // [2][Wb]: u and v for the walk
+  int* mV = mU + 2 * Wb;
+  int* edge = (int*)(smem + geo.edge_off);  // [2][C][4]: x x2 v of a last lane
   uint8_t* dirs8 = (uint8_t*)A.dirs;
   int32_t* dirs32 = (int32_t*)A.dirs;
 
+  int u[N], v[N], x[N], y[N], x2[N], y2[N], s[N];
+  int pk[DM == 2 ? N : 1];  // DM 2: the word being packed, per lane
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+    u[q] = v[q] = x[q] = y[q] = x2[q] = y2[q] = s[q] = pk[DM == 2 ? q : 0] = 0;
+  // my chunk kk's first lane, and whether it lies in the window
+  auto lane0 = [&](int kk) { return 4 * (kk * NT + tid); };
+  auto real = [&](int kk) { return kChunk * (kk * NW + w) < Wb; };
+  // u and v of my real chunks into mirror buffer p
+  auto mirror = [&](int p) {
+#pragma unroll
+    for (int kk = 0; kk < G; ++kk)
+      if (real(kk)) {
+        const int t0 = lane0(kk), q = 4 * kk;
+        put4(mU + p * Wb, t0, u[q], u[q + 1], u[q + 2], u[q + 3]);
+        put4(mV + p * Wb, t0, v[q], v[q + 1], v[q + 2], v[q + 3]);
+      }
+  };
+
   const int ql = A.qlen[b];
-  for (int i = tid; i < 7 * Wb; i += nthr) S[i] = 0;
   int mx = 0, H0 = 0, lH0t = 0, done = 0;
   long long ncell = L < 2 ? (long long)A.KR * ROWS * Wb : 0;
   int nrow = L < 2 ? A.KR * ROWS : 0;
 
+  if (L >= 6) {  // the query block rolled by 7, and 16 zero bytes after it
+    uint8_t* Q = smem + geo.q_off;
+    const uint8_t* qb = A.qbuf + (int64_t)b * A.qstride;
+    for (int i = tid; i < QR + 16; i += NT)
+      Q[i] = i >= QR ? 0 : qb[i >= 7 ? i - 7 : i - 7 + QR];
+  }
+  if (NW > 1 && L >= 1)  // row 0's carries: the zero state
+    for (int i = tid; i < 4 * C; i += NT) edge[4 * C + i] = 0;
+  if (L >= 4 && NW == 1) mirror(0);
+  if (L >= 6 || (NW > 1 && L >= 1)) __syncthreads();
+
+  // fast: from the row after done (under DM 2, after its packed row) the
+  // state no longer changes: warp 0 walks over u and v as they were then,
+  // in mirror buffer 0 (wrapped on the read from the next step on), while
+  // the other warps write the dirs rows as 16-byte zero stores
+  bool fast = false;
+  int kfast = 0;
   for (int k = 0; k < A.KR; ++k) {
     const int r0 = k * ROWS;
-    __syncthreads();  // last step's reads of W are over
-    for (int i = tid; i < 7 * Wb; i += nthr) W[i] = (int32_t)S[i];
-    if (L >= 6)  // the query block rolled by 7: roll(qbuf[:, :QR], 7)
-      for (int i = tid; i < QR; i += nthr)
-        Q[i] = A.qbuf[(int64_t)b * A.qstride + (i >= 7 ? i - 7 : i - 7 + QR)];
-    __syncthreads();
-    if (L >= 5 && r0 > 0)  // the slide: the step's end overwrites it
-      for (int i = tid; i < 7 * Wb; i += nthr)
-        S[i] = (i % Wb) >= Wb - 16 ? (St)0 : (St)W[i + 16];
-
-    if (L == 0) {
-      for (int j = 0; j < ROWS; ++j)
-        for (int l = tid; l < Wb; l += nthr) U[l] = wadd(U[l], 1);
-    } else {
-      for (int j = 0; j < ROWS; ++j) {
-        const int r = r0 + j;
+    if (L >= 5 && r0 > 0) {
+      // the slide: lane l takes lane l + 16, the last 16 lanes 0
+#pragma unroll
+      for (int kk = 0; kk < G; ++kk) {
+        const int t0 = lane0(kk), q = 4 * kk;
+        if (!real(kk)) continue;
+        auto slide = [&](int a, const int(&r)[N]) {
+          St* row = Sl + a * Wb;
+          if (t0 >= 16)
+            put4(row, t0 - 16, r[q], r[q + 1], r[q + 2], r[q + 3]);
+          if (t0 >= Wb - 16) put4(row, t0, 0, 0, 0, 0);
+        };
+        slide(0, u), slide(1, v), slide(2, x), slide(3, y), slide(4, x2);
+        slide(5, y2), slide(6, s);
+      }
+    }
+    for (int j = 0; j < ROWS; ++j) {
+      const int r = r0 + j, par = r & 1, jm = j & 3;
+      const bool last = j == ROWS - 1;
+      if (L >= 4 && fast) {
+        // rows j .. ROWS - 1: their dirs as 16-byte zero stores, the flat
+        // index (row, unit) in strides of the storing threads (every warp
+        // but warp 0; one warp a job: that warp, first), then warp 0's walk
+        constexpr int kUnit = DM == 1 ? 16 : 4;  // lanes a 16-byte store
+        constexpr int NS = NW > 1 ? NT - 32 : NT;
+        const int ts = NW > 1 ? tid - 32 : tid;
+        if (DM != 0 && ts >= 0) {
+          const int units = Wb / kUnit;
+          const int ra = DM == 1 ? r : (r + 3) >> 2;  // rows (packed rows)
+          const int nr = (DM == 1 ? r0 + ROWS : (r0 + ROWS) >> 2) - ra;
+          int jj = ts / units, c = ts % units;
+          const int dj = NS / units, dc = NS % units;
+          for (; jj < nr; jj += dj, c += dc) {
+            if (c >= units) c -= units, ++jj;
+            if (jj >= nr) break;
+            const int64_t row = (int64_t)(ra + jj) * B + b;
+            uint4* at = (uint4*)(DM == 1 ? (void*)(dirs8 + row * Wb)
+                                         : (void*)(dirs32 + row * Wb));
+            at[c] = make_uint4(0, 0, 0, 0);
+          }
+        }
+        if (w == 0) {  // warp 0 holds res
+          // the walk over the frozen u and v (wrapped on the read after
+          // the step it froze in): the values for both lanes the next row
+          // may stand on are loaded ahead, so a row waits on no load
+          const bool wrap = !S32 && k > kfast;
+          auto at = [&](const int* m, int l) {
+            if (l < 0 || l >= Wb) return kNeg;
+            const int val = m[l];
+            return max(wrap ? (int)(int8_t)val : val, kNeg);
+          };
+          int cv = at(mV, lH0t), cu = at(mU, wadd(lH0t, 1));
+          for (int jj = j; jj < ROWS; ++jj) {
+            const int l = lH0t, l1 = wadd(l, 1);
+            const int nv = at(mV, l1), nu = at(mU, wadd(l, 2));
+            walk_step(cv, cu, l1, mx, H0, lH0t, done);
+            if (lH0t != l) cv = nv, cu = nu;
+          }
+        }
+        if (!S32)  // the step's end: the state as int8
+#pragma unroll
+          for (int q = 0; q < N; ++q) {
+            u[q] = (int8_t)u[q], v[q] = (int8_t)v[q], x[q] = (int8_t)x[q];
+            y[q] = (int8_t)y[q], x2[q] = (int8_t)x2[q], y2[q] = (int8_t)y2[q];
+            s[q] = (int8_t)s[q];
+          }
+        break;
+      }
+      if (L >= 4 && NW == 1) __syncwarp();  // the last row's walk has read
+      if (L == 0) {
+#pragma unroll
+        for (int q = 0; q < N; ++q) {
+          u[q] = wadd(u[q], 1);
+          opaque(u[q]);
+        }
+      } else {
         int lo = 0, hi = Wb - 1;  // the lanes this row computes
         if (L >= 2) {
-          const int st0 = max(max(0, r - ql + 1), (r - 500) >> 1);
-          const int en0 = min(min(ql - 1, r), (r + 501) >> 1);
-          lo = max((st0 >> 4) * 16, 0);
-          hi = min(((en0 + 16) >> 4) * 16 - 1, Wb - 1);
+          core_band(r, ql, Wb, lo, hi);
           if (done) hi = lo - 1;
           if (hi >= lo) ncell += hi - lo + 1, ++nrow;
         }
-        const int n = hi - lo + 1;
-        const int K = n > 0 ? (n + nthr - 1) / nthr : 0;
-        const int t_lo = lo + tid * K;
-        const int t_hi = min(t_lo + K - 1, hi);
-        // phase A: the carry into my segment's first lane
-        int cx = -6, cx2 = -25, cv = -6;
-        if (t_lo <= t_hi && t_lo > 0)
-          cx = X[t_lo - 1], cx2 = X2[t_lo - 1], cv = V[t_lo - 1];
-        __syncthreads();
-        // phase B: my segment's cells in lane order
-        const int jm = j & 3;
-        for (int t = t_lo; t <= t_hi; ++t) {
-          const int u = U[t], sv = Sc[t];
-          const int uu = (L >= 2 && t == r) ? -6 : u;
-          const int sc = L >= 6 ? ((int)Q[ROWS - 1 - j + t] == sv ? 2 : -4)
-                                : wadd(sv, 1);
-          const int xt1 = cx, x2t1 = cx2, vt1 = cv;
-          cx = X[t], cx2 = X2[t], cv = V[t];
-          const int a = wadd(xt1, vt1), bb = wadd(Y[t], uu);
-          const int a2 = wadd(x2t1, vt1), b2 = wadd(Y2[t], uu);
-          int z = sc, d = 0;
-          if (L >= 3) {
-            d = z > a ? 0 : 1;
-            z = max(z, a);
-            d = z > bb ? d : 2;
-            z = max(z, bb);
-            d = z > a2 ? d : 3;
-            z = max(z, a2);
-            d = z > b2 ? d : 4;
-            z = max(z, b2);
-          } else {
-            z = max(max(max(z, a), max(bb, a2)), b2);
+#pragma unroll
+        for (int kk = G - 1; kk >= 0; --kk) {
+          const int c = kk * NW + w, l0 = kChunk * c;
+          const int t0 = lane0(kk), q0 = 4 * kk;
+          if (l0 >= Wb) continue;  // a chunk past the window: every lane
+          uint32_t dw = 0;         // the u8 dirs of my 4 lanes
+          if (L < 2 || (l0 <= hi && l0 + kChunk - 1 >= lo)) {
+            // lane t0 - 1's old x, x2, v
+            int cx, cx2, cv;
+            if (NW == 1) {
+              const int qp = kk > 0 ? q0 - 1 : q0 + 3;
+              const int src = (lane + 31) & 31;
+              cx = __shfl_sync(kFull, lane == 31 ? x[qp] : x[q0 + 3], src);
+              cx2 = __shfl_sync(kFull, lane == 31 ? x2[qp] : x2[q0 + 3], src);
+              cv = __shfl_sync(kFull, lane == 31 ? v[qp] : v[q0 + 3], src);
+            } else {
+              cx = __shfl_up_sync(kFull, x[q0 + 3], 1);
+              cx2 = __shfl_up_sync(kFull, x2[q0 + 3], 1);
+              cv = __shfl_up_sync(kFull, v[q0 + 3], 1);
+              if (lane == 0 && c > 0) {
+                const int* e = edge + ((par ^ 1) * C + c - 1) * 4;
+                cx = e[0], cx2 = e[1], cv = e[2];
+              }
+            }
+            if (t0 == 0) cx = -6, cx2 = -25, cv = -6;
+            const int px[4] = {cx, x[q0], x[q0 + 1], x[q0 + 2]};
+            const int px2[4] = {cx2, x2[q0], x2[q0 + 1], x2[q0 + 2]};
+            const int pv[4] = {cv, v[q0], v[q0 + 1], v[q0 + 2]};
+            uint32_t qw = 0;  // the query bytes of my 4 lanes
+            if (L >= 6) {
+              const int at = ROWS - 1 - j + t0;
+              qw = __byte_perm(Q32[at >> 2], Q32[(at >> 2) + 1],
+                               (at & 3) * 0x1111 + 0x3210);
+            }
+            // the band's ends are 16-lane aligned: my 4 lanes are all in it
+            // or all out, so a group, not a lane, skips its cells
+            if (L < 2 || (t0 >= lo && t0 <= hi))
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int q = q0 + i, t = t0 + i;
+              const int uu = (L >= 2 && t == r) ? -6 : u[q];
+              const int sc = L >= 6 ? ((int)((qw >> (8 * i)) & 255) == s[q]
+                                           ? 2
+                                           : -4)
+                                    : wadd(s[q], 1);
+              const int a = wadd(px[i], pv[i]), bb = wadd(y[q], uu);
+              const int a2 = wadd(px2[i], pv[i]), b2 = wadd(y2[q], uu);
+              int z = sc, d = 0;
+              if (L >= 3) {
+                d = z > a ? 0 : 1;
+                z = max(z, a);
+                d = z > bb ? d : 2;
+                z = max(z, bb);
+                d = z > a2 ? d : 3;
+                z = max(z, a2);
+                d = z > b2 ? d : 4;
+                z = max(z, b2);
+              } else {
+                z = max(max(max(z, a), max(bb, a2)), b2);
+              }
+              z = min(z, 2);
+              const int zq = z - 6, zq2 = z - 25;
+              const int an = wsub(a, zq), bn = wsub(bb, zq);
+              const int a2n = wsub(a2, zq2), b2n = wsub(b2, zq2);
+              u[q] = wsub(z, pv[i]);
+              v[q] = wsub(z, uu);
+              x[q] = max(an, 0) - 8;
+              y[q] = max(bn, 0) - 8;
+              x2[q] = max(a2n, 0) - 26;
+              y2[q] = max(b2n, 0) - 26;
+              s[q] = sc;
+              if (L >= 3)
+                dw |= (uint32_t)(d | (an > 0 ? 8 : 0) | (bn > 0 ? 16 : 0) |
+                                 (a2n > 0 ? 32 : 0) | (b2n > 0 ? 64 : 0))
+                      << (8 * i);
+            }
+            if (L >= 4 && NW == 1) {  // the walk's copy of the chunk
+              put4(mU, t0, u[q0], u[q0 + 1], u[q0 + 2], u[q0 + 3]);
+              put4(mV, t0, v[q0], v[q0 + 1], v[q0 + 2], v[q0 + 3]);
+            }
           }
-          z = min(z, 2);
-          U[t] = wsub(z, vt1);
-          V[t] = wsub(z, uu);
-          const int zq = z - 6, zq2 = z - 25;
-          const int an = wsub(a, zq), bn = wsub(bb, zq);
-          const int a2n = wsub(a2, zq2), b2n = wsub(b2, zq2);
-          X[t] = (an > 0 ? an : 0) - 8;
-          Y[t] = (bn > 0 ? bn : 0) - 8;
-          X2[t] = (a2n > 0 ? a2n : 0) - 26;
-          Y2[t] = (b2n > 0 ? b2n : 0) - 26;
-          Sc[t] = sc;
-          if (L >= 3) {
-            d |= (an > 0 ? 8 : 0) | (bn > 0 ? 16 : 0) | (a2n > 0 ? 32 : 0) |
-                 (b2n > 0 ? 64 : 0);
-            if (DM == 1)
-              dirs8[((int64_t)r * B + b) * Wb + t] = (uint8_t)d;
-            else if (DM == 2)
-              Pk[t] = jm == 0 ? d : (Pk[t] | (d << (8 * jm)));
+          if (L >= 3 && DM == 1)  // dirs are 0 outside the band
+            *(uint32_t*)(dirs8 + ((int64_t)r * B + b) * Wb + t0) = dw;
+          if (L >= 3 && DM == 2) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int dv = (int)((dw >> (8 * i)) & 255);
+              pk[q0 + i] = jm == 0 ? dv : (pk[q0 + i] | dv << (8 * jm));
+            }
+            if (jm == 3)
+              *(uint4*)(dirs32 + ((int64_t)(r >> 2) * B + b) * Wb + t0) =
+                  make_uint4(pk[q0], pk[q0 + 1], pk[q0 + 2], pk[q0 + 3]);
           }
         }
-        if (L >= 3 && DM != 0)  // dirs are 0 outside the band
-          for (int l = tid; l < Wb; l += nthr)
-            if (l < lo || l > hi) {
-              if (DM == 1)
-                dirs8[((int64_t)r * B + b) * Wb + l] = 0;
-              else if (jm == 0)
-                Pk[l] = 0;
-            }
+      }
+      // the walk: v[lH0t] and u[lH0t + 1] after the row, before the wrap,
+      // from the mirror (one warp: buffer 0; several: buffer par, after
+      // the row's barrier)
+      const int l1 = wadd(lH0t, 1);
+      if (L >= 4 && NW > 1) mirror(par);
+      if (L >= 4 && NW == 1) __syncwarp();
+      if (!S32 && last) {  // the step's end: the state as int8
+#pragma unroll
+        for (int q = 0; q < N; ++q) {
+          u[q] = (int8_t)u[q], v[q] = (int8_t)v[q], x[q] = (int8_t)x[q];
+          y[q] = (int8_t)y[q], x2[q] = (int8_t)x2[q], y2[q] = (int8_t)y2[q];
+          s[q] = (int8_t)s[q];
+        }
+      }
+      if (NW > 1 && L >= 1) {
+        if (lane == 31)
+#pragma unroll
+          for (int kk = 0; kk < G; ++kk) {
+            const int c = kk * NW + w, q = 4 * kk + 3;
+            if (kChunk * c >= Wb) continue;
+            int* e = edge + (par * C + c) * 4;
+            e[0] = x[q], e[1] = x2[q], e[2] = v[q];
+          }
         __syncthreads();
-        if (L >= 3 && DM == 2 && jm == 3)
-          for (int l = tid; l < Wb; l += nthr)
-            dirs32[((int64_t)(r >> 2) * B + b) * Wb + l] = Pk[l];
-        if (L >= 4) {
-          // the H0 walk: v[lH0t] and u[lH0t + 1], -10**9 off the lanes
-          const int l1 = wadd(lH0t, 1);
-          const int d0 = (lH0t >= 0 && lH0t < Wb) ? max(V[lH0t], kNeg) : kNeg;
-          const int d1 = (l1 >= 0 && l1 < Wb) ? max(U[l1], kNeg) : kNeg;
-          H0 = wadd(H0, max(d0, d1));
-          if (d1 > d0) lH0t = l1;
-          if (H0 > mx)
-            mx = H0;
-          else if (wsub(mx, H0) > 400)
-            done = 1;
+      }
+      if (L >= 4) {
+        const int* wU = mU + (NW > 1 ? par * Wb : 0);
+        const int* wV = mV + (NW > 1 ? par * Wb : 0);
+        const int d0 = lH0t >= 0 && lH0t < Wb ? max(wV[lH0t], kNeg) : kNeg;
+        const int d1 = l1 >= 0 && l1 < Wb ? max(wU[l1], kNeg) : kNeg;
+        walk_step(d0, d1, l1, mx, H0, lH0t, done);
+        if (done && (DM != 2 || jm == 3)) {  // the rows left are fast
+          __syncthreads();  // every warp has read the mirror
+          mirror(0);        // this step's state (wrapped if it ended)
+          __syncthreads();
+          fast = true;
+          kfast = k;
+        } else if (NW == 1 && last) {  // the wrapped state for the next step
+          __syncwarp();
+          mirror(0);
         }
       }
     }
-    // the step's end: the state as int8 (as int32 under S32)
-    for (int i = tid; i < 7 * Wb; i += nthr) S[i] = (St)W[i];
   }
 
   St* out = (St*)A.state;
-  for (int i = tid; i < 7 * Wb; i += nthr)
-    out[((int64_t)(i / Wb) * B + b) * Wb + i % Wb] = S[i];
+#pragma unroll
+  for (int kk = 0; kk < G; ++kk) {
+    const int t0 = lane0(kk), q = 4 * kk;
+    if (!real(kk)) continue;
+    auto put = [&](int a, const int(&r)[N]) {
+      put4(out + ((int64_t)a * B + b) * Wb, t0, r[q], r[q + 1], r[q + 2],
+           r[q + 3]);
+    };
+    put(0, u), put(1, v), put(2, x), put(3, y), put(4, x2), put(5, y2);
+    put(6, s);
+  }
   if (tid < 16)
     A.res[b * 16 + tid] = tid == 0   ? mx
                           : tid == 1 ? H0
@@ -206,51 +470,64 @@ __global__ void __launch_bounds__(128) core_kernel(CoreArgs A) {
   if (tid == 0 && A.work) A.work[2 * b] = ncell, A.work[2 * b + 1] = nrow;
 }
 
-// Launches (or, with `blocks`, asks the occupancy of) one instantiation.
-template <int L, int DM, bool S32>
+// Launches (or, with `blocks`, asks the occupancy of) one instantiation:
+// a block a job, kCoreLanes / 4G threads.
+template <int L, int DM, bool S32, int G>
 int core_run(const CoreArgs& A, int* blocks, void* stream) {
-  const size_t shm = core_smem(A.Wb, S32);
+  constexpr int NT = kCoreLanes / 4 / G;
+  if (A.Wb < kChunk || A.Wb > kCoreLanes || A.Wb % kChunk)
+    return (int)cudaErrorInvalidValue;
+  const CoreGeo g = core_geo(L, NT / 32, S32, A.Wb);
   cudaError_t err = cudaSuccess;
-  if (shm > 48 * 1024)
-    err = cudaFuncSetAttribute(core_kernel<L, DM, S32>,
+  if (g.shm > 48 * 1024)
+    err = cudaFuncSetAttribute(core_kernel<L, DM, S32, G>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)shm);
+                               g.shm);
   if (err != cudaSuccess) return (int)err;
   if (blocks)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, core_kernel<L, DM, S32>, 128, shm);
+        blocks, core_kernel<L, DM, S32, G>, NT, g.shm);
   if (A.B <= 0) return 0;
-  core_kernel<L, DM, S32><<<A.B, 128, shm, (cudaStream_t)stream>>>(A);
+  core_kernel<L, DM, S32, G><<<A.B, NT, g.shm, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }
 
-template <int L, int DM>
-int core_pick_s(int s32, const CoreArgs& A, int* blocks, void* stream) {
-  return s32 ? core_run<L, DM, true>(A, blocks, stream)
-             : core_run<L, DM, false>(A, blocks, stream);
-}
-
-template <int L>
+template <int L, int G>
 int core_pick(int dm, int s32, const CoreArgs& A, int* blocks, void* stream) {
-  if constexpr (L < 3) {
-    return core_pick_s<L, 0>(s32, A, blocks, stream);  // no dirs below 3
-  } else {
-    if (dm == 1) return core_pick_s<L, 1>(s32, A, blocks, stream);
-    if (dm == 2) return core_pick_s<L, 2>(s32, A, blocks, stream);
-    return core_pick_s<L, 0>(s32, A, blocks, stream);
+  auto pick_s = [&](auto dmc) {
+    constexpr int D = decltype(dmc)::value;
+    return s32 ? core_run<L, D, true, G>(A, blocks, stream)
+               : core_run<L, D, false, G>(A, blocks, stream);
+  };
+  if constexpr (L >= 3) {
+    if (dm == 1) return pick_s(std::integral_constant<int, 1>());
+    if (dm == 2) return pick_s(std::integral_constant<int, 2>());
   }
+  return pick_s(std::integral_constant<int, 0>());  // no dirs below 3
 }
 
-int core_dispatch(int level, int dm, int s32, const CoreArgs& A, int* blocks,
-                  void* stream) {
+template <int G>
+int core_level(int level, int dm, int s32, const CoreArgs& A, int* blocks,
+               void* stream) {
   switch (level) {
-    case 0: return core_pick<0>(dm, s32, A, blocks, stream);
-    case 1: return core_pick<1>(dm, s32, A, blocks, stream);
-    case 2: return core_pick<2>(dm, s32, A, blocks, stream);
-    case 3: return core_pick<3>(dm, s32, A, blocks, stream);
-    case 4: return core_pick<4>(dm, s32, A, blocks, stream);
-    case 5: return core_pick<5>(dm, s32, A, blocks, stream);
-    case 6: return core_pick<6>(dm, s32, A, blocks, stream);
+    case 0: return core_pick<0, G>(dm, s32, A, blocks, stream);
+    case 1: return core_pick<1, G>(dm, s32, A, blocks, stream);
+    case 2: return core_pick<2, G>(dm, s32, A, blocks, stream);
+    case 3: return core_pick<3, G>(dm, s32, A, blocks, stream);
+    case 4: return core_pick<4, G>(dm, s32, A, blocks, stream);
+    case 5: return core_pick<5, G>(dm, s32, A, blocks, stream);
+    case 6: return core_pick<6, G>(dm, s32, A, blocks, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// groups: 4-lane groups a thread (5: one warp a job; 1: five warps and a
+// barrier a row), 0 for kCoreGroups
+int core_dispatch(int groups, int level, int dm, int s32, const CoreArgs& A,
+                  int* blocks, void* stream) {
+  switch (groups ? groups : kCoreGroups) {
+    case 1: return core_level<1>(level, dm, s32, A, blocks, stream);
+    case 5: return core_level<5>(level, dm, s32, A, blocks, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -258,28 +535,36 @@ int core_dispatch(int level, int dm, int s32, const CoreArgs& A, int* blocks,
 // ---------------------------------------------------------------------------
 // P2: the state floor (probe_l0.py run)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(128)
+// A block a job, a thread a 32-bit word (4 lanes) of each state array, in a
+// register: array 0's word takes a bytewise +1 a step, threads 0-15 hold
+// the job's accumulators.  A step has no cross-lane dependence, so no
+// barrier; opaque() keeps each step's round trip in the loop.  Without
+// touch the loop is empty: the launch's own floor.
+__global__ void __launch_bounds__(1024)
     l0_kernel(int32_t* res, int8_t* state, int nstate, int touch,
               int read_acc, int B, int Wb, int KR) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  volatile int8_t* S = (volatile int8_t*)smem;  // nstate rows of Wb
-  __shared__ int acc[16];
-  const int b = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
-  for (int i = tid; i < nstate * Wb; i += nthr) S[i] = 0;
-  if (tid < 16) acc[tid] = 0;
-  for (int k = 0; k < KR; ++k) {
-    __syncthreads();
-    if (!touch) continue;
-    for (int i = tid; i < nstate * Wb; i += nthr) {
-      int v = S[i];
-      if (i < Wb) v = wadd(v, 1);  // array 0 only
-      S[i] = (int8_t)v;
+  const int b = blockIdx.x, i = threadIdx.x;
+  uint32_t w0 = 0;  // array 0's lanes 4i .. 4i + 3
+  int acc = 0;      // accumulator i (i < 16)
+  if (touch)
+    for (int k = 0; k < KR; ++k) {
+      w0 = __vadd4(w0, 0x01010101u);
+      if (read_acc) acc = wadd(acc, 1);
+      opaque(w0);
+      opaque(acc);
     }
-    if (read_acc && tid < 16) acc[tid] = wadd(acc[tid], 1);
-  }
-  for (int i = tid; i < nstate * Wb; i += nthr)
-    state[((int64_t)(i / Wb) * B + b) * Wb + i % Wb] = S[i];
-  if (tid < 16) res[b * 16 + tid] = acc[tid];
+  if (4 * i < Wb)
+    for (int a = 0; a < nstate; ++a) {
+      const uint32_t word = a == 0 ? w0 : 0;
+      int8_t* row = state + ((int64_t)a * B + b) * Wb;
+      if (Wb % 4 == 0) {
+        *(uint32_t*)(row + 4 * i) = word;
+      } else {
+        for (int j = 0; j < 4 && 4 * i + j < Wb; ++j)
+          row[4 * i + j] = (int8_t)(word >> (8 * j));
+      }
+    }
+  if (i < 16) res[b * 16 + i] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -390,37 +675,54 @@ int bisect_run(int32_t* res, uint8_t* dirs, int8_t* state, int B, int Wb,
 
 }  // namespace
 
+// P3 at `groups` 4-lane groups a thread (5 or 1; 0: kCoreGroups)
+extern "C" int wm_probe_core_launch_groups(int groups, int level,
+                                           int dirs_mode, int s32,
+                                           const void* qbuf, int qstride,
+                                           const void* qlen, void* res,
+                                           void* dirs, void* state,
+                                           void* work, int B, int Wb,
+                                           int ROWS, int KR, void* stream) {
+  const CoreArgs A{(const uint8_t*)qbuf, qstride, (const int32_t*)qlen,
+                   (int32_t*)res, dirs, state, (long long*)work, B, Wb,
+                   ROWS, KR};
+  return core_dispatch(groups, level, dirs_mode, s32, A, nullptr, stream);
+}
+
 extern "C" int wm_probe_core_launch(int level, int dirs_mode, int s32,
                                     const void* qbuf, int qstride,
                                     const void* qlen, void* res, void* dirs,
                                     void* state, void* work, int B, int Wb,
                                     int ROWS, int KR, void* stream) {
-  const CoreArgs A{(const uint8_t*)qbuf, qstride, (const int32_t*)qlen,
-                   (int32_t*)res, dirs, state, (long long*)work, B, Wb,
-                   ROWS, KR};
-  return core_dispatch(level, dirs_mode, s32, A, nullptr, stream);
+  return wm_probe_core_launch_groups(0, level, dirs_mode, s32, qbuf, qstride,
+                                     qlen, res, dirs, state, work, B, Wb,
+                                     ROWS, KR, stream);
 }
 
-// Blocks of the core kernel at (level, dirs_mode, s32, Wb) one SM holds.
-extern "C" int wm_probe_core_occupancy(int level, int dirs_mode, int s32,
-                                       int Wb, int* blocks) {
+// Blocks (jobs) of the core kernel at (groups, level, dirs_mode, s32, Wb)
+// one SM holds.
+extern "C" int wm_probe_core_occupancy_groups(int groups, int level,
+                                              int dirs_mode, int s32, int Wb,
+                                              int* blocks) {
   CoreArgs A{};
   A.Wb = Wb;
-  return core_dispatch(level, dirs_mode, s32, A, blocks, nullptr);
+  return core_dispatch(groups, level, dirs_mode, s32, A, blocks, nullptr);
 }
 
+extern "C" int wm_probe_core_occupancy(int level, int dirs_mode, int s32,
+                                       int Wb, int* blocks) {
+  return wm_probe_core_occupancy_groups(0, level, dirs_mode, s32, Wb, blocks);
+}
+
+// P2: a block a job, a thread a word (Wb <= 4096)
 extern "C" int wm_probe_l0_launch(void* res, void* state, int nstate,
                                   int touch, int read_acc, int B, int Wb,
                                   int KR, void* stream) {
-  const size_t shm = (size_t)nstate * Wb;
-  cudaError_t err = cudaSuccess;
-  if (shm > 48 * 1024)
-    err = cudaFuncSetAttribute(l0_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)shm);
-  if (err != cudaSuccess) return (int)err;
+  const int words = (Wb + 3) / 4;
+  if (Wb < 1 || words > 1024) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  l0_kernel<<<B, 128, shm, (cudaStream_t)stream>>>(
+  const int threads = words > 32 ? (words + 31) / 32 * 32 : 32;
+  l0_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
       (int32_t*)res, (int8_t*)state, nstate, touch, read_acc, B, Wb, KR);
   return (int)cudaGetLastError();
 }

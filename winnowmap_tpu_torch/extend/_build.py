@@ -51,22 +51,23 @@ def _nvcc_version(nvcc: str) -> str:
     return out.strip().splitlines()[-1]
 
 
-def _target(src: str, nvcc_ver: str) -> Path:
-    h = hashlib.sha256((CSRC / src).read_bytes())
+def _target(src: str, nvcc_ver: str, csrc: Path) -> Path:
+    h = hashlib.sha256((csrc / src).read_bytes())
     for hdr in HEADERS:
-        h.update((CSRC / hdr).read_bytes())
+        h.update((csrc / hdr).read_bytes())
     h.update(nvcc_ver.encode())
     h.update(ARCH.encode())
     return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(sources=SOURCES) -> dict:
+def build(sources=SOURCES, csrc: Path = CSRC) -> dict:
     """Compile every source not yet built (one nvcc each, in parallel);
-    returns {source: path}."""
+    returns {source: path}.  `csrc`: another checkout's csrc/, built into
+    this one's BUILD_DIR (the names hold the sources' hash)."""
     nvcc = nvcc_path()
     ver = _nvcc_version(nvcc)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {s: _target(s, ver) for s in sources}
+    targets = {s: _target(s, ver, Path(csrc)) for s in sources}
     procs = {}
     t0 = time.perf_counter()
     for src, out in targets.items():
@@ -75,7 +76,7 @@ def build(sources=SOURCES) -> dict:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-lineinfo", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               str(CSRC / src)]
+               str(Path(csrc) / src)]
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True),
                       tmp, out)
@@ -111,14 +112,23 @@ def bind(lib) -> None:
         "wm_sketch_launch": [vp, i64, ci, vp, i64, vp, ctypes.c_uint64,
                              ctypes.c_uint32, ctypes.c_uint32] + [vp] * 4,
         "wm_kcount_launch": [vp, i64, ci, ci, vp, vp, i64] + [vp] * 4,
+        "wm_probe_core_launch": [ci, ci, ci, vp, ci, vp, vp, vp, vp, vp]
+        + [ci] * 4 + [vp],
+        "wm_probe_core_launch_groups": [ci] * 4 + [vp, ci, vp, vp, vp, vp,
+                                                   vp] + [ci] * 4 + [vp],
+        "wm_probe_core_occupancy": [ci] * 4 + [ctypes.POINTER(ci)],
+        "wm_probe_core_occupancy_groups": [ci] * 5 + [ctypes.POINTER(ci)],
+        "wm_probe_l0_launch": [vp, vp] + [ci] * 6 + [vp],
+        "wm_probe_bisect_launch": [ci, vp, vp, vp] + [ci] * 4 + [vp],
     }
     for name, args in entries.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, ci
-    if hasattr(lib, "wm_cuda_error_string"):
-        lib.wm_cuda_error_string.argtypes = [ci]
-        lib.wm_cuda_error_string.restype = ctypes.c_char_p
+    for name in ("wm_cuda_error_string", "wm_probe_error_string"):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = [ci], ctypes.c_char_p
 
 
 def load():
@@ -163,19 +173,7 @@ def load_probes() -> ctypes.CDLL:
         if "probes" in _libs:
             return _libs["probes"]
         lib = ctypes.CDLL(str(build(PROBE_SOURCES)["probes.cu"]))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.wm_probe_core_launch.argtypes = ([ci, ci, ci, vp, ci, vp, vp, vp,
-                                              vp, vp] + [ci] * 4 + [vp])
-        lib.wm_probe_core_occupancy.argtypes = [ci] * 4 + [
-            ctypes.POINTER(ci)]
-        lib.wm_probe_l0_launch.argtypes = [vp, vp] + [ci] * 6 + [vp]
-        lib.wm_probe_bisect_launch.argtypes = [ci, vp, vp, vp] + [ci] * 4 + [
-            vp]
-        for fn in (lib.wm_probe_core_launch, lib.wm_probe_core_occupancy,
-                   lib.wm_probe_l0_launch, lib.wm_probe_bisect_launch):
-            fn.restype = ci
-        lib.wm_probe_error_string.argtypes = [ci]
-        lib.wm_probe_error_string.restype = ctypes.c_char_p
+        bind(lib)
         _libs["probes"] = lib
         return lib
 

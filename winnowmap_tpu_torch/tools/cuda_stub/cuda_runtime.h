@@ -354,6 +354,10 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
     r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
   return r;
 }
+// bytewise add, each byte wrapping on its own
+inline unsigned __vadd4(unsigned a, unsigned b) {
+  return ((a & 0x7f7f7f7fu) + (b & 0x7f7f7f7fu)) ^ ((a ^ b) & 0x80808080u);
+}
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((uint64_t)a * b) >> 32);
 }

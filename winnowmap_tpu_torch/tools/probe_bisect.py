@@ -116,6 +116,26 @@ def bisect_plain(body, qlen, *, Wb=640, ROWS=32, KR=16, with_dirs=True):
     return res, dirs, state
 
 
+def bisect_outputs(qlen, Wb, ROWS, KR, with_dirs=True):
+    """(res, dirs or None, state) of a launch on qlen's device, unwritten."""
+    B, dev = qlen.shape[0], qlen.device
+    return (torch.empty((B, 16), dtype=torch.int32, device=dev),
+            torch.empty((KR * ROWS, B, Wb), dtype=torch.uint8, device=dev)
+            if with_dirs else None,
+            torch.empty((N_SCR, B, Wb), dtype=torch.int8, device=dev))
+
+
+def bisect_launch(lib, body, res, dirs, state, ROWS, KR, stream) -> int:
+    """One launch of csrc/probes.cu's bisect kernel for `body` through `lib`
+    (the card's library or the CUDA stub's); returns the entry's error
+    code."""
+    _, B, Wb = state.shape
+    return lib.wm_probe_bisect_launch(
+        BODIES.index(body), res.data_ptr(),
+        dirs.data_ptr() if dirs is not None else None, state.data_ptr(), B,
+        Wb, ROWS, KR, stream)
+
+
 def bisect_probe(body, qlen, *, Wb=640, ROWS=32, KR=16, with_dirs=True):
     """P1's wrapper: CUDA tensors launch csrc/probes.cu's bisect kernel for
     the body, CPU tensors run bisect_plain.  The kernel leaves the dirs
@@ -131,15 +151,9 @@ def bisect_probe(body, qlen, *, Wb=640, ROWS=32, KR=16, with_dirs=True):
         raise ValueError("dirs_store needs the dirs output")
     from ..extend import _build
 
-    B, dev = qlen.shape[0], qlen.device
-    res = torch.empty((B, 16), dtype=torch.int32, device=dev)
-    state = torch.empty((N_SCR, B, Wb), dtype=torch.int8, device=dev)
-    dirs = (torch.empty((KR * ROWS, B, Wb), dtype=torch.uint8, device=dev)
-            if with_dirs else None)
-    tools.launch("probe_bisect", _build.load_probes().wm_probe_bisect_launch,
-                 BODIES.index(body), res.data_ptr(),
-                 dirs.data_ptr() if dirs is not None else None,
-                 state.data_ptr(), B, Wb, ROWS, KR)
+    res, dirs, state = bisect_outputs(qlen, Wb, ROWS, KR, with_dirs)
+    tools.launch("probe_bisect", bisect_launch, _build.load_probes(), body,
+                 res, dirs, state, ROWS, KR)
     return res, dirs, state
 
 

@@ -13,21 +13,33 @@ Counterpart of tests/tools/probe_core.py (the Pallas probe, pallas_call at
   5 slide    : + the between-step window roll
   6 qslide   : + the per-row unaligned query slice
 
-The kernel (csrc/probes.cu, core_kernel) is built on K1's row structure:
-one block of 128 threads per job, each thread a segment of consecutive
-lanes, the rows in shared memory, a carry read, a barrier, the cells, a
-second barrier per row.  From level 2 on only the 16-rounded band lanes
-are computed, as K1 does; dirs rows are still written whole (0 outside the
-band), as the probe's output holds them.  The TPU grid's sequential step
-axis is a loop inside the block.  Level 4's masked lane reductions are the
-direct reads of K1's approximate path.  The TPU's tile height TB and the
-"parallel" grid semantics change no result and have no counterpart here:
-the ``L6 parallel-b`` variant is gone.
+The kernel (csrc/probes.cu, core_kernel<L, DM, S32, G>) is built on K1's
+register-slot row (csrc/ext_common.cuh): a block a job, each thread G
+groups of 4 consecutive lanes whose state stays in registers across rows,
+lane t-1's values by shuffle inside a warp and through a double-buffered
+edge array across warps.  `groups` picks G: 1 is five warps a job with one
+barrier a row (GROUPS, the default: it timed faster at level 6), 5 is one
+warp a job and no block barrier.  The kernel takes Wb a multiple of 128 up
+to 640.
+From level 2 on only the 16-rounded band lanes are computed, chunk by
+chunk of 128, as K1 does; dirs rows are still written whole (0 outside the
+band), as the probe's output holds them, and once a job has set done its
+later rows only walk and write the zero rows.  The TPU grid's sequential
+step axis is a loop inside the block.  Level 4's masked lane reductions
+are two reads of a shared-memory copy of u and v.  The
+TPU's tile height TB and the "parallel" grid semantics change no result
+and have no counterpart here: the ``L6 parallel-b`` variant is gone.
+
+On the CPU, core_plain runs (core_probe and run_level with
+device="cpu"), and tests/test_torch_probes_stub.py runs the CUDA source
+itself through tools/cuda_stub; on the card, ``python -m
+winnowmap_tpu_torch.tools.probe_core [--variants]`` and chip_smoke.py's
+phase 7.
 
 Units: ms per call (CUDA events, after a warm-up), Gcells/s over padded
 cells (B * KR * ROWS * Wb, the TPU script's unit) and over band cells, and
 ns per anti-diagonal row, the call time over KR * ROWS times the waves of
-blocks the card runs (occupancy * SMs).
+jobs the card runs (a block a job: occupancy * SMs).
 """
 from __future__ import annotations
 
@@ -40,6 +52,11 @@ from .. import tools
 from ..device import resolve_device
 
 DIRS_MODES = ("none", "u8", "i32")
+# the kernel's 4-lane groups a thread (csrc/probes.cu kCoreGroups), the
+# ones it takes, and the lanes a job's window holds (kCoreLanes)
+GROUPS = 1
+GROUP_CHOICES = (5, 1)
+KERNEL_LANES = 640
 
 levels = {
     0: "rw state only      ",
@@ -236,15 +253,48 @@ def core_plain(level, qbuf, qlen, *, Wb, ROWS, KR, dirs_mode="u8",
     return res, dirs, state
 
 
+def _check_kernel(Wb, groups):
+    if groups not in GROUP_CHOICES:
+        raise ValueError(f"groups {groups} not in {GROUP_CHOICES}")
+    if Wb % 128 or Wb > KERNEL_LANES:
+        raise ValueError(f"the kernel takes Wb a multiple of 128, at most "
+                         f"{KERNEL_LANES}")
+
+
+def core_launch(lib, level, dirs_mode, s32, groups, qbuf, qlen, res, dirs,
+                state, work, Wb, ROWS, KR, stream) -> int:
+    """One launch of csrc/probes.cu's core kernel through `lib` (the card's
+    library or the CUDA stub's) on tensors of one device; groups None is
+    the library's own default.  Returns the entry's error code."""
+    args = (level, DIRS_MODES.index(dirs_mode), int(s32), qbuf.data_ptr(),
+            qbuf.shape[1], qlen.data_ptr(), res.data_ptr(),
+            dirs.data_ptr() if dirs is not None else None, state.data_ptr(),
+            work.data_ptr() if work is not None else None, qbuf.shape[0], Wb,
+            ROWS, KR, stream)
+    if groups is None:
+        return lib.wm_probe_core_launch(*args)
+    return lib.wm_probe_core_launch_groups(groups, *args)
+
+
+def core_outputs(qbuf, Wb, ROWS, KR, dirs_mode="u8", s32=False):
+    """(res, dirs or None, state) of a launch on qbuf's device, unwritten."""
+    return _outputs(qbuf.shape[0], Wb, ROWS, KR, dirs_mode, s32, qbuf.device,
+                    False)
+
+
 def core_probe(level, qbuf, qlen, *, Wb, ROWS, KR, dirs_mode="u8",
-               s32=False, work=None):
-    """P3's wrapper: CUDA tensors launch csrc/probes.cu's core kernel,
-    CPU tensors run core_plain.  Same outputs as core_plain; below level
-    3 the kernel writes no dirs (the tensor is returned unwritten)."""
+               s32=False, work=None, groups=None, lib=None):
+    """P3's wrapper: CUDA tensors launch csrc/probes.cu's core kernel (at
+    `groups` 4-lane groups a thread, None: GROUPS; `lib`, another build of
+    a probes source, launches at its own default), CPU tensors run
+    core_plain.  Same outputs as core_plain; below level 3 the kernel
+    writes no dirs (the tensor is returned unwritten)."""
     if qbuf.device.type == "cpu":
         return core_plain(level, qbuf, qlen, Wb=Wb, ROWS=ROWS, KR=KR,
                           dirs_mode=dirs_mode, s32=s32, work=work)
     _check(level, qbuf, qlen, Wb, ROWS, KR, dirs_mode)
+    if lib is None:
+        _check_kernel(Wb, GROUPS if groups is None else groups)
     if not (qbuf.is_contiguous() and qlen.is_contiguous()):
         raise ValueError("qbuf and qlen must be contiguous")
     if work is not None and (work.dtype != torch.int64 or tuple(
@@ -253,52 +303,57 @@ def core_probe(level, qbuf, qlen, *, Wb, ROWS, KR, dirs_mode="u8",
         raise ValueError("work must be (B, 2) int64 on qbuf's device")
     from ..extend import _build
 
-    B = qbuf.shape[0]
-    res, dirs, state = _outputs(B, Wb, ROWS, KR, dirs_mode, s32,
-                                qbuf.device, False)
-    tools.launch("probe_core", _build.load_probes().wm_probe_core_launch,
-                 level, DIRS_MODES.index(dirs_mode), int(s32),
-                 qbuf.data_ptr(), qbuf.shape[1], qlen.data_ptr(),
-                 res.data_ptr(), dirs.data_ptr() if dirs is not None else None,
-                 state.data_ptr(),
-                 work.data_ptr() if work is not None else None, B, Wb,
-                 ROWS, KR)
+    res, dirs, state = core_outputs(qbuf, Wb, ROWS, KR, dirs_mode, s32)
+    tools.launch("probe_core", core_launch,
+                 lib if lib is not None else _build.load_probes(), level,
+                 dirs_mode, s32, groups, qbuf, qlen, res, dirs, state, work,
+                 Wb, ROWS, KR)
     return res, dirs, state
 
 
-def occupancy(level, Wb, dirs_mode="u8", s32=False) -> int:
-    """Blocks of the core kernel one SM holds at once (CUDA occupancy)."""
+def occupancy(level, Wb, dirs_mode="u8", s32=False, groups=None,
+              lib=None) -> int:
+    """Blocks (jobs) of the core kernel one SM holds at once (CUDA
+    occupancy); `groups` and `lib` as core_probe's."""
     import ctypes
 
     from ..extend import _build
 
+    lib = lib if lib is not None else _build.load_probes()
     n = ctypes.c_int(0)
-    rc = _build.load_probes().wm_probe_core_occupancy(
-        level, DIRS_MODES.index(dirs_mode), int(s32), Wb, ctypes.byref(n))
+    args = (level, DIRS_MODES.index(dirs_mode), int(s32), Wb,
+            ctypes.byref(n))
+    rc = (lib.wm_probe_core_occupancy(*args) if groups is None
+          else lib.wm_probe_core_occupancy_groups(groups, *args))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {rc} "
-                           f"({_build.probe_error_string(rc)})")
+                           f"({lib.wm_probe_error_string(rc).decode()})")
     return n.value
 
 
-def build(level, Wb, ROWS, KR, dirs_mode="u8", s32=False):
+def build(level, Wb, ROWS, KR, dirs_mode="u8", s32=False, groups=None,
+          lib=None):
     """The probe at one level and shape: a function (qbuf, qlen) -> (res,
     dirs, state) through core_probe."""
     return functools.partial(core_probe, level, Wb=Wb, ROWS=ROWS, KR=KR,
-                             dirs_mode=dirs_mode, s32=s32)
+                             dirs_mode=dirs_mode, s32=s32, groups=groups,
+                             lib=lib)
 
 
 def run_level(level, B=512, Wb=640, ROWS=32, KR=63, reps=3,
-              dirs_mode="u8", s32=False, device=None) -> dict:
+              dirs_mode="u8", s32=False, device=None, groups=None,
+              lib=None) -> dict:
     """Times one level at the TPU script's inputs (qbuf zeros, qlen 1000):
     ms per call, Gcells/s padded and over the band cells the probe
     computed, and on the card ns per anti-diagonal row and per active row
     (the band leaves the Wb-lane window near row 1640, and from level 4 on
-    the jobs set done part way) and the waves of blocks that took."""
+    the jobs set done part way) and the waves of jobs that took.
+    `groups` and `lib` as core_probe's."""
     dev = resolve_device(device)
     qbuf = torch.zeros((B, Wb + 384), dtype=torch.uint8, device=dev)
     qlen = torch.full((B, 1), 1000, dtype=torch.int32, device=dev)
-    f = build(level, Wb, ROWS, KR, dirs_mode=dirs_mode, s32=s32)
+    f = build(level, Wb, ROWS, KR, dirs_mode=dirs_mode, s32=s32,
+              groups=groups, lib=lib)
     work = torch.zeros((B, 2), dtype=torch.int64, device=dev)
     ms = tools.time_ms(lambda: f(qbuf, qlen, work=work), dev, reps)
     cells = B * KR * ROWS * Wb
@@ -311,7 +366,8 @@ def run_level(level, B=512, Wb=640, ROWS=32, KR=63, reps=3,
            "device": dev.type}
     if dev.type == "cuda":
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        waves = -(-B // (occupancy(level, Wb, dirs_mode, s32) * sms))
+        per_sm = occupancy(level, Wb, dirs_mode, s32, groups, lib)
+        waves = -(-B // (per_sm * sms))
         out["waves"] = waves
         out["ns_per_row"] = ms * 1e6 / (KR * ROWS * waves)
         out["ns_per_active_row"] = ms * 1e6 / (rows * waves)

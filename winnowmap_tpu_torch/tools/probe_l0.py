@@ -5,15 +5,23 @@ off a step does nothing.
 
 Counterpart of tests/tools/probe_l0.py (the Pallas probe, pallas_call at
 :55); its outputs are that probe's, exactly: res = KR in every column when
-touch and read_acc, else 0.  The kernel (csrc/probes.cu, l0_kernel) runs
-one block of 128 threads per job with the state in shared memory; the
-TPU grid's sequential step axis is a loop inside the block, one barrier a
-step, and the state is read and written through volatile accesses so
-that every step's round trip stays in the code.  The final state is an
-output.  ROWS only scales the padded-cell unit (the TPU kernel has no row
-loop).  TB, the TPU's tile height, has no counterpart (one block per job):
-the TPU script's four TB cases would repeat the "7 state arrays" and
+touch and read_acc, else 0.  The kernel (csrc/probes.cu, l0_kernel) keeps
+the state as K1 and P3 keep theirs, in registers: a block a job, a thread
+a 32-bit word (4 lanes) of each array, array 0's word taking a bytewise
++1 a step, threads 0-15 the accumulators.  The TPU grid's sequential step
+axis is a loop of KR round trips inside the thread (no barrier: a step
+has no cross-lane dependence), kept a loop by an empty asm on the values;
+without touch the loop is empty, so "empty (no touch)" is the launch's
+own floor.  The final state and res are outputs, stored a word a thread.
+ROWS only scales the padded-cell unit (the TPU kernel has no row loop).
+TB, the TPU's tile height, has no counterpart (one block per job): the
+TPU script's four TB cases would repeat the "7 state arrays" and
 "ROWS=64 KR=32" cases here, so the table leaves them out.
+
+On the CPU, l0_plain runs (l0_probe and run with device="cpu"), and
+tests/test_torch_probes_stub.py runs the CUDA source itself through
+tools/cuda_stub; on the card, ``python -m
+winnowmap_tpu_torch.tools.probe_l0`` and chip_smoke.py's phase 7.
 """
 from __future__ import annotations
 
@@ -62,37 +70,64 @@ def l0_plain(qlen, *, nstate=7, Wb=640, KR=63, touch=True, read_acc=True):
     return acc, state
 
 
-def l0_probe(qlen, *, nstate=7, Wb=640, KR=63, touch=True, read_acc=True):
-    """P2's wrapper: CUDA tensors launch csrc/probes.cu's l0 kernel, CPU
-    tensors run l0_plain."""
+def l0_outputs(qlen, nstate, Wb):
+    """(res, state) of a launch on qlen's device, unwritten."""
+    B, dev = qlen.shape[0], qlen.device
+    return (torch.empty((B, 16), dtype=torch.int32, device=dev),
+            torch.empty((nstate, B, Wb), dtype=torch.int8, device=dev))
+
+
+def l0_launch(lib, res, state, touch, read_acc, KR, stream) -> int:
+    """One launch of csrc/probes.cu's l0 kernel through `lib` (the card's
+    library or the CUDA stub's); returns the entry's error code."""
+    nstate, B, Wb = state.shape
+    return lib.wm_probe_l0_launch(res.data_ptr(), state.data_ptr(), nstate,
+                                  int(touch), int(read_acc), B, Wb, KR,
+                                  stream)
+
+
+def l0_probe(qlen, *, nstate=7, Wb=640, KR=63, touch=True, read_acc=True,
+             lib=None):
+    """P2's wrapper: CUDA tensors launch csrc/probes.cu's l0 kernel (`lib`:
+    another build of a probes source), CPU tensors run l0_plain."""
     if qlen.device.type == "cpu":
         return l0_plain(qlen, nstate=nstate, Wb=Wb, KR=KR, touch=touch,
                         read_acc=read_acc)
     _check(qlen, nstate, Wb, KR)
+    if lib is None and Wb > 4096:
+        raise ValueError("the kernel takes a thread a 4-lane word: Wb <= "
+                         "4096")
     from ..extend import _build
 
-    B = qlen.shape[0]
-    res = torch.empty((B, 16), dtype=torch.int32, device=qlen.device)
-    state = torch.empty((nstate, B, Wb), dtype=torch.int8,
-                        device=qlen.device)
-    tools.launch("probe_l0", _build.load_probes().wm_probe_l0_launch,
-                 res.data_ptr(), state.data_ptr(), nstate, int(touch),
-                 int(read_acc), B, Wb, KR)
+    res, state = l0_outputs(qlen, nstate, Wb)
+    tools.launch("probe_l0", l0_launch,
+                 lib if lib is not None else _build.load_probes(), res,
+                 state, touch, read_acc, KR)
     return res, state
 
 
 def run(nstate=7, Wb=640, ROWS=32, KR=63, B=512, touch=True, reps=3,
-        read_acc=True, device=None) -> dict:
+        read_acc=True, device=None, lib=None) -> dict:
     """Times one case: ms per call and Gcells/s over padded cells
-    (B * KR * ROWS * Wb)."""
+    (B * KR * ROWS * Wb); on the card also kernel_ms, the kernel's own
+    device time (torch.profiler): a call's few microseconds are below the
+    wrapper's host time, which the events over a train of calls measure."""
     dev = resolve_device(device)
     qlen = torch.full((B, 1), 1000, dtype=torch.int32, device=dev)
-    ms = tools.time_ms(lambda: l0_probe(qlen, nstate=nstate, Wb=Wb, KR=KR,
-                                        touch=touch, read_acc=read_acc),
-                       dev, reps)
+
+    def call():
+        return l0_probe(qlen, nstate=nstate, Wb=Wb, KR=KR, touch=touch,
+                        read_acc=read_acc, lib=lib)
+
+    ms = tools.time_ms(call, dev, reps)
     cells = B * KR * ROWS * Wb
-    return {"ms": ms, "gcells_padded": cells / ms / 1e6,
-            "device": dev.type}
+    out = {"ms": ms, "gcells_padded": cells / ms / 1e6, "device": dev.type}
+    if dev.type == "cuda":
+        from .time_kc_chain import by_kernel
+
+        out["kernel_ms"] = sum(by_kernel(torch, call, max(reps, 10))
+                               .values())
+    return out
 
 
 def main(argv=None, device=None):
@@ -100,8 +135,10 @@ def main(argv=None, device=None):
         print(tools.card_line(), flush=True)
     for name, kv in cases:
         o = run(**kv, device=device)
+        kern = (f", kernel {o['kernel_ms'] * 1e3:.2f} us"
+                if "kernel_ms" in o else "")
         print(f"{name}: {o['gcells_padded']:7.2f} Gcells/s padded "
-              f"({o['ms']:.3f} ms/call, {o['device']})", flush=True)
+              f"({o['ms']:.3f} ms/call{kern}, {o['device']})", flush=True)
 
 
 if __name__ == "__main__":
