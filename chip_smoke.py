@@ -82,12 +82,10 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      KR=3, numpy seed 20261016: every P1 body, every P2 case, P3 levels
      0-6 under each dirs mode and the int32 state), and every case again
      at the shape it is timed at (P3 with 8 jobs and ~320 rows), P3 level
-     6 once more at the full shape, at both of its launches (five warps a
-     job, the kept one, and one warp a job); then the P3 ladder (and again
-     at 288 rows, where no job stops early), its level 6 at one warp a job
-     and its variants, the P2 cases (with each kernel's own time by
-     torch.profiler) and the P1 bodies timed through their entry points,
-     beside K1's row time from phase 2.
+     6 once more at the full shape; then the P3 ladder (and again at 288
+     rows, where no job stops early) and its variants, the P2 cases (with
+     each kernel's own time by torch.profiler) and the P1 bodies timed
+     through their entry points, beside K1's row time from phase 2.
   8. the generator mapping path (--junc-bed, -X, -D, --for-only,
      --rev-only, --sr: map/batch.map_batch_generator) on the card: -x
      splice --junc-bed byte-equal to golden_splice_junc.paf; the generator
@@ -2310,16 +2308,13 @@ def phase7(torch, k1):
         f"Wb={PC.TIMED_WB} ROWS={PC.TIMED_ROWS} KR={PC.TIMED_KR['bisect']}")
     Bf, Wb, ROWS, KR = PROBE_SHAPE
     qbuf, qlen = PC.small_inputs(dev, B=Bf, Wb=Wb, ROWS=ROWS, KR=KR)
-    for groups in P3.GROUP_CHOICES:
-        err["probe_core"] = max(err["probe_core"], PC.check_core(
-            qbuf, qlen, 6, "u8", False, Wb=Wb, ROWS=ROWS, KR=KR,
-            groups=groups))
+    err["probe_core"] = max(err["probe_core"], PC.check_core(
+        qbuf, qlen, 6, "u8", False, Wb=Wb, ROWS=ROWS, KR=KR))
     torch.cuda.synchronize()
     if err["probe_core"]:
         fail(f"P3 level 6 != plain at B={Bf} Wb={Wb} KR*ROWS={KR * ROWS}")
     log(f"[phase 7] P3 level 6 u8 at B={Bf} Wb={Wb} ROWS={ROWS} KR={KR} "
-        f"(half the jobs the timed inputs), {P3.GROUP_CHOICES} groups a "
-        f"thread: kernel == plain")
+        f"(half the jobs the timed inputs): kernel == plain")
     # the plain versions at the timed inputs (qbuf zeros, qlen 1000)
     zq = torch.zeros((Bf, Wb + 384), dtype=torch.uint8, device=dev)
     qlen = PC.timed_qlen(dev)
@@ -2336,9 +2331,6 @@ def phase7(torch, k1):
     ladder = [P3.run_level(lv, device=DEVICE) for lv in P3.levels]
     short = [P3.run_level(lv, KR=PROBE_SHORT_KR, device=DEVICE)
              for lv in P3.levels]
-    # level 6 at one warp a job (5 groups a thread, no block barrier)
-    one_warp = [P3.run_level(6, KR=kr, groups=5, device=DEVICE)
-                for kr in (KR, PROBE_SHORT_KR)]
     variants = [(name, P3.run_level(**kv, device=DEVICE))
                 for name, kv in P3.variants]
     l0 = {name: P2.run(**kv, device=DEVICE) for name, kv in P2.cases}
@@ -2376,10 +2368,6 @@ def phase7(torch, k1):
             f"{o['ns_per_row']:.1f} ns/row ({o['rows_active']} active{add})"
             f"; K1 {k1_ns:.1f} ns/row")
         prev = o["ns_per_row"]
-    for o, full in zip(one_warp, (ladder[6], short[6])):
-        log(f"[phase 7] P3 L6 at {o['KR'] * o['ROWS']} rows, one warp a job: "
-            f"{o['ms']:.4f} ms, {o['ns_per_row']:.1f} ns/row ({o['waves']} "
-            f"wave(s)); five warps a job (kept): {full['ms']:.4f} ms")
     for name, o in variants:
         log(f"[phase 7] P3 {name.strip()}: {o['ms']:.3f} ms, "
             f"{o['gcells_padded']:.2f} Gcells/s padded, {o['gcells_band']:.2f}"
@@ -2390,8 +2378,7 @@ def phase7(torch, k1):
             f"{o['gcells_padded']:.2f} Gcells/s padded")
     log("[phase 7] JSON " + json.dumps({
         "k1": {**k1, "waves": k1_waves, "ns_per_row": k1_ns},
-        "ladder": ladder, "short": short, "one_warp": one_warp,
-        "variants": dict(variants),
+        "ladder": ladder, "short": short, "variants": dict(variants),
         "l0": l0,
         "bisect": bis}))
 
@@ -2719,7 +2706,7 @@ def main():
                 w in ln for w in ("entry function", "registers", "spill"))]
             for ln in lines:
                 log(f"[phase 1] {src}: {ln}")
-        else:  # the probes' 60-odd kernels: registers and spills in all
+        else:  # the probes' 38 kernels: registers and spills in all
             regs = [int(m) for m in re.findall(r"Used (\d+) registers", info)]
             spill = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
                                                  info)]

@@ -728,20 +728,6 @@ def test_probe_core_kernel_matches_plain(cuda, level, dirs_mode, s32):
     assert tools.LAUNCHES["probe_core"] == before + 1
 
 
-@pytest.mark.parametrize("level,dirs_mode,s32", PC.core_cases(),
-                         ids=[f"L{c[0]}-{c[1]}{'-s32' * c[2]}"
-                              for c in PC.core_cases()])
-def test_probe_core_one_warp_kernel_matches_plain(cuda, level, dirs_mode,
-                                                  s32):
-    """P3 at its other launch, one warp a job (5 groups of 4 lanes a
-    thread), at the small shape and at Wb 640 (five slots a thread)."""
-    qbuf, qlen = PC.small_inputs(cuda)
-    assert PC.check_core(qbuf, qlen, level, dirs_mode, s32, groups=5) == 0
-    qbuf, qlen = PC.small_inputs(cuda, B=8, Wb=640, KR=10)
-    assert PC.check_core(qbuf, qlen, level, dirs_mode, s32, Wb=640, KR=10,
-                         groups=5) == 0
-
-
 def test_probe_l0_kernel_matches_plain(cuda):
     _, qlen = PC.small_inputs(cuda)
     assert max(PC.check_l0(qlen, kv) for _, kv in P2.cases) == 0

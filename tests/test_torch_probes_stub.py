@@ -9,15 +9,14 @@ Integer code: res, the final state, the dirs where the probe defines them
 equal.  The outputs start filled with a byte pattern, so an element the
 kernel leaves unwritten shows.
 
-P3 runs at both launches: 5 groups of 4 lanes a thread (one warp a job)
-and 1 group (Wb / 128 warps, a barrier a row).  At Wb 128 both are one
-warp; Wb 640 takes five slots a thread or five warps.  Inputs are
-tools/check.small_inputs cut to 4 jobs: job 0 (qlen 1) sets done in step
-3 of 4 at levels 4-5 (ROWS 32), so its last step runs the frozen walk; at
-Wb 640 and 11 steps the timed inputs (jobs 2-3) set done at level 6 in
-step 10.  The five-warp launch also runs under the stub's random fiber
-orders, where a warp that runs ahead of its edge or walk values reads
-stale ones.
+P3 is five warps a job, a chunk of 128 lanes each, with a barrier a row;
+at Wb 128 only warp 0's chunk lies in the window, at Wb 640 all five
+exchange their edges.  Inputs are tools/check.small_inputs cut to 4 jobs:
+job 0 (qlen 1) sets done in step 3 of 4 at levels 4-5 (ROWS 32), so its
+last step runs the frozen walk; at Wb 640 and 11 steps the timed inputs
+(jobs 2-3) set done at level 6 in step 10.  Every case also runs at Wb
+640 under the stub's random fiber orders, where a warp that runs ahead of
+its edge or walk values reads stale ones.
 """
 import ctypes
 
@@ -52,7 +51,7 @@ def _filled(*ts):
             t.fill_(FILL)
 
 
-def _core(lib, level, dirs_mode, s32, groups, Wb=WB, KR=KR, seed=0):
+def _core(lib, level, dirs_mode, s32, Wb=WB, KR=KR, seed=0):
     """The source's core kernel and core_plain on small_inputs (`seed`:
     the stub's random order): equal outputs; returns the plain res."""
     qbuf, qlen = PC.small_inputs("cpu", B=B, Wb=Wb, ROWS=ROWS, KR=KR)
@@ -64,8 +63,8 @@ def _core(lib, level, dirs_mode, s32, groups, Wb=WB, KR=KR, seed=0):
     _filled(res, dirs, st, work)
     lib.cuda_stub_schedule(seed)
     try:
-        assert P3.core_launch(lib, level, dirs_mode, s32, groups, qbuf, qlen,
-                              res, dirs, st, work, Wb, ROWS, KR, None) == 0
+        assert P3.core_launch(lib, level, dirs_mode, s32, qbuf, qlen, res,
+                              dirs, st, work, Wb, ROWS, KR, None) == 0
     finally:
         lib.cuda_stub_schedule(0)
     assert torch.equal(res, res_p)
@@ -76,37 +75,45 @@ def _core(lib, level, dirs_mode, s32, groups, Wb=WB, KR=KR, seed=0):
     return res_p
 
 
-CORE = [(g, *c) for g in P3.GROUP_CHOICES for c in PC.core_cases()]
+CORE = PC.core_cases()
+CORE_IDS = [f"L{lv}-{dm}{'-s32' * s}" for lv, dm, s in CORE]
 
 
-@pytest.mark.parametrize("groups,level,dirs_mode,s32", CORE,
-                         ids=[f"g{g}-L{lv}-{dm}{'-s32' * s}"
-                              for g, lv, dm, s in CORE])
-def test_core_source_matches_plain(lib, groups, level, dirs_mode, s32):
+@pytest.mark.parametrize("level,dirs_mode,s32", CORE, ids=CORE_IDS)
+def test_core_source_matches_plain(lib, level, dirs_mode, s32):
     """Every level under every dirs mode and the int32 state at level 6,
-    at both launches, Wb 128, 4 steps of 32 rows."""
-    res = _core(lib, level, dirs_mode, s32, groups)
+    Wb 128, 4 steps of 32 rows."""
+    res = _core(lib, level, dirs_mode, s32)
     if level in (4, 5):
         assert res[0, 3] == 1  # job 0's last step walks the frozen state
 
 
+@pytest.mark.parametrize("level,dirs_mode,s32", CORE, ids=CORE_IDS)
+def test_core_source_five_warps_every_case(lib, level, dirs_mode, s32):
+    """Every case at Wb 640 (five warps and their edge exchange), 4 steps,
+    under a random fiber order of its own."""
+    res = _core(lib, level, dirs_mode, s32, Wb=640,
+                seed=1 + CORE.index((level, dirs_mode, s32)))
+    if level in (4, 5):
+        assert res[0, 3] == 1
+
+
 # level 6 at the timed depth (63 steps, 2,016 rows): the timed jobs (2-3)
 # set done at row 293 with their chunks' tails written ahead only in part
-WIDE = [(g, lv, dm, s32, kr) for g in P3.GROUP_CHOICES
-        for lv, dm, s32, kr in ((1, "none", False, 2), (3, "i32", False, 2),
-                                (4, "u8", False, 4), (6, "u8", False, 11),
-                                (6, "i32", False, 11), (6, "u8", True, 11),
-                                (6, "u8", False, 63), (6, "i32", False, 63))]
+WIDE = [(1, "none", False, 2), (3, "i32", False, 2), (4, "u8", False, 4),
+        (6, "u8", False, 11), (6, "i32", False, 11), (6, "u8", True, 11),
+        (6, "u8", False, 63), (6, "i32", False, 63)]
 
 
-@pytest.mark.parametrize("groups,level,dirs_mode,s32,kr", WIDE,
-                         ids=[f"g{g}-L{lv}-{dm}{'-s32' * s}-kr{kr}"
-                              for g, lv, dm, s, kr in WIDE])
-def test_core_source_wide_matches_plain(lib, groups, level, dirs_mode, s32,
-                                        kr):
-    """Wb 640: five slots a thread in one warp, or five warps with their
-    edge exchange; at level 6 the timed jobs set done in step 10."""
-    res = _core(lib, level, dirs_mode, s32, groups, Wb=640, KR=kr)
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("level,dirs_mode,s32,kr", WIDE,
+                         ids=[f"L{lv}-{dm}{'-s32' * s}-kr{kr}"
+                              for lv, dm, s, kr in WIDE])
+def test_core_source_wide_matches_plain(lib, level, dirs_mode, s32, kr,
+                                        seed):
+    """Wb 640, five warps with their edge exchange, in the stub's own order
+    and a random one; at level 6 the timed jobs set done in step 10."""
+    res = _core(lib, level, dirs_mode, s32, Wb=640, KR=kr, seed=seed)
     if level == 4:
         assert res[0, 3] == 1
     if level == 6:
@@ -121,7 +128,7 @@ def test_core_source_five_warps_any_schedule(lib, level, dirs_mode, kr,
     """The five-warp launch at Wb 640 under random fiber orders: the edge
     array, the walk's exchange and the frozen state are read only after
     the barrier that orders their writes."""
-    _core(lib, level, dirs_mode, False, 1, Wb=640, KR=kr, seed=seed)
+    _core(lib, level, dirs_mode, False, Wb=640, KR=kr, seed=seed)
 
 
 @pytest.mark.parametrize("Wb", [128, 640, 130])

@@ -8,14 +8,13 @@
 //
 // What they measure: not bytes nor arithmetic but the fixed costs of the
 // row structure the extension kernels run (ext_common.cuh's design notes).
-// P3 is built on K1's row: each thread owns groups of 4 consecutive lanes
+// P3 is built on K1's row: each thread owns a group of 4 consecutive lanes
 // and keeps their state in registers across rows; lane t-1's old x, x2, v
 // comes by __shfl_up_sync inside a warp and from a double-buffered edge
-// array at warp boundaries; a job that spans several warps takes one block
-// barrier a row, a job of one warp none.  P2 keeps a step's state the same
-// way, a thread a 4-lane word.  P1 keeps the row structure K1 first had:
-// one block of 128 threads per job, the state in shared memory, one
-// barrier a step.
+// array at warp boundaries; a job is five warps and one block barrier a
+// row.  P2 keeps a step's state the same way, a thread a 4-lane word.  P1
+// keeps the row structure K1 first had: one block of 128 threads per job,
+// the state in shared memory, one barrier a step.
 //
 // What bounds them on this card.  P3 at level 6 and the timed inputs: its
 // jobs set done near row 293, so most of its dirs rows are zeros, bytes at
@@ -63,42 +62,36 @@ __device__ __forceinline__ void opaque(T& v) {
 // at bits 8 (j % 4)).  S32: the state is int32 between steps (no wrap).
 //
 // Layout.  A job's window holds kCoreLanes = 640 lanes, five chunks of 128;
-// Wb is a multiple of 128 up to 640.  Thread tid of a job's NT = 32 NW
-// threads owns the groups of 4 lanes g = k NT + tid, k < G (its slots):
-// lanes 4g .. 4g + 3.  A warp's slot k is chunk k NW + w, so a u8 dirs row
-// leaves as 32-bit words, 128 contiguous bytes a warp instruction, and the
-// band (rounded to 16) is skipped chunk by chunk without divergence.  G = 5
-// is one warp a job (140 state registers a thread); G = 1 is five warps of
-// one group a thread with one barrier a row, as K1 at 128 threads has.
-// G = 1 is the launch taken (kCoreGroups): it timed faster at level 6, its
-// chunks' rows running on more schedulers at once (PERF.md).
+// Wb is a multiple of 128 up to 640.  A job is a block of five warps, one a
+// chunk, with one barrier a row, as K1 at 128 threads has: thread tid owns
+// the group of 4 lanes 4 tid .. 4 tid + 3, so a u8 dirs row leaves as
+// 32-bit words, 128 contiguous bytes a warp instruction, and the band
+// (rounded to 16) is skipped chunk by chunk without divergence.  (One warp
+// a job, five groups a thread and no block barrier, timed slower at every
+// level: its chunks' rows ran one after another on one scheduler; PERF.md.)
 //   * u v x y x2 y2 s of a thread's lanes stay in registers as int32 (as
 //     the probe computes them), wrapped to int8 at each step's end.
-//   * Slots are computed in descending order, and a slot's four old carries
-//     are read before its lanes change, so every cell sees lane t-1's old
-//     x, x2, v.  One warp: the last lane of slot k-1 (lane 31's) reaches
-//     lane 0 of slot k in the same shuffle.  Several warps: each warp's
-//     lane 31 writes its chunks' last lanes after the row (after the step's
-//     wrap) into `edge`, double-buffered by row parity, and one barrier
-//     orders them before the next row's reads.
+//   * A group's old carries are read before its lanes change, so every
+//     cell sees lane t-1's old x, x2, v: by __shfl_up_sync inside a warp;
+//     each warp's lane 31 writes its chunk's last lane after the row (after
+//     the step's wrap) into `edge`, double-buffered by row parity, and the
+//     row's barrier orders it before the next row's reads.
 //   * Level 4's walk reads v[lH0t] and u[lH0t + 1] from a mirror of u and
-//     v in shared memory: one warp writes the chunks it computed and, at a
-//     step's end, the wrapped state (__syncwarp orders the reads); several
-//     warps write every chunk into the buffer of the row's parity before
-//     the row's barrier.  mx, H0, lH0t and done are computed alike by every
-//     thread.
+//     v in shared memory: every warp writes its chunk into the buffer of
+//     the row's parity before the row's barrier.  mx, H0, lH0t and done are
+//     computed alike by every thread.
 //   * After done (from the next step on: the state no longer changes) warp
-//     0 walks over the mirror while the other warps (one warp a job: that
-//     warp, first) write the step's dirs rows as 16-byte zero stores: no
-//     barrier, no cell.
+//     0 walks over the mirror while the other warps write the step's dirs
+//     rows as 16-byte zero stores: no barrier, no cell.
 //   * Level 5's slide moves the state by 16 lanes once a step into shared
 //     memory (its result is overwritten at the step's end, as the probe's).
 //   * Level 6's query block, roll(qbuf[:, :Wb + 256], 7), is staged in
 //     shared memory once a job; a group reads its 4 bytes as two words.
 
-constexpr int kChunk = 128;      // lanes of a warp's slot: 32 threads x 4
-constexpr int kCoreLanes = 640;  // a job's window: five chunks
-constexpr int kCoreGroups = 1;   // the launch taken when none is asked
+constexpr int kChunk = 128;                    // lanes of a warp: 32 x 4
+constexpr int kCoreLanes = 640;                // a job's window: five chunks
+constexpr int kCoreWarps = kCoreLanes / kChunk;
+constexpr int kCoreThreads = 32 * kCoreWarps;
 
 struct CoreArgs {
   const uint8_t* qbuf;
@@ -123,26 +116,27 @@ __host__ __device__ inline int core_take(int& at, int bytes) {
   return here;
 }
 
-__host__ __device__ inline CoreGeo core_geo(int L, int NW, bool s32, int Wb) {
+__host__ __device__ inline CoreGeo core_geo(int L, bool s32, int Wb) {
   CoreGeo g;
   int at = 0;
   g.q_off = core_take(at, L >= 6 ? Wb + 256 + 16 : 0);
   g.sl_off = core_take(at, L >= 5 ? 7 * Wb * (s32 ? 4 : 1) : 0);
   g.m_off = core_take(at, L >= 4 ? 2 * 2 * Wb * 4 : 0);
-  g.edge_off = core_take(at, NW > 1 ? 2 * (kCoreLanes / kChunk) * 4 * 4 : 0);
+  g.edge_off = core_take(at, 2 * kCoreWarps * 4 * 4);
   g.shm = at;
   return g;
 }
 
 // lanes [at, at + 4) of a row of St from four int32 values
 template <class St>
-__device__ __forceinline__ void put4(St* row, int at, int a0, int a1, int a2,
-                                     int a3) {
+__device__ __forceinline__ void put4(St* row, int at, const int (&r)[4]) {
   if constexpr (sizeof(St) == 1)
-    *(uint32_t*)(row + at) = (uint32_t)(a0 & 255) | (uint32_t)(a1 & 255) << 8 |
-                             (uint32_t)(a2 & 255) << 16 | (uint32_t)a3 << 24;
+    *(uint32_t*)(row + at) = (uint32_t)(r[0] & 255) |
+                             (uint32_t)(r[1] & 255) << 8 |
+                             (uint32_t)(r[2] & 255) << 16 |
+                             (uint32_t)r[3] << 24;
   else
-    *(uint4*)(row + at) = make_uint4(a0, a1, a2, a3);
+    *(uint4*)(row + at) = make_uint4(r[0], r[1], r[2], r[3]);
 }
 
 __device__ __forceinline__ void walk_step(int d0, int d1, int l1, int& mx,
@@ -165,17 +159,17 @@ __device__ __forceinline__ void core_band(int r, int ql, int Wb, int& lo,
   hi = min(((en0 + 16) >> 4) * 16 - 1, Wb - 1);
 }
 
-template <int L, int DM, bool S32, int G>
-__global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
+template <int L, int DM, bool S32>
+__global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
   using St = typename std::conditional<S32, int32_t, int8_t>::type;
-  constexpr int N = 4 * G;                              // lanes a thread
-  constexpr int NT = kCoreLanes / 4 / G, NW = NT / 32;  // threads, warps
-  constexpr int C = kCoreLanes / kChunk;                // chunks
+  constexpr int C = kCoreWarps, NT = kCoreThreads;
   extern __shared__ __align__(16) uint8_t smem[];
-  const CoreGeo geo = core_geo(L, NW, S32, A.Wb);
+  const CoreGeo geo = core_geo(L, S32, A.Wb);
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
             w = tid >> 5;
   const int Wb = A.Wb, ROWS = A.ROWS, B = A.B, QR = Wb + 256;
+  const int t0 = 4 * tid;              // my lanes t0 .. t0 + 3
+  const bool real = kChunk * w < Wb;  // my chunk lies in the window
   const uint32_t* Q32 = (const uint32_t*)(smem + geo.q_off);
   St* Sl = (St*)(smem + geo.sl_off);
   int* mU = (int*)(smem + geo.m_off);       // [2][Wb]: u and v for the walk
@@ -184,23 +178,22 @@ __global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
   uint8_t* dirs8 = (uint8_t*)A.dirs;
   int32_t* dirs32 = (int32_t*)A.dirs;
 
-  int u[N], v[N], x[N], y[N], x2[N], y2[N], s[N];
-  int pk[DM == 2 ? N : 1];  // DM 2: the word being packed, per lane
+  int u[4], v[4], x[4], y[4], x2[4], y2[4], s[4];
+  int pk[4];  // DM 2: the word being packed, per lane
 #pragma unroll
-  for (int q = 0; q < N; ++q)
-    u[q] = v[q] = x[q] = y[q] = x2[q] = y2[q] = s[q] = pk[DM == 2 ? q : 0] = 0;
-  // my chunk kk's first lane, and whether it lies in the window
-  auto lane0 = [&](int kk) { return 4 * (kk * NT + tid); };
-  auto real = [&](int kk) { return kChunk * (kk * NW + w) < Wb; };
-  // u and v of my real chunks into mirror buffer p
+  for (int q = 0; q < 4; ++q)
+    u[q] = v[q] = x[q] = y[q] = x2[q] = y2[q] = s[q] = pk[q] = 0;
+  auto wrap8 = [&]() {  // the step's end: the state as int8
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      u[q] = (int8_t)u[q], v[q] = (int8_t)v[q], x[q] = (int8_t)x[q];
+      y[q] = (int8_t)y[q], x2[q] = (int8_t)x2[q], y2[q] = (int8_t)y2[q];
+      s[q] = (int8_t)s[q];
+    }
+  };
+  // u and v of my lanes into mirror buffer p
   auto mirror = [&](int p) {
-#pragma unroll
-    for (int kk = 0; kk < G; ++kk)
-      if (real(kk)) {
-        const int t0 = lane0(kk), q = 4 * kk;
-        put4(mU + p * Wb, t0, u[q], u[q + 1], u[q + 2], u[q + 3]);
-        put4(mV + p * Wb, t0, v[q], v[q + 1], v[q + 2], v[q + 3]);
-      }
+    if (real) put4(mU + p * Wb, t0, u), put4(mV + p * Wb, t0, v);
   };
 
   const int ql = A.qlen[b];
@@ -214,10 +207,10 @@ __global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
     for (int i = tid; i < QR + 16; i += NT)
       Q[i] = i >= QR ? 0 : qb[i >= 7 ? i - 7 : i - 7 + QR];
   }
-  if (NW > 1 && L >= 1)  // row 0's carries: the zero state
+  if (L >= 1) {  // row 0's carries: the zero state
     for (int i = tid; i < 4 * C; i += NT) edge[4 * C + i] = 0;
-  if (L >= 4 && NW == 1) mirror(0);
-  if (L >= 6 || (NW > 1 && L >= 1)) __syncthreads();
+    __syncthreads();
+  }
 
   // fast: from the row after done (under DM 2, after its packed row) the
   // state no longer changes: warp 0 walks over u and v as they were then,
@@ -227,21 +220,15 @@ __global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
   int kfast = 0;
   for (int k = 0; k < A.KR; ++k) {
     const int r0 = k * ROWS;
-    if (L >= 5 && r0 > 0) {
+    if (L >= 5 && r0 > 0 && real) {
       // the slide: lane l takes lane l + 16, the last 16 lanes 0
-#pragma unroll
-      for (int kk = 0; kk < G; ++kk) {
-        const int t0 = lane0(kk), q = 4 * kk;
-        if (!real(kk)) continue;
-        auto slide = [&](int a, const int(&r)[N]) {
-          St* row = Sl + a * Wb;
-          if (t0 >= 16)
-            put4(row, t0 - 16, r[q], r[q + 1], r[q + 2], r[q + 3]);
-          if (t0 >= Wb - 16) put4(row, t0, 0, 0, 0, 0);
-        };
-        slide(0, u), slide(1, v), slide(2, x), slide(3, y), slide(4, x2);
-        slide(5, y2), slide(6, s);
-      }
+      auto slide = [&](int a, const int (&r)[4]) {
+        St* row = Sl + a * Wb;
+        if (t0 >= 16) put4(row, t0 - 16, r);
+        if (t0 >= Wb - 16) put4(row, t0, {0, 0, 0, 0});
+      };
+      slide(0, u), slide(1, v), slide(2, x), slide(3, y), slide(4, x2);
+      slide(5, y2), slide(6, s);
     }
     for (int j = 0; j < ROWS; ++j) {
       const int r = r0 + j, par = r & 1, jm = j & 3;
@@ -249,10 +236,10 @@ __global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
       if (L >= 4 && fast) {
         // rows j .. ROWS - 1: their dirs as 16-byte zero stores, the flat
         // index (row, unit) in strides of the storing threads (every warp
-        // but warp 0; one warp a job: that warp, first), then warp 0's walk
+        // but warp 0), then warp 0's walk
         constexpr int kUnit = DM == 1 ? 16 : 4;  // lanes a 16-byte store
-        constexpr int NS = NW > 1 ? NT - 32 : NT;
-        const int ts = NW > 1 ? tid - 32 : tid;
+        constexpr int NS = NT - 32;
+        const int ts = tid - 32;
         if (DM != 0 && ts >= 0) {
           const int units = Wb / kUnit;
           const int ra = DM == 1 ? r : (r + 3) >> 2;  // rows (packed rows)
@@ -286,76 +273,56 @@ __global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
             if (lH0t != l) cv = nv, cu = nu;
           }
         }
-        if (!S32)  // the step's end: the state as int8
-#pragma unroll
-          for (int q = 0; q < N; ++q) {
-            u[q] = (int8_t)u[q], v[q] = (int8_t)v[q], x[q] = (int8_t)x[q];
-            y[q] = (int8_t)y[q], x2[q] = (int8_t)x2[q], y2[q] = (int8_t)y2[q];
-            s[q] = (int8_t)s[q];
-          }
+        if (!S32) wrap8();
         break;
       }
-      if (L >= 4 && NW == 1) __syncwarp();  // the last row's walk has read
       if (L == 0) {
 #pragma unroll
-        for (int q = 0; q < N; ++q) {
+        for (int q = 0; q < 4; ++q) {
           u[q] = wadd(u[q], 1);
           opaque(u[q]);
         }
-      } else {
+      } else if (real) {
         int lo = 0, hi = Wb - 1;  // the lanes this row computes
         if (L >= 2) {
           core_band(r, ql, Wb, lo, hi);
           if (done) hi = lo - 1;
           if (hi >= lo) ncell += hi - lo + 1, ++nrow;
         }
+        const int l0 = kChunk * w;
+        uint32_t dw = 0;  // the u8 dirs of my 4 lanes
+        if (L < 2 || (l0 <= hi && l0 + kChunk - 1 >= lo)) {
+          // lane t0 - 1's old x, x2, v
+          int cx = __shfl_up_sync(kFull, x[3], 1);
+          int cx2 = __shfl_up_sync(kFull, x2[3], 1);
+          int cv = __shfl_up_sync(kFull, v[3], 1);
+          if (lane == 0 && w > 0) {
+            const int* e = edge + ((par ^ 1) * C + w - 1) * 4;
+            cx = e[0], cx2 = e[1], cv = e[2];
+          }
+          if (t0 == 0) cx = -6, cx2 = -25, cv = -6;
+          const int px[4] = {cx, x[0], x[1], x[2]};
+          const int px2[4] = {cx2, x2[0], x2[1], x2[2]};
+          const int pv[4] = {cv, v[0], v[1], v[2]};
+          uint32_t qw = 0;  // the query bytes of my 4 lanes
+          if (L >= 6) {
+            const int at = ROWS - 1 - j + t0;
+            qw = __byte_perm(Q32[at >> 2], Q32[(at >> 2) + 1],
+                             (at & 3) * 0x1111 + 0x3210);
+          }
+          // the band's ends are 16-lane aligned: my 4 lanes are all in it
+          // or all out, so a group, not a lane, skips its cells
+          if (L < 2 || (t0 >= lo && t0 <= hi))
 #pragma unroll
-        for (int kk = G - 1; kk >= 0; --kk) {
-          const int c = kk * NW + w, l0 = kChunk * c;
-          const int t0 = lane0(kk), q0 = 4 * kk;
-          if (l0 >= Wb) continue;  // a chunk past the window: every lane
-          uint32_t dw = 0;         // the u8 dirs of my 4 lanes
-          if (L < 2 || (l0 <= hi && l0 + kChunk - 1 >= lo)) {
-            // lane t0 - 1's old x, x2, v
-            int cx, cx2, cv;
-            if (NW == 1) {
-              const int qp = kk > 0 ? q0 - 1 : q0 + 3;
-              const int src = (lane + 31) & 31;
-              cx = __shfl_sync(kFull, lane == 31 ? x[qp] : x[q0 + 3], src);
-              cx2 = __shfl_sync(kFull, lane == 31 ? x2[qp] : x2[q0 + 3], src);
-              cv = __shfl_sync(kFull, lane == 31 ? v[qp] : v[q0 + 3], src);
-            } else {
-              cx = __shfl_up_sync(kFull, x[q0 + 3], 1);
-              cx2 = __shfl_up_sync(kFull, x2[q0 + 3], 1);
-              cv = __shfl_up_sync(kFull, v[q0 + 3], 1);
-              if (lane == 0 && c > 0) {
-                const int* e = edge + ((par ^ 1) * C + c - 1) * 4;
-                cx = e[0], cx2 = e[1], cv = e[2];
-              }
-            }
-            if (t0 == 0) cx = -6, cx2 = -25, cv = -6;
-            const int px[4] = {cx, x[q0], x[q0 + 1], x[q0 + 2]};
-            const int px2[4] = {cx2, x2[q0], x2[q0 + 1], x2[q0 + 2]};
-            const int pv[4] = {cv, v[q0], v[q0 + 1], v[q0 + 2]};
-            uint32_t qw = 0;  // the query bytes of my 4 lanes
-            if (L >= 6) {
-              const int at = ROWS - 1 - j + t0;
-              qw = __byte_perm(Q32[at >> 2], Q32[(at >> 2) + 1],
-                               (at & 3) * 0x1111 + 0x3210);
-            }
-            // the band's ends are 16-lane aligned: my 4 lanes are all in it
-            // or all out, so a group, not a lane, skips its cells
-            if (L < 2 || (t0 >= lo && t0 <= hi))
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int q = q0 + i, t = t0 + i;
+            for (int q = 0; q < 4; ++q) {
+              const int t = t0 + q;
               const int uu = (L >= 2 && t == r) ? -6 : u[q];
-              const int sc = L >= 6 ? ((int)((qw >> (8 * i)) & 255) == s[q]
+              const int sc = L >= 6 ? ((int)((qw >> (8 * q)) & 255) == s[q]
                                            ? 2
                                            : -4)
                                     : wadd(s[q], 1);
-              const int a = wadd(px[i], pv[i]), bb = wadd(y[q], uu);
-              const int a2 = wadd(px2[i], pv[i]), b2 = wadd(y2[q], uu);
+              const int a = wadd(px[q], pv[q]), bb = wadd(y[q], uu);
+              const int a2 = wadd(px2[q], pv[q]), b2 = wadd(y2[q], uu);
               int z = sc, d = 0;
               if (L >= 3) {
                 d = z > a ? 0 : 1;
@@ -373,7 +340,7 @@ __global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
               const int zq = z - 6, zq2 = z - 25;
               const int an = wsub(a, zq), bn = wsub(bb, zq);
               const int a2n = wsub(a2, zq2), b2n = wsub(b2, zq2);
-              u[q] = wsub(z, pv[i]);
+              u[q] = wsub(z, pv[q]);
               v[q] = wsub(z, uu);
               x[q] = max(an, 0) - 8;
               y[q] = max(bn, 0) - 8;
@@ -383,55 +350,37 @@ __global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
               if (L >= 3)
                 dw |= (uint32_t)(d | (an > 0 ? 8 : 0) | (bn > 0 ? 16 : 0) |
                                  (a2n > 0 ? 32 : 0) | (b2n > 0 ? 64 : 0))
-                      << (8 * i);
+                      << (8 * q);
             }
-            if (L >= 4 && NW == 1) {  // the walk's copy of the chunk
-              put4(mU, t0, u[q0], u[q0 + 1], u[q0 + 2], u[q0 + 3]);
-              put4(mV, t0, v[q0], v[q0 + 1], v[q0 + 2], v[q0 + 3]);
-            }
-          }
-          if (L >= 3 && DM == 1)  // dirs are 0 outside the band
-            *(uint32_t*)(dirs8 + ((int64_t)r * B + b) * Wb + t0) = dw;
-          if (L >= 3 && DM == 2) {
+        }
+        if (L >= 3 && DM == 1)  // dirs are 0 outside the band
+          *(uint32_t*)(dirs8 + ((int64_t)r * B + b) * Wb + t0) = dw;
+        if (L >= 3 && DM == 2) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int dv = (int)((dw >> (8 * i)) & 255);
-              pk[q0 + i] = jm == 0 ? dv : (pk[q0 + i] | dv << (8 * jm));
-            }
-            if (jm == 3)
-              *(uint4*)(dirs32 + ((int64_t)(r >> 2) * B + b) * Wb + t0) =
-                  make_uint4(pk[q0], pk[q0 + 1], pk[q0 + 2], pk[q0 + 3]);
+          for (int q = 0; q < 4; ++q) {
+            const int dv = (int)((dw >> (8 * q)) & 255);
+            pk[q] = jm == 0 ? dv : (pk[q] | dv << (8 * jm));
           }
+          if (jm == 3)
+            *(uint4*)(dirs32 + ((int64_t)(r >> 2) * B + b) * Wb + t0) =
+                make_uint4(pk[0], pk[1], pk[2], pk[3]);
         }
       }
       // the walk: v[lH0t] and u[lH0t + 1] after the row, before the wrap,
-      // from the mirror (one warp: buffer 0; several: buffer par, after
-      // the row's barrier)
+      // from mirror buffer par after the row's barrier
       const int l1 = wadd(lH0t, 1);
-      if (L >= 4 && NW > 1) mirror(par);
-      if (L >= 4 && NW == 1) __syncwarp();
-      if (!S32 && last) {  // the step's end: the state as int8
-#pragma unroll
-        for (int q = 0; q < N; ++q) {
-          u[q] = (int8_t)u[q], v[q] = (int8_t)v[q], x[q] = (int8_t)x[q];
-          y[q] = (int8_t)y[q], x2[q] = (int8_t)x2[q], y2[q] = (int8_t)y2[q];
-          s[q] = (int8_t)s[q];
+      if (L >= 4) mirror(par);
+      if (!S32 && last) wrap8();
+      if (L >= 1) {
+        if (lane == 31 && real) {
+          int* e = edge + (par * C + w) * 4;
+          e[0] = x[3], e[1] = x2[3], e[2] = v[3];
         }
-      }
-      if (NW > 1 && L >= 1) {
-        if (lane == 31)
-#pragma unroll
-          for (int kk = 0; kk < G; ++kk) {
-            const int c = kk * NW + w, q = 4 * kk + 3;
-            if (kChunk * c >= Wb) continue;
-            int* e = edge + (par * C + c) * 4;
-            e[0] = x[q], e[1] = x2[q], e[2] = v[q];
-          }
         __syncthreads();
       }
       if (L >= 4) {
-        const int* wU = mU + (NW > 1 ? par * Wb : 0);
-        const int* wV = mV + (NW > 1 ? par * Wb : 0);
+        const int* wU = mU + par * Wb;
+        const int* wV = mV + par * Wb;
         const int d0 = lH0t >= 0 && lH0t < Wb ? max(wV[lH0t], kNeg) : kNeg;
         const int d1 = l1 >= 0 && l1 < Wb ? max(wU[l1], kNeg) : kNeg;
         walk_step(d0, d1, l1, mx, H0, lH0t, done);
@@ -441,22 +390,15 @@ __global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
           __syncthreads();
           fast = true;
           kfast = k;
-        } else if (NW == 1 && last) {  // the wrapped state for the next step
-          __syncwarp();
-          mirror(0);
         }
       }
     }
   }
 
-  St* out = (St*)A.state;
-#pragma unroll
-  for (int kk = 0; kk < G; ++kk) {
-    const int t0 = lane0(kk), q = 4 * kk;
-    if (!real(kk)) continue;
-    auto put = [&](int a, const int(&r)[N]) {
-      put4(out + ((int64_t)a * B + b) * Wb, t0, r[q], r[q + 1], r[q + 2],
-           r[q + 3]);
+  if (real) {
+    St* out = (St*)A.state;
+    auto put = [&](int a, const int (&r)[4]) {
+      put4(out + ((int64_t)a * B + b) * Wb, t0, r);
     };
     put(0, u), put(1, v), put(2, x), put(3, y), put(4, x2), put(5, y2);
     put(6, s);
@@ -471,33 +413,33 @@ __global__ void __launch_bounds__(kCoreLanes / 4 / G) core_kernel(CoreArgs A) {
 }
 
 // Launches (or, with `blocks`, asks the occupancy of) one instantiation:
-// a block a job, kCoreLanes / 4G threads.
-template <int L, int DM, bool S32, int G>
+// a block a job, kCoreThreads threads.
+template <int L, int DM, bool S32>
 int core_run(const CoreArgs& A, int* blocks, void* stream) {
-  constexpr int NT = kCoreLanes / 4 / G;
   if (A.Wb < kChunk || A.Wb > kCoreLanes || A.Wb % kChunk)
     return (int)cudaErrorInvalidValue;
-  const CoreGeo g = core_geo(L, NT / 32, S32, A.Wb);
+  const CoreGeo g = core_geo(L, S32, A.Wb);
   cudaError_t err = cudaSuccess;
   if (g.shm > 48 * 1024)
-    err = cudaFuncSetAttribute(core_kernel<L, DM, S32, G>,
+    err = cudaFuncSetAttribute(core_kernel<L, DM, S32>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                g.shm);
   if (err != cudaSuccess) return (int)err;
   if (blocks)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, core_kernel<L, DM, S32, G>, NT, g.shm);
+        blocks, core_kernel<L, DM, S32>, kCoreThreads, g.shm);
   if (A.B <= 0) return 0;
-  core_kernel<L, DM, S32, G><<<A.B, NT, g.shm, (cudaStream_t)stream>>>(A);
+  core_kernel<L, DM, S32><<<A.B, kCoreThreads, g.shm, (cudaStream_t)stream>>>(
+      A);
   return (int)cudaGetLastError();
 }
 
-template <int L, int G>
+template <int L>
 int core_pick(int dm, int s32, const CoreArgs& A, int* blocks, void* stream) {
   auto pick_s = [&](auto dmc) {
     constexpr int D = decltype(dmc)::value;
-    return s32 ? core_run<L, D, true, G>(A, blocks, stream)
-               : core_run<L, D, false, G>(A, blocks, stream);
+    return s32 ? core_run<L, D, true>(A, blocks, stream)
+               : core_run<L, D, false>(A, blocks, stream);
   };
   if constexpr (L >= 3) {
     if (dm == 1) return pick_s(std::integral_constant<int, 1>());
@@ -506,28 +448,16 @@ int core_pick(int dm, int s32, const CoreArgs& A, int* blocks, void* stream) {
   return pick_s(std::integral_constant<int, 0>());  // no dirs below 3
 }
 
-template <int G>
 int core_level(int level, int dm, int s32, const CoreArgs& A, int* blocks,
                void* stream) {
   switch (level) {
-    case 0: return core_pick<0, G>(dm, s32, A, blocks, stream);
-    case 1: return core_pick<1, G>(dm, s32, A, blocks, stream);
-    case 2: return core_pick<2, G>(dm, s32, A, blocks, stream);
-    case 3: return core_pick<3, G>(dm, s32, A, blocks, stream);
-    case 4: return core_pick<4, G>(dm, s32, A, blocks, stream);
-    case 5: return core_pick<5, G>(dm, s32, A, blocks, stream);
-    case 6: return core_pick<6, G>(dm, s32, A, blocks, stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// groups: 4-lane groups a thread (5: one warp a job; 1: five warps and a
-// barrier a row), 0 for kCoreGroups
-int core_dispatch(int groups, int level, int dm, int s32, const CoreArgs& A,
-                  int* blocks, void* stream) {
-  switch (groups ? groups : kCoreGroups) {
-    case 1: return core_level<1>(level, dm, s32, A, blocks, stream);
-    case 5: return core_level<5>(level, dm, s32, A, blocks, stream);
+    case 0: return core_pick<0>(dm, s32, A, blocks, stream);
+    case 1: return core_pick<1>(dm, s32, A, blocks, stream);
+    case 2: return core_pick<2>(dm, s32, A, blocks, stream);
+    case 3: return core_pick<3>(dm, s32, A, blocks, stream);
+    case 4: return core_pick<4>(dm, s32, A, blocks, stream);
+    case 5: return core_pick<5>(dm, s32, A, blocks, stream);
+    case 6: return core_pick<6>(dm, s32, A, blocks, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -539,7 +469,9 @@ int core_dispatch(int groups, int level, int dm, int s32, const CoreArgs& A,
 // register: array 0's word takes a bytewise +1 a step, threads 0-15 hold
 // the job's accumulators.  A step has no cross-lane dependence, so no
 // barrier; opaque() keeps each step's round trip in the loop.  Without
-// touch the loop is empty: the launch's own floor.
+// touch the loop is empty: the launch's own floor.  Arrays 1 .. nstate - 1
+// never change, so they never enter the loop: nstate scales only the final
+// zero stores, not a step's work.
 __global__ void __launch_bounds__(1024)
     l0_kernel(int32_t* res, int8_t* state, int nstate, int touch,
               int read_acc, int B, int Wb, int KR) {
@@ -675,43 +607,24 @@ int bisect_run(int32_t* res, uint8_t* dirs, int8_t* state, int B, int Wb,
 
 }  // namespace
 
-// P3 at `groups` 4-lane groups a thread (5 or 1; 0: kCoreGroups)
-extern "C" int wm_probe_core_launch_groups(int groups, int level,
-                                           int dirs_mode, int s32,
-                                           const void* qbuf, int qstride,
-                                           const void* qlen, void* res,
-                                           void* dirs, void* state,
-                                           void* work, int B, int Wb,
-                                           int ROWS, int KR, void* stream) {
-  const CoreArgs A{(const uint8_t*)qbuf, qstride, (const int32_t*)qlen,
-                   (int32_t*)res, dirs, state, (long long*)work, B, Wb,
-                   ROWS, KR};
-  return core_dispatch(groups, level, dirs_mode, s32, A, nullptr, stream);
-}
-
 extern "C" int wm_probe_core_launch(int level, int dirs_mode, int s32,
                                     const void* qbuf, int qstride,
                                     const void* qlen, void* res, void* dirs,
                                     void* state, void* work, int B, int Wb,
                                     int ROWS, int KR, void* stream) {
-  return wm_probe_core_launch_groups(0, level, dirs_mode, s32, qbuf, qstride,
-                                     qlen, res, dirs, state, work, B, Wb,
-                                     ROWS, KR, stream);
+  const CoreArgs A{(const uint8_t*)qbuf, qstride, (const int32_t*)qlen,
+                   (int32_t*)res, dirs, state, (long long*)work, B, Wb,
+                   ROWS, KR};
+  return core_level(level, dirs_mode, s32, A, nullptr, stream);
 }
 
-// Blocks (jobs) of the core kernel at (groups, level, dirs_mode, s32, Wb)
-// one SM holds.
-extern "C" int wm_probe_core_occupancy_groups(int groups, int level,
-                                              int dirs_mode, int s32, int Wb,
-                                              int* blocks) {
-  CoreArgs A{};
-  A.Wb = Wb;
-  return core_dispatch(groups, level, dirs_mode, s32, A, blocks, nullptr);
-}
-
+// Blocks (jobs) of the core kernel at (level, dirs_mode, s32, Wb) one SM
+// holds.
 extern "C" int wm_probe_core_occupancy(int level, int dirs_mode, int s32,
                                        int Wb, int* blocks) {
-  return wm_probe_core_occupancy_groups(0, level, dirs_mode, s32, Wb, blocks);
+  CoreArgs A{};
+  A.Wb = Wb;
+  return core_level(level, dirs_mode, s32, A, blocks, nullptr);
 }
 
 // P2: a block a job, a thread a word (Wb <= 4096)

@@ -51,23 +51,22 @@ def _nvcc_version(nvcc: str) -> str:
     return out.strip().splitlines()[-1]
 
 
-def _target(src: str, nvcc_ver: str, csrc: Path) -> Path:
-    h = hashlib.sha256((csrc / src).read_bytes())
+def _target(src: str, nvcc_ver: str) -> Path:
+    h = hashlib.sha256((CSRC / src).read_bytes())
     for hdr in HEADERS:
-        h.update((csrc / hdr).read_bytes())
+        h.update((CSRC / hdr).read_bytes())
     h.update(nvcc_ver.encode())
     h.update(ARCH.encode())
     return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(sources=SOURCES, csrc: Path = CSRC) -> dict:
+def build(sources=SOURCES) -> dict:
     """Compile every source not yet built (one nvcc each, in parallel);
-    returns {source: path}.  `csrc`: another checkout's csrc/, built into
-    this one's BUILD_DIR (the names hold the sources' hash)."""
+    returns {source: path}."""
     nvcc = nvcc_path()
     ver = _nvcc_version(nvcc)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {s: _target(s, ver, Path(csrc)) for s in sources}
+    targets = {s: _target(s, ver) for s in sources}
     procs = {}
     t0 = time.perf_counter()
     for src, out in targets.items():
@@ -76,7 +75,7 @@ def build(sources=SOURCES, csrc: Path = CSRC) -> dict:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-lineinfo", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               str(Path(csrc) / src)]
+               str(CSRC / src)]
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True),
                       tmp, out)
@@ -114,10 +113,7 @@ def bind(lib) -> None:
         "wm_kcount_launch": [vp, i64, ci, ci, vp, vp, i64] + [vp] * 4,
         "wm_probe_core_launch": [ci, ci, ci, vp, ci, vp, vp, vp, vp, vp]
         + [ci] * 4 + [vp],
-        "wm_probe_core_launch_groups": [ci] * 4 + [vp, ci, vp, vp, vp, vp,
-                                                   vp] + [ci] * 4 + [vp],
         "wm_probe_core_occupancy": [ci] * 4 + [ctypes.POINTER(ci)],
-        "wm_probe_core_occupancy_groups": [ci] * 5 + [ctypes.POINTER(ci)],
         "wm_probe_l0_launch": [vp, vp] + [ci] * 6 + [vp],
         "wm_probe_bisect_launch": [ci, vp, vp, vp] + [ci] * 4 + [vp],
     }

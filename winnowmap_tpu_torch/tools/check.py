@@ -66,14 +66,12 @@ def timed_core_cases():
 
 
 def check_core(qbuf, qlen, level, dirs_mode, s32, Wb=WB, ROWS=ROWS,
-               KR=KR, **launch) -> int:
-    """`launch`: core_probe's groups or lib."""
+               KR=KR) -> int:
     kw = dict(Wb=Wb, ROWS=ROWS, KR=KR, dirs_mode=dirs_mode, s32=s32)
     ck = torch.zeros((qbuf.shape[0], 2), dtype=torch.int64,
                      device=qbuf.device)
     cp = torch.zeros_like(ck)
-    res, dirs, st = P3.core_probe(level, qbuf, qlen, work=ck, **kw,
-                                  **launch)
+    res, dirs, st = P3.core_probe(level, qbuf, qlen, work=ck, **kw)
     res_p, dirs_p, st_p = P3.core_plain(level, qbuf, qlen, work=cp, **kw)
     err = max(_err(res, res_p), _err(st, st_p), _err(ck, cp))
     if level >= 3:
@@ -90,11 +88,10 @@ def check_timed_core(dev, level, dirs_mode, s32, ROWS) -> int:
                       ROWS=ROWS, KR=KR)
 
 
-def check_l0(qlen, kv, Wb=WB, KR=KR, **launch) -> int:
-    """`launch`: l0_probe's lib."""
+def check_l0(qlen, kv, Wb=WB, KR=KR) -> int:
     kw = dict(nstate=kv.get("nstate", 7), Wb=Wb, KR=KR,
               touch=kv.get("touch", True), read_acc=kv.get("read_acc", True))
-    res, st = P2.l0_probe(qlen, **kw, **launch)
+    res, st = P2.l0_probe(qlen, **kw)
     res_p, st_p = P2.l0_plain(qlen, **kw)
     return max(_err(res, res_p), _err(st, st_p))
 

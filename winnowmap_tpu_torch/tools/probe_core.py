@@ -13,14 +13,13 @@ Counterpart of tests/tools/probe_core.py (the Pallas probe, pallas_call at
   5 slide    : + the between-step window roll
   6 qslide   : + the per-row unaligned query slice
 
-The kernel (csrc/probes.cu, core_kernel<L, DM, S32, G>) is built on K1's
-register-slot row (csrc/ext_common.cuh): a block a job, each thread G
-groups of 4 consecutive lanes whose state stays in registers across rows,
-lane t-1's values by shuffle inside a warp and through a double-buffered
-edge array across warps.  `groups` picks G: 1 is five warps a job with one
-barrier a row (GROUPS, the default: it timed faster at level 6), 5 is one
-warp a job and no block barrier.  The kernel takes Wb a multiple of 128 up
-to 640.
+The kernel (csrc/probes.cu, core_kernel<L, DM, S32>) is built on K1's
+register-slot row (csrc/ext_common.cuh): a block of five warps a job, one
+barrier a row, each thread a group of 4 consecutive lanes whose state
+stays in registers across rows, lane t-1's values by shuffle inside a
+warp and through a double-buffered edge array across warps.  The kernel
+takes Wb a multiple of 128 up to 640 (core_plain and the Pallas probe,
+any Wb >= 1).
 From level 2 on only the 16-rounded band lanes are computed, chunk by
 chunk of 128, as K1 does; dirs rows are still written whole (0 outside the
 band), as the probe's output holds them, and once a job has set done its
@@ -52,10 +51,7 @@ from .. import tools
 from ..device import resolve_device
 
 DIRS_MODES = ("none", "u8", "i32")
-# the kernel's 4-lane groups a thread (csrc/probes.cu kCoreGroups), the
-# ones it takes, and the lanes a job's window holds (kCoreLanes)
-GROUPS = 1
-GROUP_CHOICES = (5, 1)
+# the lanes a job's window holds in the kernel (csrc/probes.cu kCoreLanes)
 KERNEL_LANES = 640
 
 levels = {
@@ -253,27 +249,23 @@ def core_plain(level, qbuf, qlen, *, Wb, ROWS, KR, dirs_mode="u8",
     return res, dirs, state
 
 
-def _check_kernel(Wb, groups):
-    if groups not in GROUP_CHOICES:
-        raise ValueError(f"groups {groups} not in {GROUP_CHOICES}")
+def _check_kernel(Wb):
     if Wb % 128 or Wb > KERNEL_LANES:
         raise ValueError(f"the kernel takes Wb a multiple of 128, at most "
                          f"{KERNEL_LANES}")
 
 
-def core_launch(lib, level, dirs_mode, s32, groups, qbuf, qlen, res, dirs,
-                state, work, Wb, ROWS, KR, stream) -> int:
+def core_launch(lib, level, dirs_mode, s32, qbuf, qlen, res, dirs, state,
+                work, Wb, ROWS, KR, stream) -> int:
     """One launch of csrc/probes.cu's core kernel through `lib` (the card's
-    library or the CUDA stub's) on tensors of one device; groups None is
-    the library's own default.  Returns the entry's error code."""
-    args = (level, DIRS_MODES.index(dirs_mode), int(s32), qbuf.data_ptr(),
-            qbuf.shape[1], qlen.data_ptr(), res.data_ptr(),
-            dirs.data_ptr() if dirs is not None else None, state.data_ptr(),
-            work.data_ptr() if work is not None else None, qbuf.shape[0], Wb,
-            ROWS, KR, stream)
-    if groups is None:
-        return lib.wm_probe_core_launch(*args)
-    return lib.wm_probe_core_launch_groups(groups, *args)
+    library or the CUDA stub's) on tensors of one device; returns the
+    entry's error code."""
+    return lib.wm_probe_core_launch(
+        level, DIRS_MODES.index(dirs_mode), int(s32), qbuf.data_ptr(),
+        qbuf.shape[1], qlen.data_ptr(), res.data_ptr(),
+        dirs.data_ptr() if dirs is not None else None, state.data_ptr(),
+        work.data_ptr() if work is not None else None, qbuf.shape[0], Wb,
+        ROWS, KR, stream)
 
 
 def core_outputs(qbuf, Wb, ROWS, KR, dirs_mode="u8", s32=False):
@@ -283,18 +275,15 @@ def core_outputs(qbuf, Wb, ROWS, KR, dirs_mode="u8", s32=False):
 
 
 def core_probe(level, qbuf, qlen, *, Wb, ROWS, KR, dirs_mode="u8",
-               s32=False, work=None, groups=None, lib=None):
-    """P3's wrapper: CUDA tensors launch csrc/probes.cu's core kernel (at
-    `groups` 4-lane groups a thread, None: GROUPS; `lib`, another build of
-    a probes source, launches at its own default), CPU tensors run
-    core_plain.  Same outputs as core_plain; below level 3 the kernel
+               s32=False, work=None):
+    """P3's wrapper: CUDA tensors launch csrc/probes.cu's core kernel, CPU
+    tensors run core_plain.  Same outputs as core_plain; below level 3 the kernel
     writes no dirs (the tensor is returned unwritten)."""
     if qbuf.device.type == "cpu":
         return core_plain(level, qbuf, qlen, Wb=Wb, ROWS=ROWS, KR=KR,
                           dirs_mode=dirs_mode, s32=s32, work=work)
     _check(level, qbuf, qlen, Wb, ROWS, KR, dirs_mode)
-    if lib is None:
-        _check_kernel(Wb, GROUPS if groups is None else groups)
+    _check_kernel(Wb)
     if not (qbuf.is_contiguous() and qlen.is_contiguous()):
         raise ValueError("qbuf and qlen must be contiguous")
     if work is not None and (work.dtype != torch.int64 or tuple(
@@ -304,56 +293,47 @@ def core_probe(level, qbuf, qlen, *, Wb, ROWS, KR, dirs_mode="u8",
     from ..extend import _build
 
     res, dirs, state = core_outputs(qbuf, Wb, ROWS, KR, dirs_mode, s32)
-    tools.launch("probe_core", core_launch,
-                 lib if lib is not None else _build.load_probes(), level,
-                 dirs_mode, s32, groups, qbuf, qlen, res, dirs, state, work,
-                 Wb, ROWS, KR)
+    tools.launch("probe_core", core_launch, _build.load_probes(), level,
+                 dirs_mode, s32, qbuf, qlen, res, dirs, state, work, Wb,
+                 ROWS, KR)
     return res, dirs, state
 
 
-def occupancy(level, Wb, dirs_mode="u8", s32=False, groups=None,
-              lib=None) -> int:
+def occupancy(level, Wb, dirs_mode="u8", s32=False) -> int:
     """Blocks (jobs) of the core kernel one SM holds at once (CUDA
-    occupancy); `groups` and `lib` as core_probe's."""
+    occupancy)."""
     import ctypes
 
     from ..extend import _build
 
-    lib = lib if lib is not None else _build.load_probes()
+    lib = _build.load_probes()
     n = ctypes.c_int(0)
-    args = (level, DIRS_MODES.index(dirs_mode), int(s32), Wb,
-            ctypes.byref(n))
-    rc = (lib.wm_probe_core_occupancy(*args) if groups is None
-          else lib.wm_probe_core_occupancy_groups(groups, *args))
+    rc = lib.wm_probe_core_occupancy(level, DIRS_MODES.index(dirs_mode),
+                                     int(s32), Wb, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {rc} "
                            f"({lib.wm_probe_error_string(rc).decode()})")
     return n.value
 
 
-def build(level, Wb, ROWS, KR, dirs_mode="u8", s32=False, groups=None,
-          lib=None):
+def build(level, Wb, ROWS, KR, dirs_mode="u8", s32=False):
     """The probe at one level and shape: a function (qbuf, qlen) -> (res,
     dirs, state) through core_probe."""
     return functools.partial(core_probe, level, Wb=Wb, ROWS=ROWS, KR=KR,
-                             dirs_mode=dirs_mode, s32=s32, groups=groups,
-                             lib=lib)
+                             dirs_mode=dirs_mode, s32=s32)
 
 
 def run_level(level, B=512, Wb=640, ROWS=32, KR=63, reps=3,
-              dirs_mode="u8", s32=False, device=None, groups=None,
-              lib=None) -> dict:
+              dirs_mode="u8", s32=False, device=None) -> dict:
     """Times one level at the TPU script's inputs (qbuf zeros, qlen 1000):
     ms per call, Gcells/s padded and over the band cells the probe
     computed, and on the card ns per anti-diagonal row and per active row
     (the band leaves the Wb-lane window near row 1640, and from level 4 on
-    the jobs set done part way) and the waves of jobs that took.
-    `groups` and `lib` as core_probe's."""
+    the jobs set done part way) and the waves of jobs that took."""
     dev = resolve_device(device)
     qbuf = torch.zeros((B, Wb + 384), dtype=torch.uint8, device=dev)
     qlen = torch.full((B, 1), 1000, dtype=torch.int32, device=dev)
-    f = build(level, Wb, ROWS, KR, dirs_mode=dirs_mode, s32=s32,
-              groups=groups, lib=lib)
+    f = build(level, Wb, ROWS, KR, dirs_mode=dirs_mode, s32=s32)
     work = torch.zeros((B, 2), dtype=torch.int64, device=dev)
     ms = tools.time_ms(lambda: f(qbuf, qlen, work=work), dev, reps)
     cells = B * KR * ROWS * Wb
@@ -366,7 +346,7 @@ def run_level(level, B=512, Wb=640, ROWS=32, KR=63, reps=3,
            "device": dev.type}
     if dev.type == "cuda":
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        per_sm = occupancy(level, Wb, dirs_mode, s32, groups, lib)
+        per_sm = occupancy(level, Wb, dirs_mode, s32)
         waves = -(-B // (per_sm * sms))
         out["waves"] = waves
         out["ns_per_row"] = ms * 1e6 / (KR * ROWS * waves)

@@ -12,7 +12,10 @@ a 32-bit word (4 lanes) of each array, array 0's word taking a bytewise
 axis is a loop of KR round trips inside the thread (no barrier: a step
 has no cross-lane dependence), kept a loop by an empty asm on the values;
 without touch the loop is empty, so "empty (no touch)" is the launch's
-own floor.  The final state and res are outputs, stored a word a thread.
+own floor.  Arrays 1 .. nstate - 1 never change and never enter the loop:
+the "1/3/7 state arrays" cases differ only in their final stores, so they
+read launch plus stores, and nstate no longer scales a step's work (the
+Pallas probe's and l0_plain's round trip of every array).  The final state and res are outputs, stored a word a thread.
 ROWS only scales the padded-cell unit (the TPU kernel has no row loop).
 TB, the TPU's tile height, has no counterpart (one block per job): the
 TPU script's four TB cases would repeat the "7 state arrays" and
@@ -86,28 +89,26 @@ def l0_launch(lib, res, state, touch, read_acc, KR, stream) -> int:
                                   stream)
 
 
-def l0_probe(qlen, *, nstate=7, Wb=640, KR=63, touch=True, read_acc=True,
-             lib=None):
-    """P2's wrapper: CUDA tensors launch csrc/probes.cu's l0 kernel (`lib`:
-    another build of a probes source), CPU tensors run l0_plain."""
+def l0_probe(qlen, *, nstate=7, Wb=640, KR=63, touch=True, read_acc=True):
+    """P2's wrapper: CUDA tensors launch csrc/probes.cu's l0 kernel, CPU
+    tensors run l0_plain."""
     if qlen.device.type == "cpu":
         return l0_plain(qlen, nstate=nstate, Wb=Wb, KR=KR, touch=touch,
                         read_acc=read_acc)
     _check(qlen, nstate, Wb, KR)
-    if lib is None and Wb > 4096:
+    if Wb > 4096:
         raise ValueError("the kernel takes a thread a 4-lane word: Wb <= "
                          "4096")
     from ..extend import _build
 
     res, state = l0_outputs(qlen, nstate, Wb)
-    tools.launch("probe_l0", l0_launch,
-                 lib if lib is not None else _build.load_probes(), res,
-                 state, touch, read_acc, KR)
+    tools.launch("probe_l0", l0_launch, _build.load_probes(), res, state,
+                 touch, read_acc, KR)
     return res, state
 
 
 def run(nstate=7, Wb=640, ROWS=32, KR=63, B=512, touch=True, reps=3,
-        read_acc=True, device=None, lib=None) -> dict:
+        read_acc=True, device=None) -> dict:
     """Times one case: ms per call and Gcells/s over padded cells
     (B * KR * ROWS * Wb); on the card also kernel_ms, the kernel's own
     device time (torch.profiler): a call's few microseconds are below the
@@ -117,7 +118,7 @@ def run(nstate=7, Wb=640, ROWS=32, KR=63, B=512, touch=True, reps=3,
 
     def call():
         return l0_probe(qlen, nstate=nstate, Wb=Wb, KR=KR, touch=touch,
-                        read_acc=read_acc, lib=lib)
+                        read_acc=read_acc)
 
     ms = tools.time_ms(call, dev, reps)
     cells = B * KR * ROWS * Wb

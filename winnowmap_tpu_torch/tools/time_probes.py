@@ -1,26 +1,24 @@
 """P3 (the extension-row cost ladder) and P2 (the step-state floor) of
-csrc/probes.cu timed on the card: P3 at both of its launches (5 groups of
-4 lanes a thread, one warp a job; 1 group, Wb / 128 warps with a barrier
-a row) and, with --other, another checkout's build of the probes in turns
-with this one; and the SASS of the l0 kernel's step loop.
+csrc/probes.cu timed on the card, and the step loop of P2's kernel in its
+SASS.
 
-    python -m winnowmap_tpu_torch.tools.time_probes [--other DIR]... [--reps N]
+    python winnowmap_tpu_torch/tools/time_probes.py [--root DIR] [--reps N]
         [--out DIR]
 
-DIR is a checkout of the repository (a `git archive` of another commit
-unpacked elsewhere): its winnowmap_tpu_torch/csrc/probes.cu is built into
-this checkout's csrc/_build with the same nvcc flags and launched through
-this checkout's wrappers at its own default launch (the C entries take the
-same arguments).  First every build and launch is held to the plain
-versions (tools/check.py's inputs: every P3 case and every P2 case at the
-small shape, P3 level 6 u8 at the full shape).  Then a memset of P3's
-dirs bytes (the card's own write rate) and, in turns (other, this, this,
-other): P3 level 6 u8 at (512, 640, 32, 63); the ladder at that depth and
-at 9 steps (288 rows, before any job sets done); every P2 case, with its
-kernel's own time (torch.profiler).  Prints the card's name and power
-limit, a line a timing, and a JSON line; --out DIR also writes the JSON
-to DIR/time_probes.json and the SASS of the l0 kernel and of P3 level 6
-u8 at both launches to DIR/probes_sass.txt.
+--root is the checkout whose port is timed (default: this one): a `git
+archive` of another commit unpacked elsewhere times that commit's probes
+through its own wrappers, so two commits compare in one call on one card
+(run them in turns: parent, change, change, parent), as time_kc_chain.py
+and time_sketch.py do.  First the checkout's P3 (every case of
+tools/check.py at its small shape, level 6 u8 at the full shape) and P2
+(every case) are held to their plain versions.  Then a memset of P3's
+dirs bytes (the card's own write rate); P3 level 6 u8 at (512, 640, 32,
+63); the ladder at that depth and at 9 steps (288 rows, before any job
+sets done); every P2 case by its kernel's own time (torch.profiler) and by
+CUDA events over wrapper calls.  It prints the card's name and power
+limit, a line a timing, the loops of the l0 kernel's SASS (cuobjdump),
+and one JSON line; --out DIR also writes the JSON to
+DIR/time_probes.json and the l0 kernel's SASS to DIR/l0_sass.txt.
 """
 from __future__ import annotations
 
@@ -32,28 +30,15 @@ import subprocess
 import sys
 from pathlib import Path
 
-import torch
-
-from .. import tools
-from ..extend import _build
-from . import check as PC
-from . import probe_core as P3
-from . import probe_l0 as P2
-
 SHORT_KR = 9  # 288 rows: at the timed inputs no job has set done
 
 
-def cuobjdump() -> str:
-    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(found).exists():
-        raise RuntimeError("cuobjdump not found (CUDA toolkit)")
-    return found
-
-
-def sass_functions(lib_path: Path) -> dict:
-    """{mangled kernel name: its SASS lines} of a built library."""
-    out = subprocess.run([cuobjdump(), "-sass", str(lib_path)],
-                         capture_output=True, text=True, check=True).stdout
+def sass_function(lib_path: Path, pat: str) -> list:
+    """The SASS lines of the one kernel of a built library whose mangled
+    name matches `pat`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True).stdout
     funcs, cur = {}, None
     for ln in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", ln)
@@ -61,7 +46,10 @@ def sass_functions(lib_path: Path) -> dict:
             cur = funcs.setdefault(m.group(1), [])
         elif cur is not None:
             cur.append(ln.rstrip())
-    return funcs
+    names = [n for n in funcs if re.search(pat, n)]
+    if len(names) != 1:
+        raise RuntimeError(f"SASS: {len(names)} functions match {pat}")
+    return funcs[names[0]]
 
 
 def loops(lines: list) -> list:
@@ -75,146 +63,92 @@ def loops(lines: list) -> list:
         m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ln)
         if m and addr[i] is not None and int(m.group(1), 16) < addr[i]:
             lo = int(m.group(1), 16)
-            found.append([x for x, a in zip(lines[:i + 1], addr[:i + 1])
+            found.append([x.strip() for x, a in zip(lines[:i + 1],
+                                                    addr[:i + 1])
                           if a is not None and a >= lo])
     return found
 
 
-def sass_report(lib_path: Path, out: Path | None) -> dict:
-    """The l0 kernel's step loop, and what P3's level 5 (the slide) adds to
-    level 4's shared-memory stores (u8 dirs, at 5 and 1 groups a thread);
-    with `out`, the SASS of the l0 kernel and of P3 level 6 u8 goes to
-    out/probes_sass.txt."""
-    funcs = sass_functions(lib_path)
-
-    def one(pat):
-        names = [n for n in funcs if re.search(pat, n)]
-        if len(names) != 1:
-            raise RuntimeError(f"SASS: {len(names)} functions match {pat}")
-        return funcs[names[0]]
-
-    l0 = one(r"l0_kernel")
-    l0_loops = loops(l0)
-
-    def count(lines, op):
-        return sum(1 for ln in lines if re.search(rf"\b{op}(\.|\s)", ln))
-
-    core = {f"L{lv} G{g}": one(rf"core_kernelILi{lv}ELi1ELb0ELi{g}E")
-            for lv in (4, 5) for g in (5, 1)}
-    if out is not None:
-        with open(out / "probes_sass.txt", "w") as f:  # for reading
-            for pat in (r"l0_kernel", r"core_kernelILi6ELi1ELb0ELi5E",
-                        r"core_kernelILi6ELi1ELb0ELi1E"):
-                f.write(f"== {pat}\n" + "\n".join(one(pat)) + "\n")
-    return {"l0_loops": [[ln.strip() for ln in lp] for lp in l0_loops],
-            "l0_instructions": sum(1 for ln in l0 if "/*" in ln),
-            "core_sts": {k: count(v, "STS") for k, v in core.items()}}
-
-
-def time_core(level, reps, dirs_mode="u8", KR=63, **launch) -> dict:
-    o = P3.run_level(level, KR=KR, reps=reps, dirs_mode=dirs_mode,
-                     device="cuda", **launch)
-    return {k: o[k] for k in ("ms", "ns_per_row", "ns_per_active_row",
-                              "rows_active", "waves", "cells_band")}
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", type=Path, action="append", default=[],
-                    help="a checkout whose probes.cu is timed in turns "
-                    "(repeatable; named by its directory)")
-    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None,
                     help="a directory for the JSON and the SASS")
     args = ap.parse_args(argv)
-    if args.out is not None:
-        args.out.mkdir(parents=True, exist_ok=True)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+
     if not torch.cuda.is_available():
         sys.exit("time_probes needs a CUDA card")
+    from winnowmap_tpu_torch import tools
+    from winnowmap_tpu_torch.extend import _build
+    from winnowmap_tpu_torch.tools import check as PC
+    from winnowmap_tpu_torch.tools import probe_core as P3
+    from winnowmap_tpu_torch.tools import probe_l0 as P2
+    from winnowmap_tpu_torch.tools.time_kc_chain import by_kernel
+
     dev = torch.device("cuda")
-    card = tools.card_line()
-    print(card, flush=True)
+    out = {"root": str(args.root), "card": tools.card_line()}
+    print(out["card"], flush=True)
 
-    import ctypes
-    from concurrent.futures import ThreadPoolExecutor
-
-    csrcs = {"this": _build.CSRC}
-    csrcs.update((d.name, d / "winnowmap_tpu_torch" / "csrc")
-                 for d in args.other)
-    with ThreadPoolExecutor(len(csrcs)) as pool:  # one nvcc each
-        paths = dict(zip(csrcs, pool.map(
-            lambda c: _build.build(_build.PROBE_SOURCES, csrc=c)["probes.cu"],
-            csrcs.values())))
-    runs = {}
-    for name in csrcs:
-        if name != "this":
-            lib = ctypes.CDLL(str(paths[name]))
-            _build.bind(lib)
-            runs[name] = dict(lib=lib)
-    runs.update(g5=dict(groups=5), g1=dict(groups=1))
-    sass = sass_report(paths["this"], args.out)
-    print(f"SASS l0_kernel: {sass['l0_instructions']} instructions, "
-          f"{len(sass['l0_loops'])} loop(s):", flush=True)
-    for lp in sass["l0_loops"]:
-        print("  " + "\n  ".join(lp), flush=True)
-    print(f"SASS core_kernel<L, u8, int8, G> shared stores: "
-          f"{sass['core_sts']}", flush=True)
-
-    # every launch against the plain versions first
+    # the kernels against their plain versions first
     qbuf, qlen = PC.small_inputs(dev)
+    err = max(PC.check_core(qbuf, qlen, *c) for c in PC.core_cases())
     full = PC.small_inputs(dev, B=512, Wb=640, ROWS=32, KR=63)
-    for name, kw in runs.items():
-        err = max(PC.check_core(qbuf, qlen, *c, **kw)
-                  for c in PC.core_cases())
-        err = max(err, PC.check_core(*full, 6, "u8", False, Wb=640, ROWS=32,
-                                     KR=63, **kw))
-        if "lib" in kw or name == "g5":
-            err = max(err, max(PC.check_l0(qlen, kv, **(
-                {"lib": kw["lib"]} if "lib" in kw else {}))
-                for _, kv in P2.cases))
-        torch.cuda.synchronize()
-        print(f"check {name}: max error {err}", flush=True)
-        if err:
-            sys.exit(f"{name}: kernel != plain")
+    err = max(err, PC.check_core(*full, 6, "u8", False, Wb=640, ROWS=32,
+                                 KR=63))
+    err = max(err, max(PC.check_l0(qlen, kv) for _, kv in P2.cases))
+    torch.cuda.synchronize()
+    print(f"P3 and P2 against plain: max error {err}", flush=True)
+    if err:
+        sys.exit("kernel != plain")
 
-    order = list(runs) + list(reversed(runs))
-    res = {"card": card, "sass": sass, "order": order, "l6_u8": {},
-           "ladder": {}, "short": {}, "l0": {}}
-    # the card's own rate for P3's dirs bytes: a memset of them
-    nbytes = 512 * 640 * 32 * 63
+    l0 = sass_function(_build.build(_build.PROBE_SOURCES)["probes.cu"],
+                       r"l0_kernel")
+    out["l0_sass"] = {"instructions": sum(1 for ln in l0 if "/*" in ln),
+                      "loops": loops(l0)}
+    print(f"SASS l0_kernel: {out['l0_sass']['instructions']} instructions, "
+          f"{len(out['l0_sass']['loops'])} loop(s):", flush=True)
+    for lp in out["l0_sass"]["loops"]:
+        print("  " + "\n  ".join(lp), flush=True)
+
+    nbytes = 512 * 640 * 32 * 63  # P3's u8 dirs at the timed shape
     zeros = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     ms = tools.time_ms(zeros.zero_, dev, args.reps)
-    res["memset"] = {"bytes": nbytes, "ms": ms}
+    del zeros
+    out["memset"] = {"bytes": nbytes, "ms": ms}
     print(f"memset of P3's {nbytes} dirs bytes: {ms:.4f} ms "
           f"({nbytes / ms / 1e9:.3f} TB/s)", flush=True)
-    del zeros
-    for name in order:
-        o = time_core(6, args.reps, **runs[name])
-        res["l6_u8"].setdefault(name, []).append(o)
-        print(f"P3 L6 u8 {name}: {o['ms']:.4f} ms, {o['ns_per_row']:.1f} "
-              f"ns/row, {o['waves']} wave(s)", flush=True)
-    for name in order:
+
+    keep = ("ms", "ns_per_row", "ns_per_active_row", "rows_active", "waves",
+            "cells_band")
+    for key, kr in (("ladder", 63), ("short", SHORT_KR)):
+        out[key] = {}
         for lv in P3.levels:
-            for key, kr in (("ladder", 63), ("short", SHORT_KR)):
-                o = time_core(lv, args.reps, KR=kr, **runs[name])
-                res[key].setdefault(name, {}).setdefault(
-                    f"L{lv}", []).append(o)
-                print(f"P3 {key} L{lv} {name}: {o['ms']:.4f} ms, "
-                      f"{o['ns_per_row']:.1f} ns/row, "
-                      f"{o['ns_per_active_row']:.1f} ns/active row",
-                      flush=True)
-    l0_runs = [n for n in order if n != "g1"]
-    for name in l0_runs:
-        kw = {"lib": runs[name]["lib"]} if "lib" in runs[name] else {}
-        for case, kv in P2.cases:
-            o = P2.run(**kv, reps=args.reps, device="cuda", **kw)
-            res["l0"].setdefault(name, {}).setdefault(
-                case.strip(), []).append(o)
-            print(f"P2 {case.strip()} {name}: {o['ms'] * 1e3:.2f} us/call, "
-                  f"kernel {o['kernel_ms'] * 1e3:.2f} us", flush=True)
-    line = json.dumps(res)
+            o = P3.run_level(lv, KR=kr, reps=args.reps, device="cuda")
+            out[key][f"L{lv}"] = {k: o[k] for k in keep}
+            print(f"P3 {key} L{lv}: {o['ms']:.4f} ms, {o['ns_per_row']:.1f} "
+                  f"ns/row, {o['ns_per_active_row']:.1f} ns/active row, "
+                  f"{o['waves']} wave(s)", flush=True)
+
+    out["l0"] = {}
+    q512 = torch.full((512, 1), 1000, dtype=torch.int32, device=dev)
+    for name, kv in P2.cases:
+        kw = {k: kv[k] for k in ("nstate", "KR", "touch", "read_acc")
+              if k in kv}
+        call = lambda: P2.l0_probe(q512, **kw)  # noqa: E731
+        o = {"kernel_ms": sum(by_kernel(torch, call, args.reps).values()),
+             "ms": tools.time_ms(call, dev, args.reps)}
+        out["l0"][name.strip()] = o
+        print(f"P2 {name.strip()}: kernel {o['kernel_ms'] * 1e3:.2f} us, "
+              f"{o['ms'] * 1e3:.2f} us a wrapper call", flush=True)
+
+    line = json.dumps(out)
     if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "time_probes.json").write_text(line + "\n")
+        (args.out / "l0_sass.txt").write_text("\n".join(l0) + "\n")
     print(line)
 
 
