@@ -82,10 +82,15 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      KR=3, numpy seed 20261016: every P1 body, every P2 case, P3 levels
      0-6 under each dirs mode and the int32 state), and every case again
      at the shape it is timed at (P3 with 8 jobs and ~320 rows), P3 level
-     6 once more at the full shape; then the P3 ladder (and again at 288
-     rows, where no job stops early) and its variants, the P2 cases (with
-     each kernel's own time by torch.profiler) and the P1 bodies timed
-     through their entry points, beside K1's row time from phase 2.
+     6 once more at the full shape and at every Wb from 1 to 640 (partial
+     last chunks and 4-lane groups) at the small shape; then the P3 ladder
+     (and again at 288 rows, where no job stops early) and its variants,
+     the P2 cases (with each kernel's own time by torch.profiler) and the
+     P1 bodies timed through their entry points, beside K1's row time from
+     phase 2; P2's kernels-line time is its 7-array case with its stores
+     written back (a CUDA graph of launches whose outputs pass twice the
+     L2), against a bound of its stores at the memory rate or its byte-SIMD
+     operations, whichever is larger.
   8. the generator mapping path (--junc-bed, -X, -D, --for-only,
      --rev-only, --sr: map/batch.map_batch_generator) on the card: -x
      splice --junc-bed byte-equal to golden_splice_junc.paf; the generator
@@ -128,11 +133,36 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      torch.unique on the block's valid keys, and held to its plain version
      there at k = 19 (u64 keys) and on small blocks with N runs at k = 15,
      19, 31, 32, each direction.
-Every DP kernel call of phases 4, 5, 6 and 8 (c), (d) is recorded; for each
-launch a run took, its call at the median of that launch's longest rows
-(in 8 (c) one that carries junction bytes) is run again at the end through
-the kernel and K2 and through their plain versions, in worker processes,
-and must be exactly equal.
+ 11. prebuilt and multi-part indexes, paired ends and the debug dumps,
+     after phase 9: (a) on the goldens, -d to WMTI1 then --sv-off -c from
+     it byte-equal to golden_svoff.paf; -a on t_ref.mmi, and on the port's
+     dump_mmi of the bloom build, equal to golden_mmi.sam apart from @PG;
+     --sv-off -c -I 100k byte-equal to golden_svoff.paf; -a on pe_1.fq
+     pe_2.fq equal to golden_pe.sam apart from @PG, and --frag yes on the
+     two interleaved giving its body; (b) phase 9's 10 Mbp index built
+     again through S1 (one launch), dumped and loaded as WMTI1 (every
+     array equal to phase 9's) and as MMI\\2 (every array but the weight
+     set), the build, dumps and loads timed, and phase 9's contigs mapped
+     from the loaded WMTI1 index with the PAF byte-equal to phase 9's; (c)
+     phase 9's genome with -I 4M: two parts of 5 Mbp, each built through
+     S1 in one launch and its codes' copy dropped before the next, its
+     chains of 50,000 anchors or more through C1; per part contigs/s, S1
+     and C1 launches and peak device memory; each part's regions (rids
+     shifted) equal to a single-part run against that chromosome alone;
+     -I 20M (above the genome) byte-equal to phase 9's PAF; (d) 5,000
+     pairs of 2 x 150 bp from fragments of 400 +- 50 bp of phase 4's
+     genome with 1% substitutions (numpy seed 20261018) mapped -a from
+     two files: pairs/s, K1 and K2 launches and event ms, jobs per call,
+     host jobs equal to the refusal guards' count, at least 90% properly
+     paired; (e) --print-seeds, --sv-off --print-aln-seq and --dbg-polish
+     on the first 4 reads of t_reads.fa (the fourth SV-aware): each trace
+     and PAF on the card byte-equal to the port's own with --device cpu,
+     the card's run through K1 and K2 on the generator path.
+Every DP kernel call of phases 4, 5, 6, 8 (c), (d) and 11 (d) is
+recorded; for each launch a run took, its call at the median of that
+launch's longest rows (in 8 (c) one that carries junction bytes) is run
+again at the end through the kernel and K2 and through their plain
+versions, in worker processes, and must be exactly equal.
 Phases 4-6 keep no DP job on the engine's host DP (eng_host_dp_calls 0).
 It prints a "kernels" JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -141,9 +171,11 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import io
 import json
 import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -2096,8 +2128,9 @@ def phase9(torch, K, build, fastx, options, batch, pipeline):
     chain_min = 0 (every chain on the engine's scalar DP): the PAF must be
     byte-equal.  The index build through S1 is part of the run; a native
     build after it must give the same arrays.  Returns the launches of
-    every kernel in the run and the run's largest C1 launch (its anchor
-    sets and parameters, as chain_dp_device_batch took them)."""
+    every kernel in the run, the run's largest C1 launch (its anchor sets
+    and parameters, as chain_dp_device_batch took them) and what phase 11
+    maps again (the records, options, weight set, index and results)."""
     from winnowmap_tpu_torch.chain import device as CD
     from winnowmap_tpu_torch.map import engine
     from winnowmap_tpu_torch.sketch import device as SD
@@ -2232,8 +2265,445 @@ def phase9(torch, K, build, fastx, options, batch, pipeline):
         f"{float(st0.get('eng_chain_s', 0)):.6f} over "
         f"{int(st0.get('eng_chain_calls', 0))} host chains; PAF "
         f"({ours.count(chr(10))} lines) byte-equal to the chain exchange's")
+    ctx = {"recs": recs, "qrecs": qrecs, "io": io_, "mo": mo, "wset": wset,
+           "mi": mi, "results": results, "paf": ours, "rep": rep}
     return launches, max(batches, key=lambda b: sum(len(ax)
-                                                      for ax, _ in b[0]))
+                                                    for ax, _ in b[0])), ctx
+
+
+# --------------------------------------------------------------------------
+# prebuilt and multi-part indexes, paired ends, the debug dumps
+# --------------------------------------------------------------------------
+
+# phase 11 (c): the part size of -I (phase 9's two chromosomes of 5 Mbp:
+# a part each), and (d): pairs, read and fragment lengths, substitutions
+PHASE11_PART_BP = 4_000_000
+PHASE11_PAIRS = 5000
+PHASE11_READ = 150
+PHASE11_FRAG = (400, 50)
+PHASE11_SUBST = 0.01
+# (e): the first reads of t_reads.fa (the fourth, of 10,185 bases, takes
+# the SV-aware MCAS trials: the trial, stage-2 and PO traces) and the dumps
+PHASE11_DUMP_READS = 4
+PHASE11_DUMPS = (["--print-seeds"], ["--sv-off", "--print-aln-seq"],
+                 ["--dbg-polish"])
+
+
+def write_fasta(path: Path, recs) -> None:
+    with open(path, "w") as f:
+        for r in recs:
+            f.write(f">{r.name}\n{r.seq.decode()}\n")
+
+
+def reg_fields(regs, shift=0):
+    """A read's regions as comparable tuples (rid shifted by `shift`)."""
+    return [(g.rid + shift, g.qs, g.qe, g.rs, g.re, g.rev, g.score,
+             g.mapq, g.id, g.parent, g.sam_pri,
+             None if g.p is None else (g.p.dp_max, g.p.cigar.tobytes()))
+            for g in regs]
+
+
+def phase11_goldens(cli, batch, K):
+    """(a) The new CLI paths on the golden corpora, on the card."""
+    tmp = DATA / "phase11"
+    tmp.mkdir(parents=True, exist_ok=True)
+    rep, ref = str(GOLD / "t_rep_k15.txt"), str(GOLD / "t_ref.fa")
+    reads = str(GOLD / "t_reads.fa")
+    svoff = (GOLD / "golden_svoff.paf").read_text()
+    wmi = tmp / "t_ref.wmi"
+    cli_run(cli, ["-W", rep, "-d", str(wmi), ref])
+    out, dt = cli_run(cli, ["--sv-off", "-c", str(wmi), reads])
+    if out != svoff:
+        fail("-d to WMTI then --sv-off -c from it differs from "
+             "golden_svoff.paf")
+    log(f"[phase 11 (a)] -d {wmi.name}, then --sv-off -c from it == "
+        f"golden_svoff.paf ({dt:.2f} s)")
+    want = strip_pg((GOLD / "golden_mmi.sam").read_text())
+    out, dt = cli_run(cli, ["-a", str(GOLD / "t_ref.mmi"), reads])
+    if strip_pg(out) != want:
+        fail("-a on t_ref.mmi differs from golden_mmi.sam")
+    from winnowmap_tpu_torch.index.build import (build_index,
+                                                 load_weight_bloom,
+                                                 load_weight_set)
+    from winnowmap_tpu_torch.index.mmi import dump_mmi
+    from winnowmap_tpu_torch.io.fastx import read_all
+
+    own = tmp / "own.mmi"
+    dump_mmi(build_index(read_all(ref), 50, 15, 0, load_weight_set(rep, 15),
+                         weight_bloom=load_weight_bloom(rep, 15)), str(own))
+    out2, dt2 = cli_run(cli, ["-a", str(own), reads])
+    if strip_pg(out2) != want:
+        fail("-a on the port's dump_mmi of the bloom build differs from "
+             "golden_mmi.sam")
+    log(f"[phase 11 (a)] -a on t_ref.mmi ({dt:.2f} s) and on the port's "
+        f"dump_mmi of the bloom build ({dt2:.2f} s) == golden_mmi.sam apart "
+        f"from @PG")
+    out, dt = cli_run(cli, ["--sv-off", "-c", "-I", "100k", "-W", rep, ref,
+                            reads])
+    if out != svoff:
+        fail("--sv-off -c -I 100k differs from golden_svoff.paf")
+    log(f"[phase 11 (a)] --sv-off -c -I 100k == golden_svoff.paf "
+        f"({dt:.2f} s)")
+    pe = [str(GOLD / f) for f in ("pe_rep.txt", "pe_ref.fa", "pe_1.fq",
+                                  "pe_2.fq")]
+    batch.STATS.clear()
+    K.reset_launches()
+    with GuardCount(batch) as guard:
+        out, dt = cli_run(cli, ["-a", "-W"] + pe)
+    pe_launch = dict(K.LAUNCHES)
+    if strip_pg(out) != strip_pg((GOLD / "golden_pe.sam").read_text()):
+        fail("-a on pe_1.fq pe_2.fq differs from golden_pe.sam")
+    if pe_launch["extd"] == 0 or batch.STATS.get("host_jobs", 0) != guard.n:
+        fail(f"the paired golden's DP did not all run on the card: "
+             f"{pe_launch} {dict(batch.STATS)}, refusal guards {guard.n}")
+    inter = tmp / "pe_inter.fq"
+    l1 = Path(pe[2]).read_text().splitlines()
+    l2 = Path(pe[3]).read_text().splitlines()
+    with open(inter, "w") as f:
+        for i in range(0, len(l1), 4):
+            f.write("\n".join(l1[i:i + 4] + l2[i:i + 4]) + "\n")
+    out2, dt2 = cli_run(cli, ["-a", "--frag", "yes", "-W", pe[0], pe[1],
+                              str(inter)])
+    body = [ln for ln in out.splitlines() if not ln.startswith("@")]
+    if [ln for ln in out2.splitlines() if not ln.startswith("@")] != body:
+        fail("--frag yes on the interleaved pairs differs from the two "
+             "files' SAM body")
+    log(f"[phase 11 (a)] -a pe_1.fq pe_2.fq == golden_pe.sam apart from @PG "
+        f"({dt:.2f} s; launches {pe_launch}), and --frag yes on the two "
+        f"interleaved gives its body ({dt2:.2f} s)")
+
+
+def phase11_prebuilt(torch, build, options, batch, ctx):
+    """(b) Phase 9's 10 Mbp index dumped and loaded (WMTI1 and MMI\\2),
+    every array equal; its contigs mapped from the loaded WMTI1 index."""
+    from winnowmap_tpu_torch.index import io as IO
+    from winnowmap_tpu_torch.index import mmi as MMI
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    tmp = DATA / "phase11"
+    mi, io_ = ctx["mi"], ctx["io"]
+    SD.reset_launches()
+    t0 = time.perf_counter()
+    built = build.build_index(ctx["recs"], io_.w, io_.k, io_.flag,
+                              ctx["wset"])
+    t_build = time.perf_counter() - t0
+    times = {"build": t_build}
+    for kind, dump, load, fields in (
+            ("WMTI1", IO.dump_index, IO.load_index,
+             ("keys", "start", "pos", "codes", "wset")),
+            ("MMI\\2", MMI.dump_mmi, MMI.load_mmi,
+             ("keys", "start", "pos", "codes"))):
+        path = tmp / ("asm.wmi" if kind == "WMTI1" else "asm.mmi")
+        t0 = time.perf_counter()
+        dump(built, str(path))
+        times[f"{kind} dump"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = load(str(path))
+        times[f"{kind} load"] = time.perf_counter() - t0
+        same = ([(x.name, x.offset, x.length) for x in got.seqs]
+                == [(x.name, x.offset, x.length) for x in mi.seqs]
+                and (got.w, got.k, got.flag) == (mi.w, mi.k, mi.flag))
+        for f in fields:
+            same = same and np.array_equal(getattr(got, f), getattr(mi, f))
+        if not same:
+            fail(f"phase 11 (b): the {kind} index read back differs from "
+                 f"phase 9's")
+        log(f"[phase 11 (b)] {kind} {path.stat().st_size} bytes: dump "
+            f"{times[f'{kind} dump']:.3f} s, load {times[f'{kind} load']:.3f}"
+            f" s; {', '.join(fields)} equal to phase 9's index")
+        if kind == "WMTI1":
+            loaded = got
+    if SD.LAUNCHES["sketch"] != 1:
+        fail(f"phase 11 (b): the build launched S1 {SD.LAUNCHES['sketch']} "
+             f"times")
+    mo = copy.copy(ctx["mo"])
+    options.update_mid_occ(mo, loaded)
+    seqs = [r.seq for r in ctx["qrecs"]]
+    batch.STATS.clear()
+    t0 = time.perf_counter()
+    results = batch.map_batch(loaded, mo, seqs, [r.name for r in
+                                                 ctx["qrecs"]])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = io.StringIO()
+    for r, res in zip(ctx["qrecs"], results):
+        from winnowmap_tpu_torch.map.pipeline import _write_read
+
+        _write_read(loaded, mo, r, res, out)
+    if out.getvalue() != ctx["paf"]:
+        fail("phase 11 (b): the contigs mapped from the loaded WMTI1 index "
+             "differ from phase 9's PAF")
+    if batch.STATS.get("eng_host_dp_calls", 0):
+        fail("phase 11 (b): DP jobs stayed on the engine's host DP")
+    log(f"[phase 11 (b)] build (S1, 1 launch) {t_build:.3f} s; "
+        f"{len(seqs)} contigs from the loaded WMTI1 index in {dt:.3f} s: "
+        f"PAF byte-equal to phase 9's")
+    log("[phase 11 (b)] JSON " + json.dumps({
+        "seconds": times, "map_s": dt, "bp": int(loaded.codes.size)}))
+
+
+def phase11_multipart(torch, cli, pipeline, build, options, batch, ctx):
+    """(c) Phase 9's genome in parts of PHASE11_PART_BP (-I): a part a
+    chromosome, each built through S1 and mapped in turn; each part's
+    regions equal a single-part run against that chromosome alone; -I
+    above the genome's size gives phase 9's PAF."""
+    from winnowmap_tpu_torch.chain import device as CD
+    from winnowmap_tpu_torch.sketch import device as SD
+
+    tmp = DATA / "phase11"
+    recs, qrecs, io_ = ctx["recs"], ctx["qrecs"], ctx["io"]
+    ref_fa, ctg_fa = tmp / "asm_ref.fa", tmp / "asm_contigs.fa"
+    write_fasta(ref_fa, recs)
+    write_fasta(ctg_fa, qrecs)
+    mo = copy.copy(ctx["mo"])
+    mo.flag |= options.MM_F_OUT_CG
+    # each part's build and batches, seen through the pipeline's calls
+    parts = []
+    build_index, map_batch = pipeline.build_index, pipeline.map_batch
+
+    def part_build(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s0, c0 = SD.LAUNCHES["sketch"], CD.LAUNCHES["chain_fwd"]
+        batch.STATS.clear()
+        mi = build_index(*a, **kw)
+        parts.append({"s1": SD.LAUNCHES["sketch"] - s0, "c0": c0,
+                      "bp": int(mi.codes.size), "t0": time.perf_counter(),
+                      "res": []})
+        return mi
+
+    def part_map(*a, **kw):
+        res = map_batch(*a, **kw)
+        torch.cuda.synchronize()
+        p = parts[-1]
+        p["map_s"] = time.perf_counter() - p["t0"]
+        p["c1"] = CD.LAUNCHES["chain_fwd"] - p["c0"]
+        p["exported"] = int(batch.STATS.get("chain_dev_jobs", 0))
+        p["host_dp"] = int(batch.STATS.get("eng_host_dp_calls", 0))
+        p["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        p["res"] += zip(a[3], res)  # rids shifted in place after the call
+        return res
+
+    out = io.StringIO()
+    pipeline.build_index, pipeline.map_batch = part_build, part_map
+    t0 = time.perf_counter()
+    try:
+        n = pipeline.map_file_multipart(
+            recs, io_, mo, ctx["wset"], [str(ctg_fa)], out=out,
+            batch_bp=PHASE11_PART_BP)
+    finally:
+        pipeline.build_index, pipeline.map_batch = build_index, map_batch
+    dt = time.perf_counter() - t0
+    if len(parts) != 2 or n != len(qrecs):
+        fail(f"phase 11 (c): {len(parts)} parts, {n} contigs")
+    for pi, p in enumerate(parts):
+        p["regs"] = {name: reg_fields(x.regs) for name, x in p.pop("res")}
+        log(f"[phase 11 (c)] part {pi + 1}/{len(parts)}: {p['bp']} bp, S1 "
+            f"{p['s1']} launch(es), {len(qrecs)} contigs mapped in "
+            f"{p['map_s']:.3f} s ({len(qrecs) / p['map_s']:.4f} contigs/s),"
+            f" {p['exported']} chains exported, C1 {p['c1']} launch(es), "
+            f"peak device memory {p['peak_gib']:.3f} GiB allocated")
+        if p["s1"] != 1 or p["c1"] == 0 or p["exported"] == 0 \
+                or p["host_dp"]:
+            fail(f"phase 11 (c): part {pi + 1}: " + str(
+                {k: v for k, v in p.items() if k != "regs"}))
+    # each part against a single-part run of its chromosome alone
+    for pi, rec in enumerate(recs):
+        mi = build.build_index([rec], io_.w, io_.k, io_.flag, ctx["wset"])
+        mo1 = copy.copy(ctx["mo"])
+        options.update_mid_occ(mo1, mi)
+        res = batch.map_batch(mi, mo1, [r.seq for r in qrecs],
+                              [r.name for r in qrecs])
+        want = {r.name: reg_fields(x.regs, pi) for r, x in zip(qrecs, res)}
+        if want != parts[pi]["regs"]:
+            fail(f"phase 11 (c): part {pi + 1}'s regions differ from a "
+                 f"single-part run against {rec.name} alone")
+        del mi
+    log(f"[phase 11 (c)] -I {PHASE11_PART_BP}: {len(parts)} parts in "
+        f"{dt:.3f} s ({len(qrecs) / dt:.4f} contigs/s end to end, "
+        f"{out.getvalue().count(chr(10))} merged PAF lines); each part's "
+        f"regions (rids shifted) == a single-part run against its "
+        f"chromosome alone")
+    # -I above the genome's size: the whole index at once, phase 9's PAF
+    # (with -c's cg tags, in the CLI's longest-first order)
+    out, dt = cli_run(cli, ["-x", "asm5", "-c", "-I", "20M", "-W",
+                            str(ctx["rep"]), str(ref_fa), str(ctg_fa)])
+    order = sorted(range(len(qrecs)),
+                   key=lambda i: (len(qrecs[i].seq), i), reverse=True)
+    want = io.StringIO()
+    for i in order:
+        pipeline._write_read(ctx["mi"], mo, qrecs[i], ctx["results"][i],
+                             want)
+    if out != want.getvalue():
+        fail("phase 11 (c): -I 20M differs from phase 9's PAF")
+    log(f"[phase 11 (c)] -I 20M (above the genome): PAF byte-equal to "
+        f"phase 9's ({dt:.2f} s)")
+    log("[phase 11 (c)] JSON " + json.dumps({
+        "parts": [{k: v for k, v in p.items() if k not in ("regs", "t0",
+                                                            "c0")}
+                  for p in parts], "wall_s": dt}))
+
+
+def pe_corpus(fastx, ref: Path, r1: Path, r2: Path):
+    """PHASE11_PAIRS pairs of 2 x PHASE11_READ bp from fragments of
+    PHASE11_FRAG (mean, sd) bases of phase 4's genome, each read with
+    PHASE11_SUBST substitutions, both ends on the fragment's strand
+    (numpy seed 20261018)."""
+    rng = np.random.default_rng(20261018)
+    g = np.concatenate([np.frombuffer(r.seq, np.uint8)
+                        for r in fastx.read_all(str(ref))])
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    lens = np.clip(rng.normal(*PHASE11_FRAG, PHASE11_PAIRS).astype(int),
+                   2 * PHASE11_READ, None)
+    starts = rng.integers(0, len(g) - lens.max(), PHASE11_PAIRS)
+    with open(r1, "w") as f1, open(r2, "w") as f2:
+        for i, (s, ln) in enumerate(zip(starts, lens)):
+            frag = g[s:s + ln]
+            for f, rd, end in ((f1, frag[:PHASE11_READ], 1),
+                               (f2, frag[-PHASE11_READ:], 2)):
+                rd = rd.copy()
+                sub = rng.random(len(rd)) < PHASE11_SUBST
+                rd[sub] = acgt[rng.integers(0, 4, int(sub.sum()))]
+                f.write(f"@pair{i}/{end}\n{rd.tobytes().decode()}\n+\n"
+                        f"{'I' * len(rd)}\n")
+
+
+def phase11_pairs(torch, K, pipeline, build, fastx, options, batch, holds):
+    """(d) Paired-end mapping (-a, two query files) on phase 4's genome."""
+    tmp = DATA / "phase11"
+    ref = DATA / "wmbench2_ref.fa"
+    r1, r2 = tmp / "pe_1.fq", tmp / "pe_2.fq"
+    pe_corpus(fastx, ref, r1, r2)
+    io_, mo = options.IndexOptions(), options.MapOptions()
+    mo.flag |= options.MM_F_OUT_SAM | options.MM_F_CIGAR
+    mi = build.build_index(fastx.read_all(str(ref)), io_.w, io_.k, io_.flag,
+                           build.load_weight_set(
+                               str(DATA / "wmbench2_rep.txt"), io_.k))
+    options.update_mid_occ(mo, mi)
+    batch.STATS.clear()
+    K.reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with GuardCount(batch) as guard, LaunchTimer(K, torch, "extd") as timer:
+        t0 = time.perf_counter()
+        n = pipeline.map_file_frag(mi, mo, [str(r1), str(r2)], out=out)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    timer.peak = torch.cuda.max_memory_reserved()
+    launches = dict(K.LAUNCHES)
+    st = {k: round(float(v), 6) for k, v in batch.STATS.items()}
+    check_generator("phase 11 (d)", timer, dt, n, launches, st, guard.n)
+    if st.get("eng_host_dp_calls", 0):
+        fail("phase 11 (d): DP jobs on the engine's host DP")
+    if launches["extd"] == 0 or launches["traceback"] == 0:
+        fail(f"phase 11 (d): K1 or K2 was not launched: {launches}")
+    holds += timer.pick("phase 11 (d)")
+    flags = [int(ln.split("\t")[1]) for ln in out.getvalue().splitlines()
+             if not ln.startswith("@")]
+    proper = sum(1 for f in flags if f & 0x40 and (f & 0x3) == 0x3
+                 and not f & 0x90C)
+    log(f"[phase 11 (d)] {PHASE11_PAIRS} pairs in {dt:.3f} s -> "
+        f"{PHASE11_PAIRS / dt:.1f} pairs/s; {proper} properly paired "
+        f"({100 * proper / PHASE11_PAIRS:.2f}%)")
+    if proper < 0.9 * PHASE11_PAIRS:
+        fail(f"phase 11 (d): {proper} of {PHASE11_PAIRS} pairs properly "
+             f"paired")
+
+
+def phase11_dumps(cli, batch, K):
+    """(e) The debug dumps on the first reads of t_reads.fa: each trace
+    (and the PAF) on the card equal to the port's own run with --device
+    cpu; the card's run on the generator path through K1 and K2."""
+    tmp = DATA / "phase11"
+    reads = tmp / "dump_reads.fa"
+    recs = (GOLD / "t_reads.fa").read_text().split(">")
+    reads.write_text("".join(">" + r
+                             for r in recs[1:PHASE11_DUMP_READS + 1]))
+    argvs = [flags + ["-c", "-W", str(GOLD / "t_rep_k15.txt"),
+                      str(GOLD / "t_ref.fa"), str(reads)]
+             for flags in PHASE11_DUMPS]
+    # the port's CPU runs (plain versions, bound by the host) in processes
+    # of their own, meanwhile, the host's cores shared out among them (each
+    # with a thread a core, the three together ran slower than in turn)
+    env = dict(os.environ, OMP_NUM_THREADS=str(
+        max(1, (os.cpu_count() or 1) // len(argvs))))
+    t_cpu = time.perf_counter()
+    cpu = [subprocess.Popen([sys.executable, "-m", "winnowmap_tpu_torch.cli",
+                             "--device", "cpu"] + argv, cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True) for argv in argvs]
+    try:
+        dump_checks(cli, batch, K, argvs, cpu, t_cpu)
+    finally:
+        for proc in cpu:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def dump_checks(cli, batch, K, argvs, cpu, t_cpu):
+    """Phase 11 (e)'s runs on the card, each held to its CPU run."""
+    def lines(text):
+        return [ln for ln in text.splitlines() if not ln.startswith("[M::")]
+
+    for flags, argv, proc in zip(PHASE11_DUMPS, argvs, cpu):
+        batch.STATS.clear()
+        K.reset_launches()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with GuardCount(batch) as guard, contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"phase 11 (e): {' '.join(flags)} exited {rc}")
+        out, trace = out.getvalue(), lines(err.getvalue())
+        launches, st = dict(K.LAUNCHES), dict(batch.STATS)
+        out_c, err_c = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"phase 11 (e): {' '.join(flags)} --device cpu exited "
+                 f"{proc.returncode}: {err_c[-2000:]}")
+        trace_c, dt_c = lines(err_c), time.perf_counter() - t_cpu
+        if trace != trace_c or out != out_c:
+            fail(f"phase 11 (e): {' '.join(flags)}'s trace on the card "
+                 f"differs from --device cpu's")
+        if (launches["extd"] == 0 or launches["traceback"] == 0
+                or "delivered_jobs" in st
+                or st.get("host_jobs", 0) != guard.n):
+            fail(f"phase 11 (e): {' '.join(flags)} did not map on the "
+                 f"generator path through K1 and K2: {launches} {st}")
+        log(f"[phase 11 (e)] {' '.join(flags)}: {len(trace)} trace lines "
+            f"on the card ({dt:.2f} s; K1 {launches['extd']}, K2 "
+            f"{launches['traceback']} launches) == --device cpu's (a "
+            f"process of its own, done {dt_c:.2f} s after the three "
+            f"started)")
+
+
+def phase11(torch, K, cli, pipeline, build, fastx, options, batch, ctx,
+            holds):
+    """Prebuilt indexes, multi-part indexes, paired ends and the debug
+    dumps on the card: (a) the goldens, (b) phase 9's index dumped and
+    loaded, (c) phase 9's genome in two parts, (d) 5000 pairs on phase 4's
+    genome (its recorded DP calls held at the end), (e) the dumps."""
+    t0 = time.perf_counter()
+    K.reset_launches()
+    phase11_goldens(cli, batch, K)
+    log(f"[phase 11 (a)] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase11_prebuilt(torch, build, options, batch, ctx)
+    log(f"[phase 11 (b)] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    K.reset_launches()
+    phase11_multipart(torch, cli, pipeline, build, options, batch, ctx)
+    log(f"[phase 11 (c)] {time.perf_counter() - t0:.1f} s; launches "
+        f"{dict(K.LAUNCHES)}")
+    t0 = time.perf_counter()
+    phase11_pairs(torch, K, pipeline, build, fastx, options, batch, holds)
+    log(f"[phase 11 (d)] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase11_dumps(cli, batch, K)
+    log(f"[phase 11 (e)] {time.perf_counter() - t0:.1f} s")
 
 
 # --------------------------------------------------------------------------
@@ -2276,6 +2746,18 @@ def host_ms(torch, fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+def check_widths(widths) -> int:
+    """P3 level 6 against plain at each Wb of `widths` (tools/check.
+    check_widths), in a worker process; returns the largest error."""
+    import torch
+
+    from winnowmap_tpu_torch.tools import check as PC
+
+    err = PC.check_widths(torch.device(DEVICE), widths)
+    torch.cuda.synchronize()
+    return err
+
+
 def phase7(torch, k1):
     """P1-P3 against their plain versions (every case at a small shape and
     at the shape it is timed at, and P3 level 6 at the full shape), then
@@ -2315,6 +2797,21 @@ def phase7(torch, k1):
         fail(f"P3 level 6 != plain at B={Bf} Wb={Wb} KR*ROWS={KR * ROWS}")
     log(f"[phase 7] P3 level 6 u8 at B={Bf} Wb={Wb} ROWS={ROWS} KR={KR} "
         f"(half the jobs the timed inputs): kernel == plain")
+    t0 = time.perf_counter()
+    # the plain versions are bound by the host's Python: the widths go to
+    # worker processes, before anything is timed
+    widths = range(1, P3.KERNEL_LANES + 1)
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            PHASE2_WORKERS, mp_context=spawn) as pool:
+        errs = list(pool.map(check_widths, [
+            widths[i::PHASE2_WORKERS] for i in range(PHASE2_WORKERS)]))
+    if any(errs):
+        fail("P3 level 6 != plain at a Wb from 1 to 640")
+    log(f"[phase 7] P3 level 6 u8 at every Wb from 1 to "
+        f"{P3.KERNEL_LANES} (B={PC.B} ROWS={PC.ROWS} KR={PC.KR}, in "
+        f"{PHASE2_WORKERS} worker processes): kernel == plain "
+        f"({time.perf_counter() - t0:.1f} s)")
     # the plain versions at the timed inputs (qbuf zeros, qlen 1000)
     zq = torch.zeros((Bf, Wb + 384), dtype=torch.uint8, device=dev)
     qlen = PC.timed_qlen(dev)
@@ -2334,6 +2831,7 @@ def phase7(torch, k1):
     variants = [(name, P3.run_level(**kv, device=DEVICE))
                 for name, kv in P3.variants]
     l0 = {name: P2.run(**kv, device=DEVICE) for name, kv in P2.cases}
+    l0_stream = P2.stream_ms()
     bis = {tag: P1.run(tag, body, **kv, device=DEVICE)
            for tag, body, kv in P1.variants}
     torch.cuda.synchronize()
@@ -2387,8 +2885,23 @@ def phase7(torch, k1):
                   + 7 * Bf * Wb + 64 * Bf)
     core_ops = (top["cells_band"] * OPS_PER_CELL_P3
                 + top["rows_active"] * Bf * OPS_PER_ROW_P3)
-    # 7 state arrays (=L0): the kernel's own time, under a wrapper call's
-    l0_ms = l0[P2.cases[4][0]]["kernel_ms"]
+    # 7 state arrays (=L0), its stores written back (stream_ms: a graph of
+    # launches whose outputs pass the L2; one launch's kernel time alone
+    # ends with its stores in the L2 and can beat the memory rate).  Its
+    # bound: the stores (and qlen) at the memory rate, or per step a
+    # __vadd4 a 4-lane word (byte-SIMD: 4 lanes an instruction) and the 16
+    # accumulators' adds, whichever is larger
+    l0_bytes = 4 * Bf + 7 * Bf * Wb + 64 * Bf
+    l0_ops = KR * Bf * (Wb // 4 + 16)
+    l0_rec = probe_record("probe_l0", "tests/tools/probe_l0.py:55", 0, 0,
+                          l0_stream, 0, l0_bytes, l0_ops)
+    log(f"[phase 7] P2 7 state arrays (=L0) with its stores written back: "
+        f"{l0_stream:.5f} ms a launch (a CUDA graph of launches whose "
+        f"outputs pass twice the L2; kernel alone "
+        f"{l0[P2.cases[4][0]]['kernel_ms']:.5f} ms by torch.profiler); "
+        f"bound {l0_rec['bound_ms']:.5f} ms ({l0_rec['bound_by']}: "
+        f"{l0_bytes} bytes stored, {l0_ops} 32-bit operations), "
+        f"{100 * l0_rec['bound_ms'] / l0_stream:.1f}% of it")
     ds = bis[P1.variants[4][0]]["ms"]  # 32x dirs row store, KR 16
     return [
         probe_record("probe_bisect", "tests/tools/probe_bisect.py:48",
@@ -2397,9 +2910,8 @@ def phase7(torch, k1):
                      16 * 32 * Bf * Wb + 7 * Bf * Wb + 64 * Bf,
                      16 * 32 * Bf * Wb),
         probe_record("probe_l0", "tests/tools/probe_l0.py:55",
-                     launches["probe_l0"], err["probe_l0"], l0_ms,
-                     plain["probe_l0"], 4 * Bf + 7 * Bf * Wb + 64 * Bf,
-                     KR * Bf * (Wb + 16)),
+                     launches["probe_l0"], err["probe_l0"], l0_stream,
+                     plain["probe_l0"], l0_bytes, l0_ops),
         probe_record("probe_core", "tests/tools/probe_core.py:222",
                      launches["probe_core"], err["probe_core"], top["ms"],
                      plain["probe_core"], core_bytes, core_ops),
@@ -2776,10 +3288,15 @@ def main():
     log(f"[phase 8] launches on the generator path: {gen}")
     log(f"[phase 8] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    asm, c1_launch = phase9(torch, K, build, fastx, options, batch,
-                            pipeline)
+    asm, c1_launch, asm_ctx = phase9(torch, K, build, fastx, options, batch,
+                                     pipeline)
     c1_ms = time_chain_launch(torch, CD, c1_launch)
     log(f"[phase 9] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase11(torch, K, cli, pipeline, build, fastx, options, batch, asm_ctx,
+            holds)
+    del asm_ctx
+    log(f"[phase 11] {time.perf_counter() - t0:.1f} s")
     # C1's launch held to the plain version beside the DP calls' holds
     with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
         c1_held = pool.submit(hold_chain, *c1_launch)

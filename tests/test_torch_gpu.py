@@ -728,6 +728,13 @@ def test_probe_core_kernel_matches_plain(cuda, level, dirs_mode, s32):
     assert tools.LAUNCHES["probe_core"] == before + 1
 
 
+@pytest.mark.parametrize("dirs_mode", ["u8", "i32"])
+def test_probe_core_kernel_matches_plain_at_every_width(cuda, dirs_mode):
+    """P3 level 6 at every Wb from 1 to 640: partial last chunks and
+    4-lane groups."""
+    assert PC.check_widths(cuda, dirs_mode=dirs_mode) == 0
+
+
 def test_probe_l0_kernel_matches_plain(cuda):
     _, qlen = PC.small_inputs(cuda)
     assert max(PC.check_l0(qlen, kv) for _, kv in P2.cases) == 0

@@ -16,7 +16,9 @@ job 0 (qlen 1) sets done in step 3 of 4 at levels 4-5 (ROWS 32), so its
 last step runs the frozen walk; at Wb 640 and 11 steps the timed inputs
 (jobs 2-3) set done at level 6 in step 10.  Every case also runs at Wb
 640 under the stub's random fiber orders, where a warp that runs ahead of
-its edge or walk values reads stale ones.
+its edge or walk values reads stale ones, and at widths that are no
+multiple of 128 (1, 100, 129), where the last chunk and the last group of
+4 lanes are partial.
 """
 import ctypes
 
@@ -129,6 +131,25 @@ def test_core_source_five_warps_any_schedule(lib, level, dirs_mode, kr,
     array, the walk's exchange and the frozen state are read only after
     the barrier that orders their writes."""
     _core(lib, level, dirs_mode, False, Wb=640, KR=kr, seed=seed)
+
+
+# widths that are no multiple of 128: one lane, a partial first chunk whose
+# rows keep 4-lane groups aligned, a partial second chunk with a partial
+# last group (a store a lane), and the full window
+PARTIAL = [(lv, dm, s) for lv, dm, s in CORE
+           if dm != "none" or lv in (0, 1, 2)]
+
+
+@pytest.mark.parametrize("Wb", [1, 100, 129, 640])
+@pytest.mark.parametrize("level,dirs_mode,s32", PARTIAL,
+                         ids=[f"L{lv}-{dm}{'-s32' * s}"
+                              for lv, dm, s in PARTIAL])
+def test_core_source_any_width_matches_plain(lib, level, dirs_mode, s32,
+                                             Wb):
+    """Wb of 1, 100, 129 and 640 (partial last chunk and group), 4 steps
+    of 32 rows, in the stub's own order: every output equal to core_plain,
+    the unwritten fill included."""
+    _core(lib, level, dirs_mode, s32, Wb=Wb)
 
 
 @pytest.mark.parametrize("Wb", [128, 640, 130])

@@ -3,39 +3,51 @@ src/main.c).
 
     python -m winnowmap_tpu_torch.cli [-x map-ont|map-pb|asm5|asm10|asm20|
         splice|splice:hq|cdna] [-a|-c] [--sv-off] [--junc-bed genes.bed]
-        [-X|-D] [--for-only|--rev-only] [--sr] [--device cuda|cpu]
-        -W rep.txt ref.fa reads.fa
+        [-X|-D] [--for-only|--rev-only] [--sr] [-d index.wmi|index.mmi]
+        [-I 4G] [--split-prefix dir/prefix] [--frag yes|no] [-F 800]
+        [--print-qname|--print-seeds|--print-aln-seq|--dbg-polish]
+        [--device cuda|cpu] -W rep.txt ref.fa|index [reads.fa [mates.fa]]
 
-Maps reads against a reference built on the fly and writes PAF or SAM, with
-the same flags and output as winnowmap_tpu.cli.  Single-cost gap profiles
-(-O q,q -E e,e) run the extz kernel, spliced presets exts, the others extd.
---junc-bed, -X, -D, --for-only, --rev-only and --sr map through the
-generator path (map/batch.map_batch_generator), the other options through
-the native engine.  The DP, the chains of 50,000 anchors or more and the
-sketch transform of a reference of 1 Mbp or more run on the CUDA card;
---device cpu runs the kernels' plain PyTorch versions (and chains every
-read on the host).  Flags of paths not ported yet exit with a
-"not yet ported" error.
+Maps reads against a reference built on the fly or loaded from an index
+(the JAX package's WMTI1 or the reference's MMI\2, detected by their
+magic) and writes PAF or SAM, with the same flags and output as
+winnowmap_tpu.cli.  -d writes the index (MMI\2 for a path ending in .mmi,
+WMTI1 otherwise), with or without queries.  A reference longer than -I
+bases maps part by part (map/pipeline.map_file_multipart); several query
+files, or --frag yes, map as fragments (paired ends).  Single-cost gap
+profiles (-O q,q -E e,e) run the extz kernel, spliced presets exts, the
+others extd.  --junc-bed, -X, -D, --for-only, --rev-only, --sr, the debug
+dumps and fragments of several segments map through the generator path
+(map/batch.py), the other options through the native engine.  The DP,
+the chains of 50,000 anchors or more and the sketch transform of a
+reference (or index part) of 1 Mbp or more run on the CUDA card; --device
+cpu runs the kernels' plain PyTorch versions (and chains every read on the
+host).
 """
 from __future__ import annotations
 
 import os
 import sys
+from pathlib import Path
 
 import numpy as np
 
 from . import __version__
 from .index.build import (build_index, load_weight_bloom, load_weight_set,
                           read_bed)
+from .index.io import dump_index, is_index_file, load_index
+from .index.mmi import dump_mmi, is_mmi_file, load_mmi
 from .io.fastx import read_all
 from .io.sam import sam_header
-from .map.pipeline import map_file
+from .map.pipeline import (map_file, map_file_frag, map_file_multipart,
+                           merged_meta_index)
 from .options import (
     MM_F_ALL_CHAINS,
     MM_F_CIGAR,
     MM_F_COPY_COMMENT,
     MM_F_EQX,
     MM_F_FOR_ONLY,
+    MM_F_FRAG_MODE,
     MM_F_HARD_MLEVEL,
     MM_F_LONG_CIGAR,
     MM_F_NO_DIAG,
@@ -52,6 +64,7 @@ from .options import (
     MM_F_REV_ONLY,
     MM_F_SAM_HIT_ONLY,
     MM_F_SOFTCLIP,
+    MM_F_SPLICE,
     MM_F_SR,
     IndexOptions,
     MapOptions,
@@ -59,24 +72,29 @@ from .options import (
     set_preset,
     update_mid_occ,
 )
+from .utils import dbg
 from .utils.log import cputime, peakrss, phase_log, realtime, warn
 
-USAGE = """Usage: python -m winnowmap_tpu_torch.cli [options] <target.fa> <query.fa>
+USAGE = """Usage: python -m winnowmap_tpu_torch.cli [options] <target.fa|index>
+       [query.fa] [...]
 The PyTorch/CUDA port of winnowmap-tpu (Winnowmap v2.03 capabilities);
 flags mirror the reference (see winnowmap --help)."""
 
 PRESETS = ("map-ont", "map-pb", "map-pb-clr", "asm5", "asm10", "asm20",
            "splice", "splice:hq", "cdna")
 
-# flags of paths that are not in this slice of the port
-NOT_PORTED = {
-    "-d": "index dump", "-I": "multi-part indexes", "--split-prefix":
-    "multi-part indexes",
-    "--frag": "paired-end / fragment mode", "-F": "paired-end / fragment "
-    "mode",
-    "--print-qname": "debug dumps", "--dbg-polish": "debug dumps",
-    "--print-seeds": "debug dumps", "--print-aln-seq": "debug dumps",
+# the debug dumps' flags (reference main.c; --print-seeds and
+# --print-aln-seq force one thread there, main.c:211-215)
+DBG_FLAGS = {
+    "--print-qname": dbg.DBG_PRINT_QNAME,
+    "--dbg-polish": dbg.DBG_PRINT_QNAME | dbg.DBG_POLISH,
+    "--print-seeds": dbg.DBG_PRINT_QNAME | dbg.DBG_PRINT_SEED,
+    "--print-aln-seq": dbg.DBG_PRINT_QNAME | dbg.DBG_PRINT_ALN_SEQ,
 }
+
+
+def _yes_no(s: str) -> bool:
+    return s.lower() in ("yes", "y", "1", "true")
 
 
 def _num(s: str) -> int:
@@ -95,6 +113,14 @@ def _not_ported(what: str) -> int:
 
 
 def main(argv: list[str] | None = None, device=None) -> int:
+    """The CLI; the debug dumps' flags hold for this call only."""
+    try:
+        return _main(argv, device)
+    finally:
+        dbg.flag = 0
+
+
+def _main(argv, device) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(USAGE, file=sys.stderr)
@@ -120,6 +146,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
     w_file = None
     bloom_mode = False
     junc_bed = None
+    idx_dump = None
+    split_prefix = None
     i = 0
 
     def take():
@@ -133,8 +161,23 @@ def main(argv: list[str] | None = None, device=None) -> int:
         a = argv[i]
         if not a.startswith("-") or a == "-":
             pos.append(a)
-        elif a in NOT_PORTED or a.startswith("--frag="):
-            return _not_ported(NOT_PORTED.get(a, "fragment mode"))
+        elif a in DBG_FLAGS:
+            dbg.flag |= DBG_FLAGS[a]
+        elif a == "-d":
+            idx_dump = take()
+        elif a == "-I":
+            io.batch_size = _num(take())
+        elif a == "--split-prefix":
+            # reference --split-prefix (splitidx.c): where the per-part hit
+            # files live; -I always merges them (map_file_multipart)
+            split_prefix = take()
+        elif a == "--frag":
+            if _yes_no(take()):
+                mo.flag |= MM_F_FRAG_MODE
+            else:
+                mo.flag &= ~MM_F_FRAG_MODE
+        elif a == "-F":
+            mo.max_frag_len = _num(take())
         elif a == "-x":
             i += 1  # handled in the first pass
         elif a.startswith("-x"):
@@ -275,18 +318,9 @@ def main(argv: list[str] | None = None, device=None) -> int:
             return 1
         i += 1
 
-    if len(pos) < 2:
-        if len(pos) == 1:
-            return _not_ported("building an index without mapping (-d)")
+    if not pos:
         print(USAGE, file=sys.stderr)
         return 1
-    if len(pos) > 2:
-        return _not_ported("mapping several query files (fragment mode)")
-    target, query = pos
-    with open(target, "rb") as f:
-        head = f.read(6)
-    if head.startswith(b"MMI\x02") or head == b"WMTI1\x00":
-        return _not_ported("loading a prebuilt index")
     check_options(io, mo)
 
     phase_log("main", "reading downweighted kmers")
@@ -298,19 +332,77 @@ def main(argv: list[str] | None = None, device=None) -> int:
         wset = load_weight_set(w_file, io.k)
         phase_log("main", "collected downweighted kmers, no. of kmers "
                           f"read={len(wset)}")
-    mi = build_index(read_all(target), io.w, io.k, io.flag, wset,
-                     bool(io.flag & 1), weight_bloom=bloom, device=device)
-    phase_log("index", mi.stat_line())
-    update_mid_occ(mo, mi)
+    target, queries = pos[0], pos[1:]
+    frag_mode = len(queries) > 1 or bool(mo.flag & MM_F_FRAG_MODE)
+    if queries and frag_mode and (mo.flag & MM_F_SPLICE):
+        raise SystemExit("[ERROR] --splice and --frag should not be "
+                         "specified at the same time.")
+    records = parts_meta = None
+    if is_mmi_file(target):
+        # the reference's prebuilt index (MMI\2, src/index.c:556-608)
+        # stores no weight set, so queries sketch unweighted, as the
+        # reference's do with a loaded index (mm_idx_load never restores
+        # the filter)
+        mi = load_mmi(target)
+        if w_file:
+            warn("prebuilt MMI index: -W list ignored (reference "
+                 "behaviour)")
+    elif is_index_file(target):
+        mi = load_index(target)
+        if w_file and len(wset) and len(mi.wset) != len(wset):
+            warn("prebuilt index: -W list ignored (stored set used)")
+    else:
+        records = read_all(target)
+        total_bp = sum(len(r.seq) for r in records)
+        if queries and io.batch_size and total_bp > io.batch_size \
+                and not idx_dump:
+            # -I: the parts are built one at a time by map_file_multipart;
+            # the whole index is not built (the JAX CLI builds it too, for
+            # its log line, with no change to the output)
+            parts_meta = [[(r.name, len(r.seq)) for r in records]]
+            mi = merged_meta_index(parts_meta, io)
+        else:
+            mi = build_index(records, io.w, io.k, io.flag, wset,
+                             bool(io.flag & 1), weight_bloom=bloom,
+                             device=device)
+    if parts_meta is None:
+        phase_log("index", mi.stat_line())
+        update_mid_occ(mo, mi)
     if junc_bed:
         read_bed(mi, junc_bed, read_junc=True)
+    if idx_dump:
+        if idx_dump.endswith(".mmi"):
+            # the reference's format, which the stock winnowmap loads
+            # (reference mm_idx_dump, src/index.c:515-554)
+            dump_mmi(mi, idx_dump)
+        else:
+            dump_index(mi, idx_dump)
+        phase_log("index", f"index dumped to {idx_dump}")
+    if not queries:
+        if not idx_dump:
+            warn("no query file given; index built only (use -d to save "
+                 "it)")
+        return 0
 
     out = open(out_path, "w") if out_path else sys.stdout
     try:
         if mo.flag & MM_F_OUT_SAM:
             cl = "winnowmap-tpu " + " ".join(argv)
             print(sam_header(mi, rg, __version__, cl), file=out)
-        map_file(mi, mo, query, out=out, device=device)
+        if (records is not None and io.batch_size
+                and sum(s_.length for s_ in mi.seqs) > io.batch_size):
+            tdir = None
+            if split_prefix:
+                tdir = str(Path(split_prefix).resolve().parent)
+                os.makedirs(tdir, exist_ok=True)
+            map_file_multipart(records, io, mo, wset, queries, out=out,
+                               batch_bp=io.batch_size, device=device,
+                               tmp_dir=tdir)
+        elif frag_mode:
+            map_file_frag(mi, mo, queries, out=out, device=device)
+        else:
+            for qf in queries:
+                map_file(mi, mo, qf, out=out, device=device)
     finally:
         if out is not sys.stdout:
             out.close()

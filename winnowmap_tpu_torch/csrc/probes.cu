@@ -62,7 +62,10 @@ __device__ __forceinline__ void opaque(T& v) {
 // at bits 8 (j % 4)).  S32: the state is int32 between steps (no wrap).
 //
 // Layout.  A job's window holds kCoreLanes = 640 lanes, five chunks of 128;
-// Wb is a multiple of 128 up to 640.  A job is a block of five warps, one a
+// Wb is any width from 1 to 640, the last chunk and the last group of 4
+// lanes partial where Wb is not a multiple of 128 or of 4 (their lanes past
+// Wb are computed in registers, never stored, and no lane below Wb reads
+// them).  A job is a block of five warps, one a
 // chunk, with one barrier a row, as K1 at 128 threads has: thread tid owns
 // the group of 4 lanes 4 tid .. 4 tid + 3, so a u8 dirs row leaves as
 // 32-bit words, 128 contiguous bytes a warp instruction, and the band
@@ -127,16 +130,25 @@ __host__ __device__ inline CoreGeo core_geo(int L, bool s32, int Wb) {
   return g;
 }
 
-// lanes [at, at + 4) of a row of St from four int32 values
+// lanes [at, at + n) of a row of St from int32 values (n <= 4; none for
+// n <= 0): one vector store where the group is whole and the rows' stride
+// keeps it aligned (vec: Wb % 4 == 0), else a store a lane
 template <class St>
-__device__ __forceinline__ void put4(St* row, int at, const int (&r)[4]) {
-  if constexpr (sizeof(St) == 1)
-    *(uint32_t*)(row + at) = (uint32_t)(r[0] & 255) |
-                             (uint32_t)(r[1] & 255) << 8 |
-                             (uint32_t)(r[2] & 255) << 16 |
-                             (uint32_t)r[3] << 24;
-  else
-    *(uint4*)(row + at) = make_uint4(r[0], r[1], r[2], r[3]);
+__device__ __forceinline__ void put4(St* row, int at, const int (&r)[4],
+                                     int n, bool vec) {
+  if (vec && n == 4) {
+    if constexpr (sizeof(St) == 1)
+      *(uint32_t*)(row + at) = (uint32_t)(r[0] & 255) |
+                               (uint32_t)(r[1] & 255) << 8 |
+                               (uint32_t)(r[2] & 255) << 16 |
+                               (uint32_t)r[3] << 24;
+    else
+      *(uint4*)(row + at) = make_uint4(r[0], r[1], r[2], r[3]);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < n) row[at + q] = (St)r[q];
 }
 
 __device__ __forceinline__ void walk_step(int d0, int d1, int l1, int& mx,
@@ -170,6 +182,8 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
   const int Wb = A.Wb, ROWS = A.ROWS, B = A.B, QR = Wb + 256;
   const int t0 = 4 * tid;              // my lanes t0 .. t0 + 3
   const bool real = kChunk * w < Wb;  // my chunk lies in the window
+  const int nl = min(4, Wb - t0);     // my lanes in the window (<= 0: none)
+  const bool vec = (Wb & 3) == 0;     // rows keep 4-lane groups aligned
   const uint32_t* Q32 = (const uint32_t*)(smem + geo.q_off);
   St* Sl = (St*)(smem + geo.sl_off);
   int* mU = (int*)(smem + geo.m_off);       // [2][Wb]: u and v for the walk
@@ -193,7 +207,7 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
   };
   // u and v of my lanes into mirror buffer p
   auto mirror = [&](int p) {
-    if (real) put4(mU + p * Wb, t0, u), put4(mV + p * Wb, t0, v);
+    put4(mU + p * Wb, t0, u, nl, vec), put4(mV + p * Wb, t0, v, nl, vec);
   };
 
   const int ql = A.qlen[b];
@@ -224,8 +238,18 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
       // the slide: lane l takes lane l + 16, the last 16 lanes 0
       auto slide = [&](int a, const int (&r)[4]) {
         St* row = Sl + a * Wb;
-        if (t0 >= 16) put4(row, t0 - 16, r);
-        if (t0 >= Wb - 16) put4(row, t0, {0, 0, 0, 0});
+        if (vec && nl == 4) {
+          if (t0 >= 16) put4(row, t0 - 16, r, 4, true);
+          if (t0 >= Wb - 16) put4(row, t0, {0, 0, 0, 0}, 4, true);
+          return;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = t0 + q;
+          if (q >= nl) break;
+          if (t >= 16) row[t - 16] = (St)r[q];
+          if (t >= Wb - 16) row[t] = 0;
+        }
       };
       slide(0, u), slide(1, v), slide(2, x), slide(3, y), slide(4, x2);
       slide(5, y2), slide(6, s);
@@ -234,14 +258,16 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
       const int r = r0 + j, par = r & 1, jm = j & 3;
       const bool last = j == ROWS - 1;
       if (L >= 4 && fast) {
-        // rows j .. ROWS - 1: their dirs as 16-byte zero stores, the flat
-        // index (row, unit) in strides of the storing threads (every warp
-        // but warp 0), then warp 0's walk
+        // rows j .. ROWS - 1: their dirs as 16-byte zero stores (a store
+        // a lane where Wb breaks their alignment), the flat index (row,
+        // unit) in strides of the storing threads (every warp but warp 0),
+        // then warp 0's walk
         constexpr int kUnit = DM == 1 ? 16 : 4;  // lanes a 16-byte store
         constexpr int NS = NT - 32;
         const int ts = tid - 32;
+        const bool zvec = Wb % kUnit == 0;
         if (DM != 0 && ts >= 0) {
-          const int units = Wb / kUnit;
+          const int units = zvec ? Wb / kUnit : Wb;
           const int ra = DM == 1 ? r : (r + 3) >> 2;  // rows (packed rows)
           const int nr = (DM == 1 ? r0 + ROWS : (r0 + ROWS) >> 2) - ra;
           int jj = ts / units, c = ts % units;
@@ -250,6 +276,11 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
             if (c >= units) c -= units, ++jj;
             if (jj >= nr) break;
             const int64_t row = (int64_t)(ra + jj) * B + b;
+            if (!zvec) {
+              if (DM == 1) dirs8[row * Wb + c] = 0;
+              else dirs32[row * Wb + c] = 0;
+              continue;
+            }
             uint4* at = (uint4*)(DM == 1 ? (void*)(dirs8 + row * Wb)
                                          : (void*)(dirs32 + row * Wb));
             at[c] = make_uint4(0, 0, 0, 0);
@@ -353,8 +384,15 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
                       << (8 * q);
             }
         }
-        if (L >= 3 && DM == 1)  // dirs are 0 outside the band
-          *(uint32_t*)(dirs8 + ((int64_t)r * B + b) * Wb + t0) = dw;
+        if (L >= 3 && DM == 1) {  // dirs are 0 outside the band
+          uint8_t* at = dirs8 + ((int64_t)r * B + b) * Wb + t0;
+          if (vec && nl == 4)
+            *(uint32_t*)at = dw;
+          else
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (q < nl) at[q] = (uint8_t)(dw >> (8 * q));
+        }
         if (L >= 3 && DM == 2) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
@@ -362,8 +400,8 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
             pk[q] = jm == 0 ? dv : (pk[q] | dv << (8 * jm));
           }
           if (jm == 3)
-            *(uint4*)(dirs32 + ((int64_t)(r >> 2) * B + b) * Wb + t0) =
-                make_uint4(pk[0], pk[1], pk[2], pk[3]);
+            put4(dirs32 + ((int64_t)(r >> 2) * B + b) * Wb, t0, pk, nl,
+                 vec);
         }
       }
       // the walk: v[lH0t] and u[lH0t + 1] after the row, before the wrap,
@@ -398,7 +436,7 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
   if (real) {
     St* out = (St*)A.state;
     auto put = [&](int a, const int (&r)[4]) {
-      put4(out + ((int64_t)a * B + b) * Wb, t0, r);
+      put4(out + ((int64_t)a * B + b) * Wb, t0, r, nl, vec);
     };
     put(0, u), put(1, v), put(2, x), put(3, y), put(4, x2), put(5, y2);
     put(6, s);
@@ -416,8 +454,7 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
 // a block a job, kCoreThreads threads.
 template <int L, int DM, bool S32>
 int core_run(const CoreArgs& A, int* blocks, void* stream) {
-  if (A.Wb < kChunk || A.Wb > kCoreLanes || A.Wb % kChunk)
-    return (int)cudaErrorInvalidValue;
+  if (A.Wb < 1 || A.Wb > kCoreLanes) return (int)cudaErrorInvalidValue;
   const CoreGeo g = core_geo(L, S32, A.Wb);
   cudaError_t err = cudaSuccess;
   if (g.shm > 48 * 1024)

@@ -2,8 +2,10 @@
 src/map.c:279-981).
 
 map_batch sends a batch through the native engine (map/engine.py) whenever
-engine_supported takes the options, and through the generator path
-otherwise: --junc-bed, -X, -D, --for-only, --rev-only, no-dual and --sr.
+engine_supported takes the options and no debug dump is on, and through
+the generator path otherwise: --junc-bed, -X, -D, --for-only, --rev-only,
+no-dual, --sr and the dumps of utils/dbg.  map_batch_frags maps fragments
+of several segments (paired ends) on the generator path too.
 On the generator path each read is a Python generator (map/frag.py) that
 yields extension-DP jobs; run_ext_tasks gathers the jobs of every read,
 groups them by what a call shares (scoring, matrix, flag, splice
@@ -11,9 +13,18 @@ parameters), runs each group as DevCallPooled calls on the device (K1, K3
 or K4, then the traceback) and feeds the results back.  Only the jobs whose
 result the oracle's own refusal guards decide (align.refused) are computed
 on the host, and they are counted in STATS["host_jobs"].
+
+The debug dumps keep the JAX package's per-read order although the reads'
+generators advance together: each task writes its trace into a buffer of
+its own (dbg.sink while its generator runs; the --print-aln-seq lines of a
+yield's jobs once all their results are in, in job order), and the
+buffers are written to stderr read by read, each read's trials in order,
+once the batch is done.
 """
 from __future__ import annotations
 
+import io
+import sys
 import time
 from collections import defaultdict
 from functools import partial
@@ -24,12 +35,15 @@ from ..chain.device import chain_dp_auto, chain_gate
 from ..device import resolve_device
 from ..extend.kernels import DevCallPooled, PoolContext, job_geometry
 from ..options import MM_F_SPLICE
-from .align import JobSeq, align_pair, refused
+from ..utils import dbg
+from .align import JobSeq, _seq_of, align_pair, refused
 from .engine import (MAX_CALL_DIRS_BYTES, STATS, build_read_pool,
                      engine_supported, map_batch_engine)
-from .frag import MapResult, McasState, _map_vanilla_gen, mcas_stage2_gen
+from .frag import (MapResult, McasState, _map_vanilla_gen, map_frag_gen,
+                   mcas_stage2_gen, read_prologue)
 
-__all__ = ["map_batch", "map_batch_generator", "run_ext_tasks", "STATS"]
+__all__ = ["map_batch", "map_batch_frags", "map_batch_generator",
+           "run_ext_tasks", "STATS"]
 
 
 def map_batch(mi, opt, seqs, qnames, device=None, chain_min=None):
@@ -38,17 +52,20 @@ def map_batch(mi, opt, seqs, qnames, device=None, chain_min=None):
     device=None runs the DP on the CUDA card (raises when there is none);
     device="cpu" runs the kernels' plain PyTorch versions.  One-segment
     anchor sets of at least chain_min anchors chain on the device (None:
-    the device's default, chain/device.chain_gate; 0: none)."""
-    if engine_supported(opt, mi):
+    the device's default, chain/device.chain_gate; 0: none).  The debug
+    dumps (dbg.flag) map on the generator path, on the same device."""
+    if engine_supported(opt, mi) and not dbg.flag:
         return map_batch_engine(mi, opt, seqs, qnames,
                                 resolve_device(device), chain_min)
     return map_batch_generator(mi, opt, seqs, qnames, device, chain_min)
 
 
 class _Task:
-    """One generator and the job (or job list) it waits on."""
+    """One generator and the job (or job list) it waits on; `buf`, the text
+    buffer its debug-dump lines go to (None: no dump is on)."""
 
-    __slots__ = ("gen", "job", "done", "value", "sub_results", "sub_left")
+    __slots__ = ("gen", "job", "done", "value", "sub_results", "sub_left",
+                 "buf")
 
     def __init__(self, gen):
         self.gen = gen
@@ -57,8 +74,21 @@ class _Task:
         self.value = None
         self.sub_results = None
         self.sub_left = 0
+        self.buf = io.StringIO() if dbg.flag else None
 
     def advance(self, send_val=None):
+        dbg.sink = self.buf
+        if self.buf is not None and self.job is not None and (
+                dbg.flag & dbg.DBG_PRINT_ALN_SEQ):
+            # the yield's DP calls as the sequential driver dumps them
+            # (reference align.c:315-338): each job's sequences, then its
+            # score and CIGAR
+            jobs, ezs = ((self.job, send_val) if isinstance(self.job, list)
+                         else ([self.job], [send_val]))
+            for job, ez in zip(jobs, ezs):
+                dbg.dump_aln_pre(job[0], job[4], job[7], _seq_of(job[2]),
+                                 _seq_of(job[1]))
+                dbg.dump_aln_post(ez.score, ez.cigar)
         try:
             if send_val is None and self.job is None:
                 self.job = next(self.gen)
@@ -68,6 +98,8 @@ class _Task:
             self.done = True
             self.value = e.value
             self.job = None
+        finally:
+            dbg.sink = None
         if isinstance(self.job, list):
             self.sub_results = [None] * len(self.job)
             self.sub_left = len(self.job)
@@ -196,12 +228,33 @@ def run_ext_tasks(tasks: list[_Task], pools: PoolContext) -> None:
                 enqueue(t)
 
 
+def _prologue(opt, qname, qlen) -> str | None:
+    """A read's first trace lines (frag.read_prologue), or None without a
+    dump."""
+    if not dbg.flag:
+        return None
+    dbg.sink = io.StringIO()
+    try:
+        read_prologue(opt, qname, qlen)
+        return dbg.sink.getvalue()
+    finally:
+        dbg.sink = None
+
+
+def _traces(heads, tasks_of) -> list:
+    """Each read's trace: its prologue, then its tasks' buffers in order."""
+    return [(h or "") + "".join(t.buf.getvalue() for t in ts)
+            for h, ts in zip(heads, tasks_of)]
+
+
 def map_batch_generator(mi, opt, seqs, qnames, device=None,
-                        chain_min=None) -> list:
+                        chain_min=None, traces=None) -> list:
     """Map a batch of reads through the generator path (reference mm_map,
     src/map.c:279-981), whatever the options: MCAS stage-1 trials and the
     vanilla reads run together, then every SV-aware read's stage 2.
-    device and chain_min as for map_batch."""
+    device and chain_min as for map_batch.  With a debug dump on, each
+    read's trace is written to stderr in read order, or appended to
+    `traces` (a list) when one is given."""
     t_start = time.perf_counter()
     s0 = {k: STATS[k] for k in ("dispatch_s", "dev_wait_s", "host_s")}
     qpool, qoffs = build_read_pool(seqs)
@@ -209,6 +262,8 @@ def map_batch_generator(mi, opt, seqs, qnames, device=None,
     chain_dp = partial(chain_dp_auto, device=pools.device,
                        chain_min=chain_gate(chain_min, pools.device))
     results: list = [None] * len(seqs)
+    heads = [_prologue(opt, qnames[i], len(s)) for i, s in enumerate(seqs)]
+    tasks_of: list = [[] for _ in seqs]
     trial_tasks, vanilla, stage2_in = [], [], []
     for i, seq in enumerate(seqs):
         qlen = len(seq)
@@ -220,19 +275,88 @@ def map_batch_generator(mi, opt, seqs, qnames, device=None,
         if opt.sv_aware and qlen >= opt.sv_aware_min_read_length:
             st = McasState(opt, seq, qseq0, chain_dp)
             stage2_in.append((i, st))
-            trial_tasks += [_Task(g) for g in
-                            st.trial_gens(mi, seq, qnames[i])]
+            tasks_of[i] = [_Task(g) for g in
+                           st.trial_gens(mi, seq, qnames[i])]
+            trial_tasks += tasks_of[i]
         else:
             vanilla.append((i, _Task(_map_vanilla_gen(
                 mi, opt, seq, qnames[i], qseq0, chain_dp))))
+            tasks_of[i] = [vanilla[-1][1]]
     run_ext_tasks(trial_tasks + [t for _, t in vanilla], pools)
     for i, t in vanilla:
         results[i] = t.value
     stage2 = [(i, _Task(mcas_stage2_gen(mi, opt, seqs[i], qnames[i], st)))
               for i, st in stage2_in]
+    for i, t in stage2:
+        tasks_of[i].append(t)
     run_ext_tasks([t for _, t in stage2], pools)
     for i, t in stage2:
         results[i] = t.value
+    if dbg.flag:
+        out = _traces(heads, tasks_of)
+        if traces is None:
+            sys.stderr.write("".join(out))
+        else:
+            traces += out
     STATS["gen_py_s"] += (time.perf_counter() - t_start) - sum(
         STATS[k] - v for k, v in s0.items())
+    return results
+
+
+def map_batch_frags(mi, opt, frags, qnames, device=None,
+                    chain_min=None) -> list:
+    """Map a batch of fragments (paired ends, --frag; reference worker_for
+    with n_seg > 1, src/map.c:1008-1048), as the JAX package's
+    map_batch_frags: `frags` is a list of fragments, each a list of segment
+    sequences; returns per fragment a list of per-segment MapResults.
+    One-segment fragments go through map_batch (the engine, MCAS and all);
+    the others through map_frag_gen, their DP jobs batched into the kernels
+    by run_ext_tasks, each segment's jobs on its own views of the read
+    pool.  device and chain_min as for map_batch; with a debug dump on,
+    the traces are written in fragment order."""
+    results: list = [None] * len(frags)
+    singles = [i for i, fr in enumerate(frags) if len(fr) == 1]
+    multi = [i for i, fr in enumerate(frags) if len(fr) > 1]
+    traces = [""] * len(frags)
+    if singles:
+        seqs = [frags[i][0] for i in singles]
+        names = [qnames[i] for i in singles]
+        if dbg.flag:
+            tr: list = []
+            res = map_batch_generator(mi, opt, seqs, names, device,
+                                      chain_min, traces=tr)
+            for i, t in zip(singles, tr):
+                traces[i] = t
+        else:
+            res = map_batch(mi, opt, seqs, names, device, chain_min)
+        for i, r in zip(singles, res):
+            results[i] = [r]
+    if multi:
+        t_start = time.perf_counter()
+        s0 = {k: STATS[k] for k in ("dispatch_s", "dev_wait_s", "host_s")}
+        flat = [s for i in multi for s in frags[i]]
+        qpool, qoffs = build_read_pool(flat)
+        pools = PoolContext(qpool, mi, resolve_device(device))
+        chain_dp = partial(chain_dp_auto, device=pools.device,
+                           chain_min=chain_gate(chain_min, pools.device))
+        tasks = []
+        k = 0
+        for i in multi:
+            q0 = []
+            for seq in frags[i]:
+                of, orv = qoffs[k]
+                q0.append([qpool[of:of + len(seq)],
+                           qpool[orv:orv + len(seq)]])
+                k += 1
+            tasks.append((i, _Task(map_frag_gen(mi, opt, frags[i],
+                                                qnames[i], q0, chain_dp))))
+        run_ext_tasks([t for _, t in tasks], pools)
+        for i, t in tasks:
+            results[i] = t.value
+            if t.buf is not None:
+                traces[i] = t.buf.getvalue()
+        STATS["gen_py_s"] += (time.perf_counter() - t_start) - sum(
+            STATS[k] - v for k, v in s0.items())
+    if dbg.flag:
+        sys.stderr.write("".join(traces))
     return results

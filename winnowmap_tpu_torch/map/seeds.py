@@ -15,6 +15,7 @@ from ..options import (
     MM_SEED_SELF,
     MM_SEED_TANDEM,
 )
+from ..utils import dbg
 
 
 def collect_minimizers(opt, mi, qlens, seqs):
@@ -204,6 +205,11 @@ def collect_seed_hits(opt, max_occ, mi, qname, mv_x, mv_y, qlen) -> SeedHits:
 
 
 def _anchor_order(x: np.ndarray) -> np.ndarray:
-    """Anchor sort permutation: stable by x (reference radix_sort_128x;
-    equal-x order never changes the mapping output on the goldens)."""
+    """Anchor sort permutation: stable by x (reference radix_sort_128x),
+    except in the seed and polish dump modes, which take the reference's
+    unstable in-place radix order (utils/dbg.ref_radix_argsort) so that the
+    SD/CN lines are byte-equal; equal-x order never changes the mapping
+    output on the goldens (tests/test_torch_dbg.py)."""
+    if dbg.flag & (dbg.DBG_PRINT_SEED | dbg.DBG_POLISH):
+        return dbg.ref_radix_argsort(x)
     return np.argsort(x, kind="stable")

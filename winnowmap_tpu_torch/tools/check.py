@@ -79,6 +79,16 @@ def check_core(qbuf, qlen, level, dirs_mode, s32, Wb=WB, ROWS=ROWS,
     return err
 
 
+def check_widths(dev, widths=range(1, P3.KERNEL_LANES + 1), level=6,
+                 dirs_mode="u8") -> int:
+    """P3 at every Wb of `widths` (by default every width the kernel takes,
+    1 to 640: partial last chunks and 4-lane groups) at the small shape's
+    B, ROWS and KR; returns the largest error."""
+    qbuf, qlen = small_inputs(dev, Wb=max(widths))
+    return max(check_core(qbuf[:, :wb + 384].contiguous(), qlen, level,
+                          dirs_mode, False, Wb=wb) for wb in widths)
+
+
 def check_timed_core(dev, level, dirs_mode, s32, ROWS) -> int:
     """One P3 case at the timed Wb and ROWS, CORE_B jobs, KR cut to about
     CORE_ROWS rows."""

@@ -18,8 +18,9 @@ register-slot row (csrc/ext_common.cuh): a block of five warps a job, one
 barrier a row, each thread a group of 4 consecutive lanes whose state
 stays in registers across rows, lane t-1's values by shuffle inside a
 warp and through a double-buffered edge array across warps.  The kernel
-takes Wb a multiple of 128 up to 640 (core_plain and the Pallas probe,
-any Wb >= 1).
+takes any Wb from 1 to 640, a partial last chunk and group of lanes
+included (core_plain and the Pallas probe take any Wb >= 1; above 640 the
+kernel raises).
 From level 2 on only the 16-rounded band lanes are computed, chunk by
 chunk of 128, as K1 does; dirs rows are still written whole (0 outside the
 band), as the probe's output holds them, and once a job has set done its
@@ -250,9 +251,8 @@ def core_plain(level, qbuf, qlen, *, Wb, ROWS, KR, dirs_mode="u8",
 
 
 def _check_kernel(Wb):
-    if Wb % 128 or Wb > KERNEL_LANES:
-        raise ValueError(f"the kernel takes Wb a multiple of 128, at most "
-                         f"{KERNEL_LANES}")
+    if Wb > KERNEL_LANES:
+        raise ValueError(f"the kernel takes Wb at most {KERNEL_LANES}")
 
 
 def core_launch(lib, level, dirs_mode, s32, qbuf, qlen, res, dirs, state,

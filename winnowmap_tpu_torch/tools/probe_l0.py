@@ -131,6 +131,48 @@ def run(nstate=7, Wb=640, ROWS=32, KR=63, B=512, touch=True, reps=3,
     return out
 
 
+# the card's L2 (H100: 50 MB): the outputs of stream_ms's train pass twice it
+L2_BYTES = 50 << 20
+
+
+def stream_ms(nstate=7, Wb=640, KR=63, B=512, touch=True, read_acc=True,
+              reps=5) -> float:
+    """ms a launch on the card with its stores written back to device
+    memory: CUDA events over replays of a CUDA graph of launches, each into
+    outputs of its own, the train's outputs twice the card's L2.  One
+    launch's few MB of stores stay in the L2, so its kernel time alone can
+    beat the memory rate; in the train each launch's stores are written
+    back while the later launches run, and the graph runs the launches back
+    to back (a wrapper call's host time is ~50 us, the kernel's ~1 us)."""
+    from ..extend import _build
+
+    dev = torch.device("cuda")
+    qlen = torch.full((B, 1), 1000, dtype=torch.int32, device=dev)
+    _check(qlen, nstate, Wb, KR)
+    lib = _build.load_probes()
+    per = 64 * B + nstate * B * Wb
+    outs = [l0_outputs(qlen, nstate, Wb)
+            for _ in range(-(-2 * L2_BYTES // per))]
+    l0_probe(qlen, nstate=nstate, Wb=Wb, KR=KR, touch=touch,
+             read_acc=read_acc)  # the module loaded before the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for res, state in outs:
+            tools.launch("probe_l0", l0_launch, lib, res, state, touch,
+                         read_acc, KR)
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    z.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(z) / (reps * len(outs))
+
+
 def main(argv=None, device=None):
     if resolve_device(device).type == "cuda":
         print(tools.card_line(), flush=True)
