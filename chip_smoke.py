@@ -2746,14 +2746,15 @@ def host_ms(torch, fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def check_widths(widths) -> int:
-    """P3 level 6 against plain at each Wb of `widths` (tools/check.
-    check_widths), in a worker process; returns the largest error."""
+def check_widths(widths, dirs_mode) -> int:
+    """P3 level 6 under `dirs_mode` against plain at each Wb of `widths`
+    (tools/check.check_widths), in a worker process; returns the largest
+    error."""
     import torch
 
     from winnowmap_tpu_torch.tools import check as PC
 
-    err = PC.check_widths(torch.device(DEVICE), widths)
+    err = PC.check_widths(torch.device(DEVICE), widths, dirs_mode)
     torch.cuda.synchronize()
     return err
 
@@ -2800,16 +2801,18 @@ def phase7(torch, k1):
     t0 = time.perf_counter()
     # the plain versions are bound by the host's Python: the widths go to
     # worker processes, before anything is timed
-    widths = range(1, P3.KERNEL_LANES + 1)
+    modes = ("u8", "i32")
     spawn = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
             PHASE2_WORKERS, mp_context=spawn) as pool:
-        errs = list(pool.map(check_widths, [
-            widths[i::PHASE2_WORKERS] for i in range(PHASE2_WORKERS)]))
+        errs = list(pool.map(check_widths, *zip(*[
+            (PC.WIDTHS[i::PHASE2_WORKERS], dm) for dm in modes
+            for i in range(PHASE2_WORKERS)])))
     if any(errs):
-        fail("P3 level 6 != plain at a Wb from 1 to 640")
-    log(f"[phase 7] P3 level 6 u8 at every Wb from 1 to "
-        f"{P3.KERNEL_LANES} (B={PC.B} ROWS={PC.ROWS} KR={PC.KR}, in "
+        fail(f"P3 level 6 != plain at a Wb from 1 to {P3.KERNEL_LANES} "
+             f"under dirs {modes}")
+    log(f"[phase 7] P3 level 6 at every Wb from 1 to {P3.KERNEL_LANES}, "
+        f"dirs u8 and i32-packed (B={PC.B} ROWS={PC.ROWS} KR={PC.KR}, in "
         f"{PHASE2_WORKERS} worker processes): kernel == plain "
         f"({time.perf_counter() - t0:.1f} s)")
     # the plain versions at the timed inputs (qbuf zeros, qlen 1000)
@@ -2831,7 +2834,6 @@ def phase7(torch, k1):
     variants = [(name, P3.run_level(**kv, device=DEVICE))
                 for name, kv in P3.variants]
     l0 = {name: P2.run(**kv, device=DEVICE) for name, kv in P2.cases}
-    l0_stream = P2.stream_ms()
     bis = {tag: P1.run(tag, body, **kv, device=DEVICE)
            for tag, body, kv in P1.variants}
     torch.cuda.synchronize()
@@ -2871,8 +2873,8 @@ def phase7(torch, k1):
             f"{o['gcells_padded']:.2f} Gcells/s padded, {o['gcells_band']:.2f}"
             f" band, {o['ns_per_active_row']:.1f} ns/active row")
     for name, o in l0.items():
-        log(f"[phase 7] P2 {name.strip()}: kernel {o['kernel_ms']:.5f} ms "
-            f"(torch.profiler), {o['ms']:.4f} ms a wrapper call, "
+        log(f"[phase 7] P2 {name.strip()}: {o['graph_ms']:.5f} ms a launch "
+            f"in a CUDA graph, {o['ms']:.4f} ms a wrapper call, "
             f"{o['gcells_padded']:.2f} Gcells/s padded")
     log("[phase 7] JSON " + json.dumps({
         "k1": {**k1, "waves": k1_waves, "ns_per_row": k1_ns},
@@ -2885,23 +2887,22 @@ def phase7(torch, k1):
                   + 7 * Bf * Wb + 64 * Bf)
     core_ops = (top["cells_band"] * OPS_PER_CELL_P3
                 + top["rows_active"] * Bf * OPS_PER_ROW_P3)
-    # 7 state arrays (=L0), its stores written back (stream_ms: a graph of
+    # 7 state arrays (=L0), its stores written back (graph_ms: a graph of
     # launches whose outputs pass the L2; one launch's kernel time alone
     # ends with its stores in the L2 and can beat the memory rate).  Its
     # bound: the stores (and qlen) at the memory rate, or per step a
     # __vadd4 a 4-lane word (byte-SIMD: 4 lanes an instruction) and the 16
     # accumulators' adds, whichever is larger
+    l0_ms = l0[P2.cases[4][0]]["graph_ms"]
     l0_bytes = 4 * Bf + 7 * Bf * Wb + 64 * Bf
     l0_ops = KR * Bf * (Wb // 4 + 16)
     l0_rec = probe_record("probe_l0", "tests/tools/probe_l0.py:55", 0, 0,
-                          l0_stream, 0, l0_bytes, l0_ops)
+                          l0_ms, 0, l0_bytes, l0_ops)
     log(f"[phase 7] P2 7 state arrays (=L0) with its stores written back: "
-        f"{l0_stream:.5f} ms a launch (a CUDA graph of launches whose "
-        f"outputs pass twice the L2; kernel alone "
-        f"{l0[P2.cases[4][0]]['kernel_ms']:.5f} ms by torch.profiler); "
-        f"bound {l0_rec['bound_ms']:.5f} ms ({l0_rec['bound_by']}: "
-        f"{l0_bytes} bytes stored, {l0_ops} 32-bit operations), "
-        f"{100 * l0_rec['bound_ms'] / l0_stream:.1f}% of it")
+        f"{l0_ms:.5f} ms a launch (a CUDA graph of launches whose outputs "
+        f"pass twice the L2); bound {l0_rec['bound_ms']:.5f} ms "
+        f"({l0_rec['bound_by']}: {l0_bytes} bytes stored, {l0_ops} 32-bit "
+        f"operations), {100 * l0_rec['bound_ms'] / l0_ms:.1f}% of it")
     ds = bis[P1.variants[4][0]]["ms"]  # 32x dirs row store, KR 16
     return [
         probe_record("probe_bisect", "tests/tools/probe_bisect.py:48",
@@ -2910,7 +2911,7 @@ def phase7(torch, k1):
                      16 * 32 * Bf * Wb + 7 * Bf * Wb + 64 * Bf,
                      16 * 32 * Bf * Wb),
         probe_record("probe_l0", "tests/tools/probe_l0.py:55",
-                     launches["probe_l0"], err["probe_l0"], l0_stream,
+                     launches["probe_l0"], err["probe_l0"], l0_ms,
                      plain["probe_l0"], l0_bytes, l0_ops),
         probe_record("probe_core", "tests/tools/probe_core.py:222",
                      launches["probe_core"], err["probe_core"], top["ms"],

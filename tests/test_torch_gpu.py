@@ -732,7 +732,7 @@ def test_probe_core_kernel_matches_plain(cuda, level, dirs_mode, s32):
 def test_probe_core_kernel_matches_plain_at_every_width(cuda, dirs_mode):
     """P3 level 6 at every Wb from 1 to 640: partial last chunks and
     4-lane groups."""
-    assert PC.check_widths(cuda, dirs_mode=dirs_mode) == 0
+    assert PC.check_widths(cuda, PC.WIDTHS, dirs_mode) == 0
 
 
 def test_probe_l0_kernel_matches_plain(cuda):

@@ -218,6 +218,62 @@ def test_cli_frag_matches_jax_cli(extra, pe_corpus, monkeypatch):
         assert proper >= 27
 
 
+def _rc_fq(src, dst):
+    """`src` with every record reverse-complemented (quality reversed)."""
+    lines = src.read_text().splitlines()
+    comp = bytes.maketrans(b"ACGTN", b"TGCAN")
+    for i in range(1, len(lines), 4):
+        lines[i] = lines[i].encode().translate(comp)[::-1].decode()
+        lines[i + 2] = lines[i + 2][::-1]
+    dst.write_text("\n".join(lines) + "\n")
+
+
+@pytest.mark.parametrize("pe_ori,extra", [(1, "-a"), (1, "-c"), (2, "-a")],
+                         ids=["FR-sam", "FR-paf", "RF-sam"])
+def test_pe_ori_flip_matches_jax(pe_ori, extra, pe_corpus, tmp_path,
+                                 monkeypatch):
+    """map_file_frag with pe_ori set (no preset of either CLI sets it, so
+    both packages get it patched in): the mate that pe_ori names is given
+    reverse-complemented, is flipped to the forward strand for mapping and
+    its regions flipped back (qs/qe and the strand).  The port's output is
+    byte-equal to the JAX package's, and pe_ori's mates map where the
+    forward mates of the two files do."""
+    import winnowmap_tpu.map.pipeline as jax_pipeline
+    import winnowmap_tpu_torch.cli as port_cli
+    from winnowmap_tpu.cli import main as jax_main
+
+    def with_pe_ori(fn):
+        def run(mi, opt, *a, **kw):
+            opt.pe_ori = pe_ori
+            return fn(mi, opt, *a, **kw)
+        return run
+
+    monkeypatch.setenv("WM_NO_TPU", "1")
+    d = pe_corpus
+    mates = [d / "r1.fq", d / "r2.fq"]
+    j = 1 if pe_ori & 1 else 0
+    mates[j] = tmp_path / f"r{j + 1}_rc.fq"
+    _rc_fq(d / f"r{j + 1}.fq", mates[j])
+    argv = [extra, "-W", str(d / "rep.txt"), str(d / "ref.fa"),
+            *map(str, mates)]
+    fwd = _out(port_cli.main, argv[:-2] + [str(d / "r1.fq"),
+                                             str(d / "r2.fq")],
+               device="cpu")
+    monkeypatch.setattr(port_cli, "map_file_frag",
+                        with_pe_ori(port_cli.map_file_frag))
+    monkeypatch.setattr(jax_pipeline, "map_file_frag",
+                        with_pe_ori(jax_pipeline.map_file_frag))
+    got = _out(port_cli.main, argv, device="cpu")
+    assert got == _out(jax_main, argv)
+
+    def where(text):
+        return [(ln.split("\t")[0], ln.split("\t")[2:4] if extra == "-a"
+                 else ln.split("\t")[5:9]) for ln in _body(text)]
+
+    assert len(_body(got)) >= 55
+    assert where(got) == where(fwd)
+
+
 def test_cli_frag_refuses_splice(pe_corpus):
     """--frag with a spliced preset exits as the JAX CLI does."""
     from winnowmap_tpu_torch.cli import main as port_main

@@ -18,7 +18,8 @@ last step runs the frozen walk; at Wb 640 and 11 steps the timed inputs
 640 under the stub's random fiber orders, where a warp that runs ahead of
 its edge or walk values reads stale ones, and at widths that are no
 multiple of 128 (1, 100, 129), where the last chunk and the last group of
-4 lanes are partial.
+4 lanes are partial; levels 3-6 run at 100 and 129 under random orders
+too.
 """
 import ctypes
 
@@ -150,6 +151,23 @@ def test_core_source_any_width_matches_plain(lib, level, dirs_mode, s32,
     of 32 rows, in the stub's own order: every output equal to core_plain,
     the unwritten fill included."""
     _core(lib, level, dirs_mode, s32, Wb=Wb)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+@pytest.mark.parametrize("Wb", [100, 129])
+@pytest.mark.parametrize("level,dirs_mode,s32",
+                         [(3, "u8", False), (5, "i32", False),
+                          (6, "u8", False), (6, "i32", False),
+                          (6, "u8", True)],
+                         ids=["L3-u8", "L5-i32", "L6-u8", "L6-i32",
+                              "L6-u8-s32"])
+def test_core_source_any_width_any_schedule(lib, level, dirs_mode, s32, Wb,
+                                            seed):
+    """Partial widths under random fiber orders: at Wb 100 the one warp's
+    chunk ends inside a 4-lane group; at Wb 129 a second warp holds one
+    lane, so the edge exchange, the walk and the after-done zero rows are
+    read only after the barrier that orders their writes."""
+    _core(lib, level, dirs_mode, s32, Wb=Wb, seed=seed)
 
 
 @pytest.mark.parametrize("Wb", [128, 640, 130])

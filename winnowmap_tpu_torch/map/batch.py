@@ -23,6 +23,7 @@ once the batch is done.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import sys
 import time
@@ -228,6 +229,29 @@ def run_ext_tasks(tasks: list[_Task], pools: PoolContext) -> None:
                 enqueue(t)
 
 
+@contextlib.contextmanager
+def _gen_time():
+    """Adds the block's host time to STATS["gen_py_s"], less the dispatch,
+    device wait and host DP time spent in it."""
+    t_start = time.perf_counter()
+    s0 = {k: STATS[k] for k in ("dispatch_s", "dev_wait_s", "host_s")}
+    yield
+    STATS["gen_py_s"] += (time.perf_counter() - t_start) - sum(
+        STATS[k] - v for k, v in s0.items())
+
+
+def _read_pool(mi, seqs, device, chain_min):
+    """The batch's read pool on `device`, chain_dp on the same device, and
+    per read its [forward, reverse] views of the pool (qseq0)."""
+    qpool, qoffs = build_read_pool(seqs)
+    pools = PoolContext(qpool, mi, resolve_device(device))
+    chain_dp = partial(chain_dp_auto, device=pools.device,
+                       chain_min=chain_gate(chain_min, pools.device))
+    qseq0s = [[qpool[of:of + len(s)], qpool[orv:orv + len(s)]]
+              for s, (of, orv) in zip(seqs, qoffs)]
+    return pools, chain_dp, qseq0s
+
+
 def _prologue(opt, qname, qlen) -> str | None:
     """A read's first trace lines (frag.read_prologue), or None without a
     dump."""
@@ -255,52 +279,47 @@ def map_batch_generator(mi, opt, seqs, qnames, device=None,
     device and chain_min as for map_batch.  With a debug dump on, each
     read's trace is written to stderr in read order, or appended to
     `traces` (a list) when one is given."""
-    t_start = time.perf_counter()
-    s0 = {k: STATS[k] for k in ("dispatch_s", "dev_wait_s", "host_s")}
-    qpool, qoffs = build_read_pool(seqs)
-    pools = PoolContext(qpool, mi, resolve_device(device))
-    chain_dp = partial(chain_dp_auto, device=pools.device,
-                       chain_min=chain_gate(chain_min, pools.device))
-    results: list = [None] * len(seqs)
-    heads = [_prologue(opt, qnames[i], len(s)) for i, s in enumerate(seqs)]
-    tasks_of: list = [[] for _ in seqs]
-    trial_tasks, vanilla, stage2_in = [], [], []
-    for i, seq in enumerate(seqs):
-        qlen = len(seq)
-        if qlen == 0:
-            results[i] = MapResult([], 0, 0)
-            continue
-        of, orv = qoffs[i]
-        qseq0 = [qpool[of:of + qlen], qpool[orv:orv + qlen]]
-        if opt.sv_aware and qlen >= opt.sv_aware_min_read_length:
-            st = McasState(opt, seq, qseq0, chain_dp)
-            stage2_in.append((i, st))
-            tasks_of[i] = [_Task(g) for g in
-                           st.trial_gens(mi, seq, qnames[i])]
-            trial_tasks += tasks_of[i]
-        else:
-            vanilla.append((i, _Task(_map_vanilla_gen(
-                mi, opt, seq, qnames[i], qseq0, chain_dp))))
-            tasks_of[i] = [vanilla[-1][1]]
-    run_ext_tasks(trial_tasks + [t for _, t in vanilla], pools)
-    for i, t in vanilla:
-        results[i] = t.value
-    stage2 = [(i, _Task(mcas_stage2_gen(mi, opt, seqs[i], qnames[i], st)))
-              for i, st in stage2_in]
-    for i, t in stage2:
-        tasks_of[i].append(t)
-    run_ext_tasks([t for _, t in stage2], pools)
-    for i, t in stage2:
-        results[i] = t.value
-    if dbg.flag:
-        out = _traces(heads, tasks_of)
-        if traces is None:
-            sys.stderr.write("".join(out))
-        else:
-            traces += out
-    STATS["gen_py_s"] += (time.perf_counter() - t_start) - sum(
-        STATS[k] - v for k, v in s0.items())
-    return results
+    with _gen_time():
+        pools, chain_dp, qseq0s = _read_pool(mi, seqs, device, chain_min)
+        results: list = [None] * len(seqs)
+        heads = [_prologue(opt, qnames[i], len(s))
+                 for i, s in enumerate(seqs)]
+        tasks_of: list = [[] for _ in seqs]
+        trial_tasks, vanilla, stage2_in = [], [], []
+        for i, seq in enumerate(seqs):
+            qlen = len(seq)
+            if qlen == 0:
+                results[i] = MapResult([], 0, 0)
+                continue
+            qseq0 = qseq0s[i]
+            if opt.sv_aware and qlen >= opt.sv_aware_min_read_length:
+                st = McasState(opt, seq, qseq0, chain_dp)
+                stage2_in.append((i, st))
+                tasks_of[i] = [_Task(g) for g in
+                               st.trial_gens(mi, seq, qnames[i])]
+                trial_tasks += tasks_of[i]
+            else:
+                vanilla.append((i, _Task(_map_vanilla_gen(
+                    mi, opt, seq, qnames[i], qseq0, chain_dp))))
+                tasks_of[i] = [vanilla[-1][1]]
+        run_ext_tasks(trial_tasks + [t for _, t in vanilla], pools)
+        for i, t in vanilla:
+            results[i] = t.value
+        stage2 = [(i, _Task(mcas_stage2_gen(mi, opt, seqs[i], qnames[i],
+                                            st)))
+                  for i, st in stage2_in]
+        for i, t in stage2:
+            tasks_of[i].append(t)
+        run_ext_tasks([t for _, t in stage2], pools)
+        for i, t in stage2:
+            results[i] = t.value
+        if dbg.flag:
+            out = _traces(heads, tasks_of)
+            if traces is None:
+                sys.stderr.write("".join(out))
+            else:
+                traces += out
+        return results
 
 
 def map_batch_frags(mi, opt, frags, qnames, device=None,
@@ -332,31 +351,21 @@ def map_batch_frags(mi, opt, frags, qnames, device=None,
         for i, r in zip(singles, res):
             results[i] = [r]
     if multi:
-        t_start = time.perf_counter()
-        s0 = {k: STATS[k] for k in ("dispatch_s", "dev_wait_s", "host_s")}
-        flat = [s for i in multi for s in frags[i]]
-        qpool, qoffs = build_read_pool(flat)
-        pools = PoolContext(qpool, mi, resolve_device(device))
-        chain_dp = partial(chain_dp_auto, device=pools.device,
-                           chain_min=chain_gate(chain_min, pools.device))
-        tasks = []
-        k = 0
-        for i in multi:
-            q0 = []
-            for seq in frags[i]:
-                of, orv = qoffs[k]
-                q0.append([qpool[of:of + len(seq)],
-                           qpool[orv:orv + len(seq)]])
-                k += 1
-            tasks.append((i, _Task(map_frag_gen(mi, opt, frags[i],
-                                                qnames[i], q0, chain_dp))))
-        run_ext_tasks([t for _, t in tasks], pools)
-        for i, t in tasks:
-            results[i] = t.value
-            if t.buf is not None:
-                traces[i] = t.buf.getvalue()
-        STATS["gen_py_s"] += (time.perf_counter() - t_start) - sum(
-            STATS[k] - v for k, v in s0.items())
+        with _gen_time():
+            pools, chain_dp, qseq0s = _read_pool(
+                mi, [s for i in multi for s in frags[i]], device, chain_min)
+            tasks = []
+            k = 0
+            for i in multi:
+                q0 = qseq0s[k:k + len(frags[i])]
+                k += len(frags[i])
+                tasks.append((i, _Task(map_frag_gen(
+                    mi, opt, frags[i], qnames[i], q0, chain_dp))))
+            run_ext_tasks([t for _, t in tasks], pools)
+            for i, t in tasks:
+                results[i] = t.value
+                if t.buf is not None:
+                    traces[i] = t.buf.getvalue()
     if dbg.flag:
         sys.stderr.write("".join(traces))
     return results

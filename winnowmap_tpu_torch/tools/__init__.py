@@ -32,16 +32,26 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def launch(name: str, entry, *args) -> None:
+def launch(name: str, entry, *args, captured=False) -> None:
     """Calls a C launch entry of csrc/probes.cu on the current stream of
-    the card; raises on a CUDA error, else counts the launch."""
+    the card; raises on a CUDA error, else counts the launch.  A launch
+    `captured` into a CUDA graph runs only when the graph is replayed, so
+    replay() counts it instead."""
     from ..extend import _build
 
     rc = entry(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} "
                            f"({_build.probe_error_string(rc)})")
-    LAUNCHES[name] += 1
+    if not captured:
+        LAUNCHES[name] += 1
+
+
+def replay(name: str, graph, n: int) -> None:
+    """Replays a CUDA graph of `n` captured launches of probe `name`, and
+    counts them."""
+    graph.replay()
+    LAUNCHES[name] += n
 
 
 def card_line() -> str:

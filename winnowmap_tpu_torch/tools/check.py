@@ -25,6 +25,8 @@ CORE_B, CORE_ROWS = 8, 320
 # the timed shapes' defaults: run_level's, probe_l0.run's, probe_bisect.run's
 TIMED_B, TIMED_WB, TIMED_ROWS = 512, 640, 32
 TIMED_KR = {"core": 63, "l0": 63, "bisect": 16}
+# every width P3's kernel takes
+WIDTHS = range(1, P3.KERNEL_LANES + 1)
 
 
 def _err(a, b) -> int:
@@ -79,13 +81,12 @@ def check_core(qbuf, qlen, level, dirs_mode, s32, Wb=WB, ROWS=ROWS,
     return err
 
 
-def check_widths(dev, widths=range(1, P3.KERNEL_LANES + 1), level=6,
-                 dirs_mode="u8") -> int:
-    """P3 at every Wb of `widths` (by default every width the kernel takes,
-    1 to 640: partial last chunks and 4-lane groups) at the small shape's
-    B, ROWS and KR; returns the largest error."""
+def check_widths(dev, widths, dirs_mode) -> int:
+    """P3 level 6 under `dirs_mode` at every Wb of `widths` (WIDTHS or a
+    part of it: partial last chunks and 4-lane groups) at the small
+    shape's B, ROWS and KR; returns the largest error."""
     qbuf, qlen = small_inputs(dev, Wb=max(widths))
-    return max(check_core(qbuf[:, :wb + 384].contiguous(), qlen, level,
+    return max(check_core(qbuf[:, :wb + 384].contiguous(), qlen, 6,
                           dirs_mode, False, Wb=wb) for wb in widths)
 
 

@@ -107,12 +107,46 @@ def l0_probe(qlen, *, nstate=7, Wb=640, KR=63, touch=True, read_acc=True):
     return res, state
 
 
+# the card's L2 (H100: 50 MB): the outputs of graph_ms's train pass twice it
+L2_BYTES = 50 << 20
+
+
+def graph_ms(qlen, nstate, Wb, KR, touch, read_acc, reps) -> float:
+    """ms a launch on the card with its stores written back to device
+    memory: CUDA events over replays of a CUDA graph of launches, each into
+    outputs of its own, the train's outputs twice the card's L2.  One
+    launch's few MB of stores stay in the L2, so its kernel time alone can
+    beat the memory rate; in the train each launch's stores are written
+    back while the later launches run, and the graph runs the launches back
+    to back (a wrapper call's host time is ~50 us, the kernel's a few).
+    The kernel's module must be loaded (a launch made) before the capture.
+    """
+    from ..extend import _build
+
+    _check(qlen, nstate, Wb, KR)
+    lib = _build.load_probes()
+    B = qlen.shape[0]
+    per = 64 * B + nstate * B * Wb
+    outs = [l0_outputs(qlen, nstate, Wb)
+            for _ in range(-(-2 * L2_BYTES // per))]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for res, state in outs:
+            tools.launch("probe_l0", l0_launch, lib, res, state, touch,
+                         read_acc, KR, captured=True)
+    ms = tools.time_ms(lambda: tools.replay("probe_l0", g, len(outs)),
+                       torch.device("cuda"), reps)
+    return ms / len(outs)
+
+
 def run(nstate=7, Wb=640, ROWS=32, KR=63, B=512, touch=True, reps=3,
         read_acc=True, device=None) -> dict:
-    """Times one case: ms per call and Gcells/s over padded cells
-    (B * KR * ROWS * Wb); on the card also kernel_ms, the kernel's own
-    device time (torch.profiler): a call's few microseconds are below the
-    wrapper's host time, which the events over a train of calls measure."""
+    """Times one case: ms per wrapper call and Gcells/s over padded cells
+    (B * KR * ROWS * Wb); on the card also graph_ms, a launch's own time
+    with its stores written back (graph_ms()): a call's few microseconds
+    of kernel are below the wrapper's host time, which the events over a
+    train of wrapper calls measure."""
     dev = resolve_device(device)
     qlen = torch.full((B, 1), 1000, dtype=torch.int32, device=dev)
 
@@ -124,53 +158,9 @@ def run(nstate=7, Wb=640, ROWS=32, KR=63, B=512, touch=True, reps=3,
     cells = B * KR * ROWS * Wb
     out = {"ms": ms, "gcells_padded": cells / ms / 1e6, "device": dev.type}
     if dev.type == "cuda":
-        from .time_kc_chain import by_kernel
-
-        out["kernel_ms"] = sum(by_kernel(torch, call, max(reps, 10))
-                               .values())
+        out["graph_ms"] = graph_ms(qlen, nstate, Wb, KR, touch, read_acc,
+                                   max(reps, 5))
     return out
-
-
-# the card's L2 (H100: 50 MB): the outputs of stream_ms's train pass twice it
-L2_BYTES = 50 << 20
-
-
-def stream_ms(nstate=7, Wb=640, KR=63, B=512, touch=True, read_acc=True,
-              reps=5) -> float:
-    """ms a launch on the card with its stores written back to device
-    memory: CUDA events over replays of a CUDA graph of launches, each into
-    outputs of its own, the train's outputs twice the card's L2.  One
-    launch's few MB of stores stay in the L2, so its kernel time alone can
-    beat the memory rate; in the train each launch's stores are written
-    back while the later launches run, and the graph runs the launches back
-    to back (a wrapper call's host time is ~50 us, the kernel's ~1 us)."""
-    from ..extend import _build
-
-    dev = torch.device("cuda")
-    qlen = torch.full((B, 1), 1000, dtype=torch.int32, device=dev)
-    _check(qlen, nstate, Wb, KR)
-    lib = _build.load_probes()
-    per = 64 * B + nstate * B * Wb
-    outs = [l0_outputs(qlen, nstate, Wb)
-            for _ in range(-(-2 * L2_BYTES // per))]
-    l0_probe(qlen, nstate=nstate, Wb=Wb, KR=KR, touch=touch,
-             read_acc=read_acc)  # the module loaded before the capture
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for res, state in outs:
-            tools.launch("probe_l0", l0_launch, lib, res, state, touch,
-                         read_acc, KR)
-    g.replay()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    z = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        g.replay()
-    z.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(z) / (reps * len(outs))
 
 
 def main(argv=None, device=None):
@@ -178,8 +168,8 @@ def main(argv=None, device=None):
         print(tools.card_line(), flush=True)
     for name, kv in cases:
         o = run(**kv, device=device)
-        kern = (f", kernel {o['kernel_ms'] * 1e3:.2f} us"
-                if "kernel_ms" in o else "")
+        kern = (f", {o['graph_ms'] * 1e3:.2f} us a launch in a graph"
+                if "graph_ms" in o else "")
         print(f"{name}: {o['gcells_padded']:7.2f} Gcells/s padded "
               f"({o['ms']:.3f} ms/call{kern}, {o['device']})", flush=True)
 

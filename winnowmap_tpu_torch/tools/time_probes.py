@@ -14,8 +14,8 @@ tools/check.py at its small shape, level 6 u8 at the full shape) and P2
 (every case) are held to their plain versions.  Then a memset of P3's
 dirs bytes (the card's own write rate); P3 level 6 u8 at (512, 640, 32,
 63); the ladder at that depth and at 9 steps (288 rows, before any job
-sets done); every P2 case by its kernel's own time (torch.profiler) and by
-CUDA events over wrapper calls.  It prints the card's name and power
+sets done); every P2 case by its kernel's own time (torch.profiler; "not measured"
+where the profiler sees none) and by CUDA events over wrapper calls.  It prints the card's name and power
 limit, a line a timing, the loops of the l0 kernel's SASS (cuobjdump),
 and one JSON line; --out DIR also writes the JSON to
 DIR/time_probes.json and the l0 kernel's SASS to DIR/l0_sass.txt.
@@ -138,10 +138,13 @@ def main(argv=None) -> None:
         kw = {k: kv[k] for k in ("nstate", "KR", "touch", "read_acc")
               if k in kv}
         call = lambda: P2.l0_probe(q512, **kw)  # noqa: E731
-        o = {"kernel_ms": sum(by_kernel(torch, call, args.reps).values()),
-             "ms": tools.time_ms(call, dev, args.reps)}
+        # None where the profiler sees no device time for the kernel
+        o = {"kernel_ms": sum(by_kernel(torch, call, args.reps).values())
+             or None, "ms": tools.time_ms(call, dev, args.reps)}
         out["l0"][name.strip()] = o
-        print(f"P2 {name.strip()}: kernel {o['kernel_ms'] * 1e3:.2f} us, "
+        kern = ("not measured" if o["kernel_ms"] is None
+                else f"{o['kernel_ms'] * 1e3:.2f} us")
+        print(f"P2 {name.strip()}: kernel {kern}, "
               f"{o['ms'] * 1e3:.2f} us a wrapper call", flush=True)
 
     line = json.dumps(out)
