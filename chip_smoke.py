@@ -83,7 +83,9 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      0-6 under each dirs mode and the int32 state), and every case again
      at the shape it is timed at (P3 with 8 jobs and ~320 rows), P3 level
      6 once more at the full shape and at every Wb from 1 to 640 (partial
-     last chunks and 4-lane groups) at the small shape; then the P3 ladder
+     last chunks and 4-lane groups) and at Wb 641, 1,000, 2,048, 4,096
+     and 5,000 (the wide launch) at the small shape, under u8 and
+     i32-packed dirs; then the P3 ladder
      (and again at 288 rows, where no job stops early) and its variants,
      the P2 cases (with each kernel's own time by torch.profiler) and the
      P1 bodies timed through their entry points, beside K1's row time from
@@ -97,7 +99,7 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      entry with --sv-off -a byte-equal to golden_svoff.sam apart from @PG;
      annotated spliced mapping (-x splice --junc-bed -a) of phase 5's
      reads against its genome with a BED12 of its genes; all-vs-all
-     overlap (-X -c) of 200 of phase 4's reads; for both, reads/s, calls,
+     overlap (-X -c) of 100 of phase 4's reads; for both, reads/s, calls,
      jobs a call, host and device seconds and launches, and on the host
      just the jobs that the oracle's refusal guards refuse, counted apart.
   9. assembly-to-reference mapping (-x asm5 -c, SV-aware, the engine): a
@@ -158,6 +160,29 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      on the first 4 reads of t_reads.fa (the fourth SV-aware): each trace
      and PAF on the card byte-equal to the port's own with --device cpu,
      the card's run through K1 and K2 on the generator path.
+ 12. the last modules, after phase 11: (a) minimizer_dist's sketch_dump
+     of phase 9's genome through S1 (one launch) equal to the dump from
+     native.sketch, and of t_ref.fa with t_rep_k15.txt (natively and
+     through S1) equal as a set to golden_ref_minimizers.txt;
+     extract_selected_reads on phase 9's PAF; (b) a database counted by
+     meryl_cli count k=15 on the card: meryl-lookup's seven reports equal
+     the golden_lookup_* files, meryl-import of its print printed again
+     equal to the print, meryl-analyze and position-lookup over it; (c)
+     phase 4's reads through two engines on the card in two host threads
+     (map_batch_multidev over [cuda:0, cuda:0]) and through the split
+     driver (ways 2): each read's regions equal phase 4's, no DP job on
+     the engine's host DP, K1's and K2's launch counts equal the sum of
+     each thread's launches, reads/s beside phase 4's; (d)
+     count_kmers_multidev over two slots of the card on phase 9's genome
+     (k = 15, canonical and forward) equal to count_kmers, Mbp/s of both;
+     (e) two processes on the card joined by gloo on localhost:
+     map_file_partitioned of phase 9's contigs, a chromosome a rank (one
+     S1 launch each, its long chains through C1), rank 0's PAF byte-equal
+     to the single-process n_parts = 2 run, and map_file_sharded of 200
+     of phase 4's reads merged by merge_parts byte-equal to map_file.
+The down-weight lists (-W) of phases 4, 5, 8 (d) and 9 are counted on the
+card (count_kmers through KC, meryl's distinct=0.9998 selection;
+rep_list), and phase 10 (a) holds phase 9's to a numpy selection.
 Every DP kernel call of phases 4, 5, 6, 8 (c), (d) and 11 (d) is
 recorded; for each launch a run took, its call at the median of that
 launch's longest rows (in 8 (c) one that carries junction bytes) is run
@@ -1327,13 +1352,31 @@ def phase3_pinned(cli):
         f"== the native build ({len(mi.keys)} keys)")
 
 
-def rep_kmers(seqs, k: int, frac: float):
-    """Canonical k-mer counts over the 0..3 codes of all sequences, and the
-    k-mers whose count is above the threshold that covers `frac` of the
-    distinct k-mers (meryl 'print greater-than distinct=frac')."""
+def rep_list(seqs, k: int, path: Path):
+    """The down-weight list of the sequences (bytes), as meryl makes it
+    for -W: their canonical k-mers counted by count_kmers on the card (KC),
+    those above the threshold that covers 0.9998 of the distinct k-mers
+    (meryl 'print greater-than distinct=0.9998'), written to path as
+    'KMER<TAB>count' lines.  Returns the selected KmerCounts."""
+    from types import SimpleNamespace
+
+    from winnowmap_tpu_torch.kcount import count_kmers
+
+    kc = count_kmers([SimpleNamespace(seq=s) for s in seqs], k,
+                     device=DEVICE)
+    sel = kc.greater_than(kc.threshold_distinct(0.9998))
+    with open(path, "w") as f:
+        f.writelines(ln + "\n" for ln in sel.print_lines())
+    return sel
+
+
+def rep_kmers_numpy(codes_list, k: int, frac: float):
+    """rep_list's selection with numpy on 0..3 codes (the list phases 4-9
+    once made), for phase 10 (a)'s check: canonical k-mer counts, and the
+    k-mers above the threshold that covers `frac` of the distinct ones."""
     sh = np.arange(2 * (k - 1), -1, -2, dtype=np.uint64)
     cans = []
-    for codes in seqs:
+    for codes in codes_list:
         win = np.lib.stride_tricks.sliding_window_view(codes, k)
         win = win[(win < 4).all(1)].astype(np.uint64)
         fwd = (win << sh).sum(1, dtype=np.uint64)
@@ -1496,11 +1539,8 @@ def phase4(torch, K, build, fastx, options, batch, seqcode, holds):
     recs = fastx.read_all(str(ref))
     codes = np.concatenate([seqcode.encode(r.seq) for r in recs])
     t0 = time.perf_counter()
-    kmers, cnt = rep_kmers([seqcode.encode(r.seq) for r in recs], 15, 0.9998)
     rep = DATA / "wmbench2_rep.txt"
-    with open(rep, "w") as f:
-        for x, c in zip(kmers.tolist(), cnt.tolist()):
-            f.write(f"{kmer_str(x, 15)}\t{c}\n")
+    rep_list([r.seq for r in recs], 15, rep)
     io_, mo = options.IndexOptions(), options.MapOptions()
     options.set_preset("map-ont", io_, mo)
     mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
@@ -1522,7 +1562,8 @@ def phase4(torch, K, build, fastx, options, batch, seqcode, holds):
     if launches["extd"] == 0 or launches["traceback"] == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
     check_mapped("phase 4", st, results, len(seqs))
-    return launches, (mi, seqs, names)
+    return launches, (mi, seqs, names), {"results": results, "wall_s": dt,
+                                         "mo": mo}
 
 
 def check_mapped(phase, st, results, n_reads):
@@ -1829,11 +1870,8 @@ def phase5(torch, K, check, build, fastx, options, batch, seqcode, holds):
     if not (ref.exists() and reads.exists() and bed.exists()):
         splice_corpus(check, ref, reads, bed)
     recs = fastx.read_all(str(ref))
-    kmers, cnt = rep_kmers([seqcode.encode(r.seq) for r in recs], 15, 0.9998)
     rep = DATA / "splice_rep.txt"
-    with open(rep, "w") as f:
-        for x, c in zip(kmers.tolist(), cnt.tolist()):
-            f.write(f"{kmer_str(x, 15)}\t{c}\n")
+    rep_list([r.seq for r in recs], 15, rep)
     io_, mo = options.IndexOptions(), options.MapOptions()
     options.set_preset("splice", io_, mo)
     mo.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
@@ -2003,11 +2041,8 @@ def phase8(torch, K, cli, pipeline, build, fastx, options, batch, seqcode,
     names4 = names4[:PHASE8_OVERLAP_READS]
     rdir = DATA / "overlap"
     rdir.mkdir(exist_ok=True)
-    kmers, cnt = rep_kmers([seqcode.encode(s) for s in seqs4], 15, 0.9998)
     rep = rdir / "rep.txt"
-    with open(rep, "w") as f:
-        for x, c in zip(kmers.tolist(), cnt.tolist()):
-            f.write(f"{kmer_str(x, 15)}\t{c}\n")
+    rep_list(seqs4, 15, rep)
     io_, mo = options.IndexOptions(), options.MapOptions()
     options.set_preset("map-ont", io_, mo)
     mo.flag |= (options.MM_F_CIGAR | options.MM_F_OUT_CG
@@ -2144,12 +2179,9 @@ def phase9(torch, K, build, fastx, options, batch, pipeline):
     qrecs = [fastx.SeqRecord(n, acgt[c].tobytes(), None, None)
              for n, c in contigs]
     seqs, names = [r.seq for r in qrecs], [r.name for r in qrecs]
-    kmers, cnt = rep_kmers([c for _, c in chroms], 19, 0.9998)
     rep = DATA / "asm_rep.txt"
     DATA.mkdir(exist_ok=True)
-    with open(rep, "w") as f:
-        for x, c in zip(kmers.tolist(), cnt.tolist()):
-            f.write(f"{kmer_str(x, 19)}\t{c}\n")
+    rep_list([r.seq for r in recs], 19, rep)
     io_, mo = options.IndexOptions(), options.MapOptions()
     options.set_preset("asm5", io_, mo)
     mo.flag |= options.MM_F_CIGAR
@@ -2727,6 +2759,9 @@ PROBE_SHAPE = (512, 640, 32, 63)
 # window near row 1640, so every level computes every row of this depth
 # and its time per row compares level with level
 PROBE_SHORT_KR = 9
+# timed calls of each ladder level (after a warm-up): a single level-6
+# call is ~0.5 ms, and three of them moved 0.46-0.54 ms between runs
+PROBE_REPS = 20
 
 
 def probe_record(name, rep, launches, err, ms, plain_ms, nbytes, ops):
@@ -2807,11 +2842,13 @@ def phase7(torch, k1):
             PHASE2_WORKERS, mp_context=spawn) as pool:
         errs = list(pool.map(check_widths, *zip(*[
             (PC.WIDTHS[i::PHASE2_WORKERS], dm) for dm in modes
-            for i in range(PHASE2_WORKERS)])))
+            for i in range(PHASE2_WORKERS)] + [
+            ((wb,), dm) for dm in modes for wb in PC.WIDE_WIDTHS])))
     if any(errs):
-        fail(f"P3 level 6 != plain at a Wb from 1 to {P3.KERNEL_LANES} "
-             f"under dirs {modes}")
-    log(f"[phase 7] P3 level 6 at every Wb from 1 to {P3.KERNEL_LANES}, "
+        fail(f"P3 level 6 != plain at a Wb from 1 to {P3.NARROW_LANES} or "
+             f"of {PC.WIDE_WIDTHS} under dirs {modes}")
+    log(f"[phase 7] P3 level 6 at every Wb from 1 to {P3.NARROW_LANES} "
+        f"(the narrow launch) and at Wb {PC.WIDE_WIDTHS} (the wide launch), "
         f"dirs u8 and i32-packed (B={PC.B} ROWS={PC.ROWS} KR={PC.KR}, in "
         f"{PHASE2_WORKERS} worker processes): kernel == plain "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -2828,9 +2865,10 @@ def phase7(torch, k1):
 
     # comparison launches are not counted
     tools.reset_launches()
-    ladder = [P3.run_level(lv, device=DEVICE) for lv in P3.levels]
-    short = [P3.run_level(lv, KR=PROBE_SHORT_KR, device=DEVICE)
-             for lv in P3.levels]
+    ladder = [P3.run_level(lv, reps=PROBE_REPS, device=DEVICE)
+              for lv in P3.levels]
+    short = [P3.run_level(lv, KR=PROBE_SHORT_KR, reps=PROBE_REPS,
+                          device=DEVICE) for lv in P3.levels]
     variants = [(name, P3.run_level(**kv, device=DEVICE))
                 for name, kv in P3.variants]
     l0 = {name: P2.run(**kv, device=DEVICE) for name, kv in P2.cases}
@@ -2982,7 +3020,7 @@ def meryl_out(meryl_cli, args) -> str:
     with contextlib.redirect_stdout(buf):
         rc = meryl_cli.main(args)
     if rc != 0:
-        fail(f"phase 10: meryl {' '.join(args)} returned {rc}")
+        fail(f"meryl {' '.join(args)} returned {rc}")
     return buf.getvalue()
 
 
@@ -3025,6 +3063,31 @@ def phase10_goldens(KD, meryl_cli, fastx, outofcore):
         f"the goldens; count-forward and count-reverse == the host "
         f"counter; {n} KC launches")
     return n
+
+
+def phase10_rep_lists(fastx, seqcode):
+    """(a) The down-weight list phases 4-9 make on the card (rep_list:
+    count_kmers through KC, meryl's distinct=0.9998 selection) equals the
+    numpy selection (rep_kmers_numpy) on phase 9's genome (written by
+    phase 12) at k = 19: the same canonical k-mers with the same counts."""
+    def canon(s):
+        rc = s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+        return min(s, rc)
+
+    k = 19
+    seqs = [r.seq for r in fastx.read_all(str(DATA / "asm_ref.fa"))]
+    card = rep_list(seqs, k, DATA / "rep_check.txt")
+    got = {canon(ln.split("\t")[0]): int(ln.split("\t")[1])
+           for ln in card.print_lines()}
+    kmers, cnt = rep_kmers_numpy([seqcode.encode(s) for s in seqs], k, 0.9998)
+    want = {canon(kmer_str(x, k)): c
+            for x, c in zip(kmers.tolist(), cnt.tolist())}
+    if got != want:
+        fail(f"phase 10 (a): the card's k = {k} down-weight list "
+             f"({len(got)} k-mers) differs from numpy's ({len(want)})")
+    log(f"[phase 10 (a)] down-weight list of {sum(map(len, seqs))} bp at k "
+        f"= {k} through count_kmers on the card == numpy's selection: "
+        f"{len(got)} k-mers, counts equal")
 
 
 def phase10_genome(torch, KD, kcount, recs):
@@ -3152,7 +3215,7 @@ def phase10(torch):
     a 100 Mbp genome through count_kmers against the host counter (run
     meanwhile in a worker process), (c) KC alone.  Returns KC's record."""
     from winnowmap_tpu_torch import kcount, meryl_cli
-    from winnowmap_tpu_torch.io import fastx
+    from winnowmap_tpu_torch.io import fastx, seqcode
     from winnowmap_tpu_torch.kcount import device as KD
     from winnowmap_tpu_torch.kcount import outofcore
 
@@ -3162,6 +3225,7 @@ def phase10(torch):
     with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
         host = pool.submit(host_count, prefix)
         phase10_goldens(KD, meryl_cli, fastx, outofcore)
+        phase10_rep_lists(fastx, seqcode)
         recs = kc_genome()
         kc, launches = phase10_genome(torch, KD, kcount, recs)
         host_s = host.result()
@@ -3173,6 +3237,503 @@ def phase10(torch):
     log(f"[phase 10 (b)] == the host counter (count_kmers_chunked, "
         f"{host_s:.3f} s in a worker process meanwhile), array for array")
     return phase10_kc(torch, KD, recs, launches)
+
+
+# --------------------------------------------------------------------------
+# phase 12: the analysis tools, the meryl side tools, several engines,
+# several devices' counting and several processes on the card
+# --------------------------------------------------------------------------
+
+# (e): phase 4's reads mapped by two processes, a shard each
+PHASE12_SHARDED_READS = 200
+MERYL_LOOKUP_MODES = ("existence", "include", "exclude", "bed", "bed-runs",
+                      "wig-count", "wig-depth")
+
+# what each rank of phase 12 (e) runs: init_distributed (gloo, from the
+# environment), map_file_partitioned of phase 9's contigs against its part
+# of phase 9's genome on cuda:(rank % cards), then map_file_sharded of its
+# shard of the reads against phase 4's index; prints its launches, STATS
+# and seconds as JSON
+RANK_WORKER = r"""
+import json, sys, time
+cfg = json.loads(sys.argv[1])
+sys.path.insert(0, cfg["repo"])
+import torch
+import torch.distributed as dist
+from winnowmap_tpu_torch import options
+from winnowmap_tpu_torch.chain import device as CD
+from winnowmap_tpu_torch.extend import kernels as K
+from winnowmap_tpu_torch.index.build import build_index, load_weight_set
+from winnowmap_tpu_torch.io.fastx import read_all
+from winnowmap_tpu_torch.map.engine import STATS
+from winnowmap_tpu_torch.parallel import (init_distributed,
+                                          map_file_sharded, rank_device)
+from winnowmap_tpu_torch.parallel.sharded import map_file_partitioned
+from winnowmap_tpu_torch.sketch import device as SD
+
+rank, world = init_distributed()
+dev = rank_device(rank)
+torch.cuda.set_device(dev)
+out = {"rank": rank, "world": world, "device": str(dev),
+       "backend": dist.get_backend()}
+io_, mo = options.IndexOptions(), options.MapOptions()
+options.set_preset("asm5", io_, mo)
+mo.flag |= options.MM_F_CIGAR
+wset = load_weight_set(cfg["rep19"], io_.k)
+records = read_all(cfg["ref"])
+for m in (K, CD, SD):
+    m.reset_launches()
+STATS.clear()
+dist.barrier()
+t0 = time.perf_counter()
+with open(cfg["out"] + f".r{rank}", "w") as f:
+    n = map_file_partitioned(records, io_, mo, wset, cfg["contigs"], out=f)
+torch.cuda.synchronize()
+dist.barrier()
+out["partitioned"] = {
+    "wall_s": time.perf_counter() - t0, "n": n,
+    "sketch": SD.LAUNCHES["sketch"], "chain_fwd": CD.LAUNCHES["chain_fwd"],
+    "extd": K.LAUNCHES["extd"], "traceback": K.LAUNCHES["traceback"],
+    "chain_dev_jobs": int(STATS["chain_dev_jobs"]),
+    "host_dp": int(STATS["eng_host_dp_calls"])}
+io4, mo4 = options.IndexOptions(), options.MapOptions()
+options.set_preset("map-ont", io4, mo4)
+mo4.flag |= options.MM_F_CIGAR | options.MM_F_OUT_SAM
+mi4 = build_index(read_all(cfg["ref4"]), io4.w, io4.k, io4.flag,
+                  load_weight_set(cfg["rep4"], io4.k))
+options.update_mid_occ(mo4, mi4)
+K.reset_launches()
+STATS.clear()
+dist.barrier()
+t0 = time.perf_counter()
+n = map_file_sharded(mi4, mo4, cfg["reads"], cfg["out"] + f".s{rank}", rank,
+                     world)
+torch.cuda.synchronize()
+dist.barrier()
+out["sharded"] = {"wall_s": time.perf_counter() - t0, "n": n,
+                  "extd": K.LAUNCHES["extd"],
+                  "host_dp": int(STATS["eng_host_dp_calls"])}
+print("RANK-RESULT " + json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def phase12_tools(torch, ctx):
+    """(a) minimizer_dist's sketch_dump of phase 9's genome on the card
+    (one S1 launch) equal to the dump from native.sketch, its density
+    finite; on t_ref.fa with t_rep_k15.txt (natively, and through S1 with
+    sketch_min_bp 0) equal as a set to golden_ref_minimizers.txt;
+    extract_selected_reads on phase 9's PAF."""
+    from winnowmap_tpu_torch.sketch import device as SD
+    from winnowmap_tpu_torch.tools import extract_selected_reads as ESR
+    from winnowmap_tpu_torch.tools import minimizer_dist as MD
+
+    io_ = ctx["io"]
+    ref = DATA / "asm_ref.fa"
+    hpc = bool(io_.flag & 1)
+    SD.reset_launches()
+    t0 = time.perf_counter()
+    dump = MD.sketch_dump(str(ref), io_.k, io_.w, str(ctx["rep"]), hpc)
+    t_card = time.perf_counter() - t0
+    n_s1 = SD.LAUNCHES["sketch"]
+    t0 = time.perf_counter()
+    nat = MD.sketch_dump(str(ref), io_.k, io_.w, str(ctx["rep"]), hpc,
+                         sketch_min_bp=None)
+    t_nat = time.perf_counter() - t0
+    if n_s1 != 1 or not np.array_equal(dump, nat):
+        fail(f"phase 12 (a): sketch_dump of phase 9's genome ({n_s1} S1 "
+             f"launches) differs from native.sketch's")
+    grid, dens = MD.density_grid(dump[dump[:, 0] == 0][:, 1])
+    if not (np.isfinite(dens).all() and (dens > 0).any()):
+        fail("phase 12 (a): the minimizer density is not finite")
+    want = {tuple(r) for r in np.loadtxt(
+        GOLD / "golden_ref_minimizers.txt", dtype=np.int64).tolist()}
+    for smb in (MD.DEVICE_SKETCH_MIN_BP, 0):
+        SD.reset_launches()
+        got = MD.sketch_dump(str(GOLD / "t_ref.fa"), 15, 50,
+                             str(GOLD / "t_rep_k15.txt"), sketch_min_bp=smb)
+        if {tuple(r) for r in got.tolist()} != want or \
+                SD.LAUNCHES["sketch"] != (0 if smb else 1):
+            fail(f"phase 12 (a): sketch_dump of t_ref.fa (sketch_min_bp "
+                 f"{smb}) differs from golden_ref_minimizers.txt")
+    paf, ids, kept = (DATA / "p12.paf", DATA / "p12_ids.txt",
+                      DATA / "p12_kept.paf")
+    paf.write_text(ctx["paf"])
+    names = [r.name for r in ctx["qrecs"]][::2]
+    ids.write_text("".join(n + "\n" for n in names))
+    n_kept = ESR.extract(str(paf), str(ids), str(kept))
+    n_want = sum(1 for ln in ctx["paf"].splitlines()
+                 if ln.split("\t", 1)[0] in names)
+    if n_kept != n_want or n_kept == 0:
+        fail(f"phase 12 (a): extract_selected_reads kept {n_kept} lines, "
+             f"not {n_want}")
+    log(f"[phase 12 (a)] sketch_dump of {sum(len(r.seq) for r in ctx['recs'])}"
+        f" bp (k = {io_.k}, w = {io_.w}, phase 9's list): {len(dump)} "
+        f"minimizers through S1 (1 launch) in {t_card:.3f} s == "
+        f"native.sketch's dump ({t_nat:.3f} s); t_ref.fa's dump natively "
+        f"and through S1 == golden_ref_minimizers.txt as a set; "
+        f"extract_selected_reads kept {n_kept} of phase 9's PAF lines")
+    return {"sketch": n_s1 + 1}
+
+
+def phase12_meryl(KD, meryl_cli):
+    """(b) A database counted by meryl_cli count k=15 on the card from
+    t_ref.fa: meryl-lookup's seven reports equal their golden_lookup_*
+    files (text or md5), meryl-import of its print printed again equals
+    the print, meryl-analyze's GC histogram covers every k-mer, and
+    position-lookup reports every read."""
+    import hashlib
+
+    from winnowmap_tpu_torch import (meryl_analyze_cli, meryl_import_cli,
+                                     meryl_lookup_cli, position_lookup_cli)
+
+    db = DATA / "p12_db"
+    KD.reset_launches()
+    meryl_out(meryl_cli, ["count", "k=15", "output", str(db),
+                          str(GOLD / "t_ref.fa")])
+    if KD.LAUNCHES["kcount"] == 0:
+        fail("phase 12 (b): meryl count did not launch KC")
+    reads = str(GOLD / "t_reads.fa")
+    for mode in MERYL_LOOKUP_MODES:
+        out = DATA / f"p12_lookup_{mode}.out"
+        if meryl_lookup_cli.main([f"-{mode}", "-sequence", reads, "-output",
+                                  str(out), "-mers", str(db)]) != 0:
+            fail(f"phase 12 (b): meryl-lookup -{mode} failed")
+        data = out.read_bytes()
+        if mode == "existence":
+            ok = data.decode() == (GOLD / "golden_lookup_existence.txt"
+                                   ).read_text()
+        else:
+            ok = hashlib.md5(data).hexdigest() == (
+                GOLD / f"golden_lookup_{mode}.md5").read_text().strip()
+        if not ok:
+            fail(f"phase 12 (b): meryl-lookup -{mode} differs from its "
+                 f"golden")
+    text = meryl_out(meryl_cli, ["print", str(db)])
+    dump, imp = DATA / "p12_print.txt", DATA / "p12_imp"
+    dump.write_text(text)
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = meryl_import_cli.main(["-k", "15", "-kmers", str(dump),
+                                    "-output", str(imp)])
+    if rc != 0 or meryl_out(meryl_cli, ["print", str(imp)]) != text:
+        fail("phase 12 (b): meryl-import of the print, printed, differs")
+    prefix = DATA / "p12_an"
+    with contextlib.redirect_stderr(io.StringIO()):
+        meryl_analyze_cli.main(["-mers", str(db), "-prefix", str(prefix),
+                                "-gc"])
+    n_gc = sum(int(ln.split("\t")[2]) for ln in open(f"{prefix}.GC.hist"))
+    hpq = DATA / "p12_hpq"
+    position_lookup_cli.main(["-m", str(db), "-s", str(GOLD / "t_ref.fa"),
+                              "-hpq", str(hpq), reads])
+    n_reads = sum(1 for ln in open(reads) if ln.startswith(">"))
+    n_distinct = text.count("\n")
+    if n_gc != n_distinct or hpq.read_text().count("\n") != n_reads:
+        fail(f"phase 12 (b): meryl-analyze counted {n_gc} of {n_distinct} "
+             f"k-mers or position-lookup missed a read")
+    log(f"[phase 12 (b)] meryl count k=15 on the card ({KD.LAUNCHES['kcount']}"
+        f" KC launches): meryl-lookup's {len(MERYL_LOOKUP_MODES)} reports "
+        f"== the goldens; meryl-import of the print ({n_distinct} k-mers), "
+        f"printed == the print; meryl-analyze -gc over {n_gc} k-mers; "
+        f"position-lookup -hpq on {n_reads} reads")
+    return {"kcount": KD.LAUNCHES["kcount"]}
+
+
+def region_key(r):
+    """Every field of a region, for phase 12 (c)'s equality."""
+    return (r.id, r.cnt, r.rid, r.score, r.qs, r.qe, r.rs, r.re, r.parent,
+            r.subsc, r.mlen, r.blen, r.n_sub, r.score0, r.mapq, r.inv,
+            r.rev, r.split, r.sam_pri, r.hash, r.div,
+            None if r.p is None else (r.p.dp_score, r.p.dp_max,
+                                      r.p.dp_max2, r.p.n_ambi,
+                                      r.p.trans_strand,
+                                      tuple(r.p.cigar.tolist())))
+
+
+def phase12_engines(torch, K, batch, corpus, p4):
+    """(c) Phase 4's reads through the split driver (ways 2), which runs
+    map_batch_multidev over [cuda:0, cuda:0]: two engines in two host
+    threads, a stream each.  Every read's regions equal phase 4's, no DP
+    job on the engine's host DP, and K1's and K2's launch counts equal to
+    the sum of what each engine's thread launched (both launched).  Its
+    reads/s stand beside one engine's on the same reads, timed just before
+    and just after it with the same (launch-counting) instrumentation."""
+    import threading
+
+    from winnowmap_tpu_torch.map import engine
+    from winnowmap_tpu_torch.parallel import multidev
+
+    mi, seqs, names = corpus
+    mo = p4["mo"]
+    want = [[region_key(r) for r in res.regs] for res in p4["results"]]
+    dev = torch.device(DEVICE, 0)
+    seen = []  # (thread, key, n) of each launch counted
+    real = K.count
+    real_multidev = multidev.map_batch_multidev
+    routed = []
+
+    def spy(counter, key, n=1):
+        if counter is K.LAUNCHES:
+            seen.append((threading.current_thread().name, key, n))
+        real(counter, key, n)
+
+    def spy_multidev(*a, **kw):
+        routed.append([str(d) for d in a[4]])
+        return real_multidev(*a, **kw)
+
+    def run(name, fn, n_threads):
+        batch.STATS.clear()
+        K.reset_launches()
+        seen.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = dict(batch.STATS)
+        if [[region_key(r) for r in x.regs] for x in res] != want:
+            fail(f"phase 12 (c): {name}'s regions differ from phase 4's")
+        if st.get("eng_host_dp_calls", 0) != 0 or \
+                st["delivered_jobs"] != st["dev_jobs"]:
+            fail(f"phase 12 (c): {name} kept DP jobs off the card")
+        by = {}
+        for key in ("extd", "traceback"):
+            for t, k, n in seen:
+                if k == key:
+                    by.setdefault(key, {}).setdefault(t, 0)
+                    by[key][t] += n
+            if len(by.get(key, {})) != n_threads or \
+                    K.LAUNCHES[key] != sum(by[key].values()):
+                fail(f"phase 12 (c): {name}: {K.LAUNCHES[key]} {key} "
+                     f"launches against the threads' {by.get(key)}")
+        log(f"[phase 12 (c)] {name}: {len(seqs)} reads in {dt:.3f} s -> "
+            f"{len(seqs) / dt:.3f} reads/s; regions == phase 4's; "
+            f"K1/K2 launches {K.LAUNCHES['extd']}/"
+            f"{K.LAUNCHES['traceback']} == the threads' sum {by}")
+        return {"wall_s": dt, "reads_per_s": len(seqs) / dt,
+                "launches": dict(K.LAUNCHES), "by_thread": by,
+                "dev_jobs": int(st["dev_jobs"])}
+
+    def one():
+        return engine.map_batch_engine(mi, mo, seqs, names, dev)
+
+    rec = {"phase4_reads_per_s": len(seqs) / p4["wall_s"]}
+    K.count = spy
+    multidev.map_batch_multidev = spy_multidev
+    try:
+        rec["one_before"] = run("one engine", one, 1)
+        rec["split"] = run("split driver", lambda: (
+            engine.map_batch_engine_pipelined(mi, mo, seqs, names,
+                                              device=dev, ways=2)), 2)
+        rec["one_after"] = run("one engine", one, 1)
+    finally:
+        K.count = real
+        multidev.map_batch_multidev = real_multidev
+    if routed != [[str(dev)] * 2]:
+        fail(f"phase 12 (c): the split driver ran map_batch_multidev over "
+             f"{routed}, not [{dev}, {dev}]")
+    base = (rec["one_before"]["reads_per_s"]
+            + rec["one_after"]["reads_per_s"]) / 2
+    rec["split_over_one"] = rec["split"]["reads_per_s"] / base
+    log(f"[phase 12 (c)] two engines on one card (map_batch_multidev over "
+        f"{routed[0]}): {rec['split_over_one']:.3f} x one engine's mean "
+        f"{base:.3f} reads/s")
+    log("[phase 12 (c)] JSON " + json.dumps(rec))
+    return rec
+
+
+def phase12_counting(torch, KD, ctx):
+    """(d) count_kmers_multidev over [cuda:0, cuda:0] on phase 9's genome,
+    k = 15, canonical and forward, equal to count_kmers array for array;
+    Mbp/s of both."""
+    from winnowmap_tpu_torch.kcount import count_kmers
+    from winnowmap_tpu_torch.parallel.kcount import count_kmers_multidev
+
+    recs = ctx["recs"]
+    bp = sum(len(r.seq) for r in recs)
+    dev = torch.device(DEVICE, 0)
+    rec = {}
+    for direction in ("canonical", "forward"):
+        KD.reset_launches()
+        t0 = time.perf_counter()
+        one = count_kmers(recs, 15, direction=direction)
+        t_one = time.perf_counter() - t0
+        n_one = KD.LAUNCHES["kcount"]
+        KD.reset_launches()
+        t0 = time.perf_counter()
+        two = count_kmers_multidev(recs, 15, direction=direction,
+                                   devices=[dev, dev])
+        t_two = time.perf_counter() - t0
+        n_two = KD.LAUNCHES["kcount"]
+        if not (np.array_equal(one.kmers, two.kmers)
+                and np.array_equal(one.counts, two.counts)):
+            fail(f"phase 12 (d): count_kmers_multidev ({direction}) differs "
+                 f"from count_kmers")
+        if n_two != n_one or n_one == 0:
+            fail(f"phase 12 (d): {n_two} KC launches over two slots, "
+                 f"{n_one} in one")
+        rec[direction] = {"count_kmers_mbp_s": bp / 1e6 / t_one,
+                          "multidev_mbp_s": bp / 1e6 / t_two,
+                          "kc_launches": n_one,
+                          "distinct": int(one.n_distinct)}
+        log(f"[phase 12 (d)] {direction}, {bp} bp, k = 15: "
+            f"count_kmers_multidev over two slots of the card "
+            f"{bp / 1e6 / t_two:.3f} Mbp/s, count_kmers "
+            f"{bp / 1e6 / t_one:.3f} Mbp/s; {n_one} KC launches each; "
+            f"{one.n_distinct} distinct, equal array for array")
+    log("[phase 12 (d)] JSON " + json.dumps(rec))
+    return rec
+
+
+def phase12_processes(torch, pipeline, ctx, corpus, p4):
+    """(e) Two processes on the card, joined by gloo on localhost:
+    map_file_partitioned of phase 9's contigs, a chromosome (5 Mbp) a rank,
+    each part through one S1 launch and its chains of 50,000 anchors or
+    more through C1, rank 0's PAF byte-equal to the single-process n_parts
+    = 2 run and rank 1's empty; map_file_sharded of PHASE12_SHARDED_READS
+    of phase 4's reads, a shard a rank, merged by merge_parts byte-equal
+    to map_file on them.  The reads file holds them longest first (reads
+    of distinct lengths), the order map_file's longest-first scheduling
+    writes, so the rank merge's input order is the same."""
+    import socket
+
+    from winnowmap_tpu_torch.parallel import merge_parts
+    from winnowmap_tpu_torch.parallel.sharded import map_file_partitioned
+
+    ref, contigs = DATA / "asm_ref.fa", DATA / "asm_contigs.fa"
+    write_fasta(contigs, ctx["qrecs"])
+    mi4, seqs, names = corpus
+    lens, picked = set(), []
+    for s, n in zip(seqs, names):
+        if len(s) not in lens:
+            lens.add(len(s))
+            picked.append((n, s))
+        if len(picked) == PHASE12_SHARDED_READS:
+            break
+    picked.sort(key=lambda p: -len(p[1]))
+    reads = DATA / "p12_reads.fa"
+    with open(reads, "w") as f:
+        for n, s in picked:
+            f.write(f">{n}\n{s.decode()}\n")
+
+    # the single-process runs, before the ranks start
+    t0 = time.perf_counter()
+    single = io.StringIO()
+    map_file_partitioned(ctx["recs"], ctx["io"], ctx["mo"], ctx["wset"],
+                         str(contigs), out=single, n_parts=2, device=DEVICE)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = io.StringIO()
+    pipeline.map_file(mi4, p4["mo"], str(reads), whole)
+    torch.cuda.synchronize()
+    t_whole = time.perf_counter() - t0
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    outp = DATA / "p12_mp"
+    cfg = json.dumps({"repo": str(REPO), "ref": str(ref),
+                      "contigs": str(contigs),
+                      "rep19": str(ctx["rep"]),
+                      "ref4": str(DATA / "wmbench2_ref.fa"),
+                      "rep4": str(DATA / "wmbench2_rep.txt"),
+                      "reads": str(reads), "out": str(outp)})
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               WORLD_SIZE="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_WORKER, cfg],
+                              env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_procs = time.perf_counter() - t0
+    res = []
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or "RANK-RESULT " not in o:
+            fail(f"phase 12 (e): rank {r} exited {p.returncode}:\n"
+                 f"{o[-4000:]}")
+        res.append(json.loads(o.split("RANK-RESULT ", 1)[1].splitlines()[0]))
+    rank0 = Path(f"{outp}.r0").read_text()
+    if rank0 != single.getvalue() or Path(f"{outp}.r1").read_text():
+        fail("phase 12 (e): rank 0's PAF differs from the single-process "
+             "n_parts = 2 run, or rank 1 wrote")
+    for r in res:
+        pt = r["partitioned"]
+        if r["backend"] != "gloo" or pt["sketch"] != 1 or \
+                pt["chain_fwd"] == 0 or pt["chain_dev_jobs"] == 0 or \
+                pt["host_dp"] != 0 or r["sharded"]["host_dp"] != 0:
+            fail(f"phase 12 (e): rank {r['rank']}: {r}")
+    merged = io.StringIO()
+    merge_parts(merged, [f"{outp}.s0", f"{outp}.s1"])
+    if merged.getvalue() != whole.getvalue() or not whole.getvalue():
+        fail("phase 12 (e): map_file_sharded + merge_parts differs from "
+             "map_file")
+    rec = {"partitioned_single_s": t_single,
+           "partitioned_ranks_s": [r["partitioned"]["wall_s"] for r in res],
+           "sharded_map_file_s": t_whole,
+           "sharded_ranks_s": [r["sharded"]["wall_s"] for r in res],
+           "processes_wall_s": t_procs, "ranks": res}
+    log(f"[phase 12 (e)] two gloo ranks on {res[0]['device']}: "
+        f"map_file_partitioned {max(rec['partitioned_ranks_s']):.3f} s "
+        f"(single process, n_parts 2: {t_single:.3f} s), rank 0's PAF "
+        f"({rank0.count(chr(10))} lines) byte-equal, each part 1 S1 launch "
+        f"and C1 launches {[r['partitioned']['chain_fwd'] for r in res]}; "
+        f"map_file_sharded of {len(picked)} reads "
+        f"{max(rec['sharded_ranks_s']):.3f} s (map_file {t_whole:.3f} s), "
+        f"merged byte-equal; the processes' wall {t_procs:.1f} s")
+    log("[phase 12 (e)] JSON " + json.dumps(rec))
+    return rec
+
+
+def phase12(torch, K, batch, pipeline, corpus, p4, ctx):
+    """The last modules on the card: (a) the analysis tools, (b) the meryl
+    side tools, (c) two engines in threads, (d) counting over two slots,
+    (e) two processes."""
+    from winnowmap_tpu_torch import meryl_cli
+    from winnowmap_tpu_torch.kcount import device as KD
+
+    write_fasta(DATA / "asm_ref.fa", ctx["recs"])
+    t0 = time.perf_counter()
+    tools_l = phase12_tools(torch, ctx)
+    log(f"[phase 12 (a)] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    meryl_l = phase12_meryl(KD, meryl_cli)
+    log(f"[phase 12 (b)] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eng = phase12_engines(torch, K, batch, corpus, p4)
+    log(f"[phase 12 (c)] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cnt = phase12_counting(torch, KD, ctx)
+    log(f"[phase 12 (d)] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    procs = phase12_processes(torch, pipeline, ctx, corpus, p4)
+    log(f"[phase 12 (e)] {time.perf_counter() - t0:.1f} s")
+    # each kernel's launches on phase 12's paths (the one-engine runs of
+    # (c), the comparison runs of (d) and the single-process references of
+    # (e) not counted)
+    ranks = procs["ranks"]
+    launches = {
+        "sketch": {"a": tools_l["sketch"],
+                   "e": [r["partitioned"]["sketch"] for r in ranks]},
+        "kcount": {"b": meryl_l["kcount"],
+                   "d": {d: v["kc_launches"] for d, v in cnt.items()}},
+        "extd": {"c": eng["split"]["launches"]["extd"],
+                 "e": [r["partitioned"]["extd"] + r["sharded"]["extd"]
+                       for r in ranks]},
+        "traceback": {"c": eng["split"]["launches"]["traceback"]},
+        "chain_fwd": {"e": [r["partitioned"]["chain_fwd"] for r in ranks]}}
+    log("[phase 12] launches JSON " + json.dumps(launches))
+
 
 
 T_START = time.perf_counter()
@@ -3264,8 +3825,8 @@ def main():
     # each timed run's recorded calls to hold to the plain versions at the
     # end, in worker processes (LaunchTimer.pick, hold_all)
     holds = []
-    ont, corpus = phase4(torch, K, build, fastx, options, batch, seqcode,
-                         holds)
+    ont, corpus, p4 = phase4(torch, K, build, fastx, options, batch,
+                             seqcode, holds)
     log(f"[phase 3-4] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     spl = phase5(torch, K, check, build, fastx, options, batch, seqcode,
@@ -3296,8 +3857,11 @@ def main():
     t0 = time.perf_counter()
     phase11(torch, K, cli, pipeline, build, fastx, options, batch, asm_ctx,
             holds)
-    del asm_ctx
     log(f"[phase 11] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase12(torch, K, batch, pipeline, corpus, p4, asm_ctx)
+    del asm_ctx, p4
+    log(f"[phase 12] {time.perf_counter() - t0:.1f} s")
     # C1's launch held to the plain version beside the DP calls' holds
     with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
         c1_held = pool.submit(hold_chain, *c1_launch)

@@ -179,6 +179,60 @@ def test_map_batch_on_card_matches_cpu(cuda):
         [[key(r) for r in x.regs] for x in ref]
 
 
+def test_two_engines_on_one_card_match_one(cuda, monkeypatch):
+    """The split driver (ways 2: map_batch_multidev over [cuda, cuda], two
+    engines, two host threads, a stream each) equals one engine on the
+    card; the DP launch counts equal the sum of what each engine's thread
+    launched, both threads launched, and no job stays on the host."""
+    import threading
+
+    from winnowmap_tpu_torch.index.build import build_index, load_weight_set
+    from winnowmap_tpu_torch.io.fastx import read_all
+    from winnowmap_tpu_torch.map.engine import (STATS, map_batch_engine,
+                                                map_batch_engine_pipelined)
+    from winnowmap_tpu_torch.options import (MM_F_CIGAR, IndexOptions,
+                                             MapOptions, update_mid_occ)
+
+    io_, mo = IndexOptions(), MapOptions()
+    mo.flag |= MM_F_CIGAR
+    mi = build_index(read_all(str(GOLD / "t_ref.fa")), io_.w, io_.k,
+                     io_.flag, load_weight_set(str(GOLD / "t_rep_k15.txt"),
+                                               io_.k))
+    update_mid_occ(mo, mi)
+    reads = read_all(str(GOLD / "t_reads.fa")) * 2  # 120: two split ways
+    seqs, names = [r.seq for r in reads], [r.name for r in reads]
+    one = map_batch_engine(mi, mo, seqs, names, cuda)
+    seen = []  # (thread, key, n) of every launch counted
+    real = K.count
+
+    def spy(counter, key, n=1):
+        if counter is K.LAUNCHES:
+            seen.append((threading.current_thread().name, key, n))
+        real(counter, key, n)
+
+    monkeypatch.setattr(K, "count", spy)
+    K.reset_launches()
+    STATS.clear()
+    split = map_batch_engine_pipelined(mi, mo, seqs, names, cuda, ways=2)
+    for key in ("extd", "traceback"):
+        by = {}
+        for t, k, n in seen:
+            if k == key:
+                by[t] = by.get(t, 0) + n
+        assert set(by) == {"wm-dev0", "wm-dev1"}, by
+        assert K.LAUNCHES[key] == sum(by.values()) > 0
+    assert STATS["eng_host_dp_calls"] == 0
+    assert STATS["delivered_jobs"] == STATS["dev_jobs"] > 0
+
+    def key(r):
+        return (r.rid, r.score, r.qs, r.qe, r.rs, r.re, r.mapq, r.rev,
+                None if r.p is None else (r.p.dp_score, r.p.dp_max,
+                                          tuple(r.p.cigar.tolist())))
+
+    assert [[key(r) for r in x.regs] for x in split] == \
+        [[key(r) for r in x.regs] for x in one]
+
+
 def _spliced_on_card(dev, profile, flag, B=24, seed=13, **kw):
     rng = np.random.default_rng(seed)
     qpool, tpool, jobs, qs, ts, js = check.spliced_jobs(
@@ -733,6 +787,13 @@ def test_probe_core_kernel_matches_plain_at_every_width(cuda, dirs_mode):
     """P3 level 6 at every Wb from 1 to 640: partial last chunks and
     4-lane groups."""
     assert PC.check_widths(cuda, PC.WIDTHS, dirs_mode) == 0
+
+
+@pytest.mark.parametrize("dirs_mode", ["u8", "i32"])
+def test_probe_core_kernel_matches_plain_at_wide_widths(cuda, dirs_mode):
+    """P3 level 6 through the wide launch: Wb 641, 1000, 2048, 4096 and
+    5000 (warps taking two chunks in turn)."""
+    assert PC.check_widths(cuda, PC.WIDE_WIDTHS, dirs_mode) == 0
 
 
 def test_probe_l0_kernel_matches_plain(cuda):

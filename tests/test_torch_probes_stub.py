@@ -9,9 +9,13 @@ Integer code: res, the final state, the dirs where the probe defines them
 equal.  The outputs start filled with a byte pattern, so an element the
 kernel leaves unwritten shows.
 
-P3 is five warps a job, a chunk of 128 lanes each, with a barrier a row;
-at Wb 128 only warp 0's chunk lies in the window, at Wb 640 all five
-exchange their edges.  Inputs are tools/check.small_inputs cut to 4 jobs:
+P3 is five warps a job up to 640 lanes, a chunk of 128 lanes each, with a
+barrier a row; at Wb 128 only warp 0's chunk lies in the window, at Wb
+640 all five exchange their edges.  Above 640 lanes (the wide launch) a
+job is a warp a chunk up to 32 warps, each warp taking several chunks in
+turn past 4,096 lanes, its buffers in a scratch slot: Wb 641, 1000,
+2048, 4096 and 5000 at level 6, every case at 5000, and the after-done
+rows at four widths.  Inputs are tools/check.small_inputs cut to 4 jobs:
 job 0 (qlen 1) sets done in step 3 of 4 at levels 4-5 (ROWS 32), so its
 last step runs the frozen walk; at Wb 640 and 11 steps the timed inputs
 (jobs 2-3) set done at level 6 in step 10.  Every case also runs at Wb
@@ -168,6 +172,59 @@ def test_core_source_any_width_any_schedule(lib, level, dirs_mode, s32, Wb,
     lane, so the edge exchange, the walk and the after-done zero rows are
     read only after the barrier that orders their writes."""
     _core(lib, level, dirs_mode, s32, Wb=Wb, seed=seed)
+
+
+# the wide launch (above 640 lanes): a warp a chunk of 128 lanes, its
+# buffers in a scratch slot a job; at 5000 lanes 40 chunks on 32 warps, so
+# warps 0-7 take two chunks each in turn, their state kept in the slot
+@pytest.mark.parametrize("dirs_mode", ["u8", "i32"])
+@pytest.mark.parametrize("Wb", PC.WIDE_WIDTHS)
+def test_core_source_wide_launch_level6(lib, Wb, dirs_mode):
+    """Level 6 at Wb 641, 1000, 2048, 4096 and 5000 (a partial sixth and
+    eighth chunk, 16 and 32 whole chunks, 40 chunks on 32 warps), 4 steps
+    of 32 rows: every output equal to core_plain."""
+    _core(lib, 6, dirs_mode, False, Wb=Wb)
+
+
+@pytest.mark.parametrize("level,dirs_mode,s32", CORE, ids=CORE_IDS)
+def test_core_source_wide_launch_every_case(lib, level, dirs_mode, s32):
+    """Every case at Wb 5000 (warps taking two chunks in turn), 4 steps,
+    under a random fiber order of its own; job 0 sets done at levels 4-5
+    and its last step walks the frozen state."""
+    res = _core(lib, level, dirs_mode, s32, Wb=5000,
+                seed=31 + CORE.index((level, dirs_mode, s32)))
+    if level in (4, 5):
+        assert res[0, 3] == 1
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+@pytest.mark.parametrize("level,dirs_mode,s32,Wb",
+                         [(6, "u8", False, 2048), (6, "i32", False, 5000),
+                          (6, "u8", True, 4096), (5, "i32", False, 1000)],
+                         ids=["L6-u8-2048", "L6-i32-5000", "L6-u8-s32-4096",
+                              "L5-i32-1000"])
+def test_core_source_wide_launch_after_done(lib, level, dirs_mode, s32, Wb,
+                                            seed):
+    """11 steps: the timed jobs (2-3) set done at level 6 in step 10, so
+    the wide launch's frozen walk and zero rows run, in the stub's order
+    and a random one."""
+    res = _core(lib, level, dirs_mode, s32, Wb=Wb, KR=11, seed=seed)
+    if level == 6:
+        assert res[2:, 3].tolist() == [1, 1]
+
+
+def test_core_source_refuses_a_short_scratch(lib):
+    """The wide launch refuses a scratch smaller than B slots."""
+    Wb = 1000
+    qbuf, qlen = PC.small_inputs("cpu", B=B, Wb=Wb, ROWS=ROWS, KR=2)
+    res, dirs, st = P3.core_outputs(qbuf, Wb, ROWS, 2, "u8", False)
+    per_job = P3.scratch_bytes(lib, 6, False, Wb)
+    assert per_job > 0 and P3.scratch_bytes(lib, 6, False, 640) == 0
+    scratch = torch.empty(B * per_job - 1, dtype=torch.uint8)
+    assert lib.wm_probe_core_launch(
+        6, 1, 0, qbuf.data_ptr(), qbuf.shape[1], qlen.data_ptr(),
+        res.data_ptr(), dirs.data_ptr(), st.data_ptr(), None, B, Wb, ROWS,
+        2, scratch.data_ptr(), scratch.numel(), None) != 0
 
 
 @pytest.mark.parametrize("Wb", [128, 640, 130])

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import resolve_device
+from ..device import count, resolve_device
 
 NEG = -0x40000000
 
@@ -295,7 +295,7 @@ def chain_fwd(cj: ChainJobs, max_dist_x: int, max_dist_y: int, bw: int,
     if rc != 0:
         raise RuntimeError(f"chain kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES["chain_fwd"] += 1
+    count(LAUNCHES, "chain_fwd")
     return out
 
 

@@ -90,11 +90,14 @@ __device__ __forceinline__ void opaque(T& v) {
 //     memory (its result is overwritten at the step's end, as the probe's).
 //   * Level 6's query block, roll(qbuf[:, :Wb + 256], 7), is staged in
 //     shared memory once a job; a group reads its 4 bytes as two words.
+// A wider window takes the wide launch (core_wide_kernel, below).
 
 constexpr int kChunk = 128;                    // lanes of a warp: 32 x 4
 constexpr int kCoreLanes = 640;                // a job's window: five chunks
 constexpr int kCoreWarps = kCoreLanes / kChunk;
 constexpr int kCoreThreads = 32 * kCoreWarps;
+constexpr int kWideWarps = 32;                 // the wide launch's most
+constexpr int kWideLanesMax = 1 << 24;         // its slot offsets fit int
 
 struct CoreArgs {
   const uint8_t* qbuf;
@@ -105,6 +108,8 @@ struct CoreArgs {
   void* state;
   long long* work;  // computed cells and rows per job, or null
   int B, Wb, ROWS, KR;
+  uint8_t* scratch;  // the wide launch's slots, or null
+  long long scratch_bytes;
 };
 
 // The offsets of a job's shared memory: the query block, the slide's rows,
@@ -454,7 +459,6 @@ __global__ void __launch_bounds__(kCoreThreads) core_kernel(CoreArgs A) {
 // a block a job, kCoreThreads threads.
 template <int L, int DM, bool S32>
 int core_run(const CoreArgs& A, int* blocks, void* stream) {
-  if (A.Wb < 1 || A.Wb > kCoreLanes) return (int)cudaErrorInvalidValue;
   const CoreGeo g = core_geo(L, S32, A.Wb);
   cudaError_t err = cudaSuccess;
   if (g.shm > 48 * 1024)
@@ -471,12 +475,382 @@ int core_run(const CoreArgs& A, int* blocks, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// P3 above kCoreLanes: the wide launch
+// ---------------------------------------------------------------------------
+// The narrow kernel's row, cell and walk, for a window of any width: a job
+// is a block of min(32, ceil(Wb / 128)) warps, and warp w takes the chunks
+// w, w + warps, ... of 128 lanes in turn within a row (one chunk a warp up
+// to 4,096 lanes).  The query block, the slide's rows, the walk's mirror
+// and the chunk edges ([2][chunks][4]) live in a slot of global scratch a
+// job (wide_geo's per_job bytes); where a warp holds several chunks, each
+// chunk's state and packed dirs words wait in the slot between its turns,
+// loaded before and stored after them, as K1's memory path keeps its slot
+// state.  A row still has one barrier: a chunk's carry is the edge its
+// left neighbour wrote the row before, whichever warp holds it.  The
+// narrow kernel stays the timed one: its code does not change for this.
+
+struct WideGeo {
+  int q_off, sl_off, m_off, edge_off, st_off, per_job;
+};
+
+__host__ __device__ inline int wide_chunks(int Wb) {
+  return (Wb + kChunk - 1) / kChunk;
+}
+
+__host__ __device__ inline int wide_warps(int Wb) {
+  return wide_chunks(Wb) < kWideWarps ? wide_chunks(Wb) : kWideWarps;
+}
+
+__host__ __device__ inline WideGeo wide_geo(int L, bool s32, int Wb) {
+  WideGeo g;
+  int at = 0;
+  const int nch = wide_chunks(Wb);
+  g.q_off = core_take(at, L >= 6 ? Wb + 256 + 16 : 0);
+  g.sl_off = core_take(at, L >= 5 ? 7 * Wb * (s32 ? 4 : 1) : 0);
+  g.m_off = core_take(at, L >= 4 ? 2 * 2 * Wb * 4 : 0);
+  g.edge_off = core_take(at, 2 * nch * 4 * 4);
+  g.st_off = core_take(at, nch > wide_warps(Wb) ? 8 * nch * kChunk * 4 : 0);
+  g.per_job = at;
+  return g;
+}
+
+template <int L, int DM, bool S32>
+__global__ void __launch_bounds__(32 * kWideWarps)
+    core_wide_kernel(CoreArgs A) {
+  using St = typename std::conditional<S32, int32_t, int8_t>::type;
+  const int Wb = A.Wb, ROWS = A.ROWS, B = A.B, QR = Wb + 256;
+  const WideGeo geo = wide_geo(L, S32, Wb);
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
+            w = tid >> 5;
+  // chunks of the window, warps of the block, chunks a warp
+  const int NCH = wide_chunks(Wb), C = (int)(blockDim.x >> 5), NT = 32 * C;
+  const int G = (NCH + C - 1) / C;
+  uint8_t* slot = A.scratch + (int64_t)b * geo.per_job;
+  int t0 = 0, nl = 0;                 // the current chunk's lanes
+  const bool vec = (Wb & 3) == 0;     // rows keep 4-lane groups aligned
+  const uint32_t* Q32 = (const uint32_t*)(slot + geo.q_off);
+  St* Sl = (St*)(slot + geo.sl_off);
+  int* mU = (int*)(slot + geo.m_off);       // [2][Wb]: u and v for the walk
+  int* mV = mU + 2 * Wb;
+  int* edge = (int*)(slot + geo.edge_off);  // [2][NCH][4]: x x2 v of a
+                                            // chunk's last lane
+  int* cst = (int*)(slot + geo.st_off);     // [8][NCH * 128]: held chunks
+  const int SW = NCH * kChunk;
+  uint8_t* dirs8 = (uint8_t*)A.dirs;
+  int32_t* dirs32 = (int32_t*)A.dirs;
+
+  int u[4], v[4], x[4], y[4], x2[4], y2[4], s[4];
+  int pk[4];  // DM 2: the word being packed, per lane
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    u[q] = v[q] = x[q] = y[q] = x2[q] = y2[q] = s[q] = pk[q] = 0;
+  auto ld4 = [&](int a, int (&r)[4]) {
+    const int4 q = *(const int4*)(cst + a * SW + t0);
+    r[0] = q.x, r[1] = q.y, r[2] = q.z, r[3] = q.w;
+  };
+  auto st4 = [&](int a, const int (&r)[4]) {
+    *(int4*)(cst + a * SW + t0) = make_int4(r[0], r[1], r[2], r[3]);
+  };
+  // chunk c's lanes, and its state from the slot where a warp holds
+  // several chunks (ld), and back (st)
+  auto ld = [&](int c) {
+    t0 = kChunk * c + 4 * lane, nl = min(4, Wb - t0);
+    if (G > 1) {
+      ld4(0, u), ld4(1, v), ld4(2, x), ld4(3, y), ld4(4, x2);
+      ld4(5, y2), ld4(6, s), ld4(7, pk);
+    }
+  };
+  auto st = [&]() {
+    if (G > 1) {
+      st4(0, u), st4(1, v), st4(2, x), st4(3, y), st4(4, x2);
+      st4(5, y2), st4(6, s), st4(7, pk);
+    }
+  };
+  auto wrap8 = [&]() {  // the step's end: the state as int8
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      u[q] = (int8_t)u[q], v[q] = (int8_t)v[q], x[q] = (int8_t)x[q];
+      y[q] = (int8_t)y[q], x2[q] = (int8_t)x2[q], y2[q] = (int8_t)y2[q];
+      s[q] = (int8_t)s[q];
+    }
+  };
+  // u and v of the chunk's lanes into mirror buffer p
+  auto mirror = [&](int p) {
+    put4(mU + p * Wb, t0, u, nl, vec), put4(mV + p * Wb, t0, v, nl, vec);
+  };
+  if (G > 1)  // every chunk starts from the zero state
+    for (int c = w; c < NCH; c += C) {
+      t0 = kChunk * c + 4 * lane;
+      st();
+    }
+
+  const int ql = A.qlen[b];
+  int mx = 0, H0 = 0, lH0t = 0, done = 0;
+  long long ncell = L < 2 ? (long long)A.KR * ROWS * Wb : 0;
+  int nrow = L < 2 ? A.KR * ROWS : 0;
+
+  if (L >= 6) {  // the query block rolled by 7, and 16 zero bytes after it
+    uint8_t* Q = slot + geo.q_off;
+    const uint8_t* qb = A.qbuf + (int64_t)b * A.qstride;
+    for (int i = tid; i < QR + 16; i += NT)
+      Q[i] = i >= QR ? 0 : qb[i >= 7 ? i - 7 : i - 7 + QR];
+  }
+  if (L >= 1) {  // row 0's carries: the zero state
+    for (int i = tid; i < 4 * NCH; i += NT) edge[4 * NCH + i] = 0;
+    __syncthreads();
+  }
+
+  // fast: from the row after done (under DM 2, after its packed row) the
+  // state no longer changes, as in the narrow kernel
+  bool fast = false;
+  int kfast = 0;
+  for (int k = 0; k < A.KR; ++k) {
+    const int r0 = k * ROWS;
+    if (L >= 5 && r0 > 0) {
+      // the slide: lane l takes lane l + 16, the last 16 lanes 0
+      auto slide = [&](int a, const int (&r)[4]) {
+        St* row = Sl + a * Wb;
+        if (vec && nl == 4) {
+          if (t0 >= 16) put4(row, t0 - 16, r, 4, true);
+          if (t0 >= Wb - 16) put4(row, t0, {0, 0, 0, 0}, 4, true);
+          return;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = t0 + q;
+          if (q >= nl) break;
+          if (t >= 16) row[t - 16] = (St)r[q];
+          if (t >= Wb - 16) row[t] = 0;
+        }
+      };
+      for (int c = w; c < NCH; c += C) {
+        ld(c);
+        slide(0, u), slide(1, v), slide(2, x), slide(3, y), slide(4, x2);
+        slide(5, y2), slide(6, s);
+      }
+    }
+    for (int j = 0; j < ROWS; ++j) {
+      const int r = r0 + j, par = r & 1, jm = j & 3;
+      const bool last = j == ROWS - 1;
+      if (L >= 4 && fast) {
+        // rows j .. ROWS - 1: their dirs as 16-byte zero stores (a store
+        // a lane where Wb breaks their alignment) by every warp but warp
+        // 0, then warp 0's walk
+        constexpr int kUnit = DM == 1 ? 16 : 4;  // lanes a 16-byte store
+        const int NS = NT - 32, ts = tid - 32;
+        const bool zvec = Wb % kUnit == 0;
+        if (DM != 0 && ts >= 0) {
+          const int units = zvec ? Wb / kUnit : Wb;
+          const int ra = DM == 1 ? r : (r + 3) >> 2;  // rows (packed rows)
+          const int nr = (DM == 1 ? r0 + ROWS : (r0 + ROWS) >> 2) - ra;
+          int jj = ts / units, c = ts % units;
+          const int dj = NS / units, dc = NS % units;
+          for (; jj < nr; jj += dj, c += dc) {
+            if (c >= units) c -= units, ++jj;
+            if (jj >= nr) break;
+            const int64_t row = (int64_t)(ra + jj) * B + b;
+            if (!zvec) {
+              if (DM == 1) dirs8[row * Wb + c] = 0;
+              else dirs32[row * Wb + c] = 0;
+              continue;
+            }
+            uint4* at = (uint4*)(DM == 1 ? (void*)(dirs8 + row * Wb)
+                                         : (void*)(dirs32 + row * Wb));
+            at[c] = make_uint4(0, 0, 0, 0);
+          }
+        }
+        if (w == 0) {  // warp 0 holds res
+          const bool wrap = !S32 && k > kfast;
+          auto at = [&](const int* m, int l) {
+            if (l < 0 || l >= Wb) return kNeg;
+            const int val = m[l];
+            return max(wrap ? (int)(int8_t)val : val, kNeg);
+          };
+          int cv = at(mV, lH0t), cu = at(mU, wadd(lH0t, 1));
+          for (int jj = j; jj < ROWS; ++jj) {
+            const int l = lH0t, l1 = wadd(l, 1);
+            const int nv = at(mV, l1), nu = at(mU, wadd(l, 2));
+            walk_step(cv, cu, l1, mx, H0, lH0t, done);
+            if (lH0t != l) cv = nv, cu = nu;
+          }
+        }
+        if (!S32)
+          for (int c = w; c < NCH; c += C) ld(c), wrap8(), st();
+        break;
+      }
+      int lo = 0, hi = Wb - 1;  // the lanes this row computes
+      if (L >= 2) {
+        core_band(r, ql, Wb, lo, hi);
+        if (done) hi = lo - 1;
+        if (hi >= lo) ncell += hi - lo + 1, ++nrow;
+      }
+      for (int c = w; c < NCH; c += C) {
+        ld(c);
+        if (L == 0) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            u[q] = wadd(u[q], 1);
+            opaque(u[q]);
+          }
+        } else {
+          const int l0 = kChunk * c;
+          uint32_t dw = 0;  // the u8 dirs of my 4 lanes
+          if (L < 2 || (l0 <= hi && l0 + kChunk - 1 >= lo)) {
+            // lane t0 - 1's old x, x2, v
+            int cx = __shfl_up_sync(kFull, x[3], 1);
+            int cx2 = __shfl_up_sync(kFull, x2[3], 1);
+            int cv = __shfl_up_sync(kFull, v[3], 1);
+            if (lane == 0 && c > 0) {
+              const int* e = edge + ((par ^ 1) * NCH + c - 1) * 4;
+              cx = e[0], cx2 = e[1], cv = e[2];
+            }
+            if (t0 == 0) cx = -6, cx2 = -25, cv = -6;
+            const int px[4] = {cx, x[0], x[1], x[2]};
+            const int px2[4] = {cx2, x2[0], x2[1], x2[2]};
+            const int pv[4] = {cv, v[0], v[1], v[2]};
+            uint32_t qw = 0;  // the query bytes of my 4 lanes
+            if (L >= 6) {
+              const int at = ROWS - 1 - j + t0;
+              qw = __byte_perm(Q32[at >> 2], Q32[(at >> 2) + 1],
+                               (at & 3) * 0x1111 + 0x3210);
+            }
+            if (L < 2 || (t0 >= lo && t0 <= hi))
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int t = t0 + q;
+                const int uu = (L >= 2 && t == r) ? -6 : u[q];
+                const int sc =
+                    L >= 6 ? ((int)((qw >> (8 * q)) & 255) == s[q] ? 2 : -4)
+                           : wadd(s[q], 1);
+                const int a = wadd(px[q], pv[q]), bb = wadd(y[q], uu);
+                const int a2 = wadd(px2[q], pv[q]), b2 = wadd(y2[q], uu);
+                int z = sc, d = 0;
+                if (L >= 3) {
+                  d = z > a ? 0 : 1;
+                  z = max(z, a);
+                  d = z > bb ? d : 2;
+                  z = max(z, bb);
+                  d = z > a2 ? d : 3;
+                  z = max(z, a2);
+                  d = z > b2 ? d : 4;
+                  z = max(z, b2);
+                } else {
+                  z = max(max(max(z, a), max(bb, a2)), b2);
+                }
+                z = min(z, 2);
+                const int zq = z - 6, zq2 = z - 25;
+                const int an = wsub(a, zq), bn = wsub(bb, zq);
+                const int a2n = wsub(a2, zq2), b2n = wsub(b2, zq2);
+                u[q] = wsub(z, pv[q]);
+                v[q] = wsub(z, uu);
+                x[q] = max(an, 0) - 8;
+                y[q] = max(bn, 0) - 8;
+                x2[q] = max(a2n, 0) - 26;
+                y2[q] = max(b2n, 0) - 26;
+                s[q] = sc;
+                if (L >= 3)
+                  dw |= (uint32_t)(d | (an > 0 ? 8 : 0) | (bn > 0 ? 16 : 0) |
+                                   (a2n > 0 ? 32 : 0) | (b2n > 0 ? 64 : 0))
+                        << (8 * q);
+              }
+          }
+          if (L >= 3 && DM == 1) {  // dirs are 0 outside the band
+            uint8_t* at = dirs8 + ((int64_t)r * B + b) * Wb + t0;
+            if (vec && nl == 4)
+              *(uint32_t*)at = dw;
+            else
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                if (q < nl) at[q] = (uint8_t)(dw >> (8 * q));
+          }
+          if (L >= 3 && DM == 2) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int dv = (int)((dw >> (8 * q)) & 255);
+              pk[q] = jm == 0 ? dv : (pk[q] | dv << (8 * jm));
+            }
+            if (jm == 3)
+              put4(dirs32 + ((int64_t)(r >> 2) * B + b) * Wb, t0, pk, nl,
+                   vec);
+          }
+        }
+        if (L >= 4) mirror(par);
+        if (!S32 && last) wrap8();
+        if (L >= 1 && lane == 31) {
+          int* e = edge + (par * NCH + c) * 4;
+          e[0] = x[3], e[1] = x2[3], e[2] = v[3];
+        }
+        st();
+      }
+      if (L >= 1) __syncthreads();
+      if (L >= 4) {
+        const int l1 = wadd(lH0t, 1);
+        const int* wU = mU + par * Wb;
+        const int* wV = mV + par * Wb;
+        const int d0 = lH0t >= 0 && lH0t < Wb ? max(wV[lH0t], kNeg) : kNeg;
+        const int d1 = l1 >= 0 && l1 < Wb ? max(wU[l1], kNeg) : kNeg;
+        walk_step(d0, d1, l1, mx, H0, lH0t, done);
+        if (done && (DM != 2 || jm == 3)) {  // the rows left are fast
+          __syncthreads();  // every warp has read the mirror
+          for (int c = w; c < NCH; c += C)
+            ld(c), mirror(0);  // this step's state (wrapped if it ended)
+          __syncthreads();
+          fast = true;
+          kfast = k;
+        }
+      }
+    }
+  }
+
+  St* out = (St*)A.state;
+  for (int c = w; c < NCH; c += C) {
+    ld(c);
+    auto put = [&](int a, const int (&r)[4]) {
+      put4(out + ((int64_t)a * B + b) * Wb, t0, r, nl, vec);
+    };
+    put(0, u), put(1, v), put(2, x), put(3, y), put(4, x2), put(5, y2);
+    put(6, s);
+  }
+  if (tid < 16)
+    A.res[b * 16 + tid] = tid == 0   ? mx
+                          : tid == 1 ? H0
+                          : tid == 2 ? lH0t
+                          : tid == 3 ? done
+                                     : 0;
+  if (tid == 0 && A.work) A.work[2 * b] = ncell, A.work[2 * b + 1] = nrow;
+}
+
+// Launches (or, with `blocks`, asks the occupancy of) one instantiation:
+// a block a job, a warp a chunk up to kWideWarps, a scratch slot a job.
+template <int L, int DM, bool S32>
+int wide_run(const CoreArgs& A, int* blocks, void* stream) {
+  const int threads = 32 * wide_warps(A.Wb);
+  if (blocks)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, core_wide_kernel<L, DM, S32>, threads, 0);
+  if (A.B <= 0) return 0;
+  if (A.scratch == nullptr ||
+      A.scratch_bytes < (long long)A.B * wide_geo(L, S32, A.Wb).per_job)
+    return (int)cudaErrorInvalidValue;
+  core_wide_kernel<L, DM, S32><<<A.B, threads, 0, (cudaStream_t)stream>>>(A);
+  return (int)cudaGetLastError();
+}
+
+// the narrow launch up to kCoreLanes, the wide one above
+template <int L, int DM, bool S32>
+int core_width(const CoreArgs& A, int* blocks, void* stream) {
+  if (A.Wb < 1 || A.Wb > kWideLanesMax) return (int)cudaErrorInvalidValue;
+  return A.Wb <= kCoreLanes ? core_run<L, DM, S32>(A, blocks, stream)
+                            : wide_run<L, DM, S32>(A, blocks, stream);
+}
+
 template <int L>
 int core_pick(int dm, int s32, const CoreArgs& A, int* blocks, void* stream) {
   auto pick_s = [&](auto dmc) {
     constexpr int D = decltype(dmc)::value;
-    return s32 ? core_run<L, D, true>(A, blocks, stream)
-               : core_run<L, D, false>(A, blocks, stream);
+    return s32 ? core_width<L, D, true>(A, blocks, stream)
+               : core_width<L, D, false>(A, blocks, stream);
   };
   if constexpr (L >= 3) {
     if (dm == 1) return pick_s(std::integral_constant<int, 1>());
@@ -648,11 +1022,22 @@ extern "C" int wm_probe_core_launch(int level, int dirs_mode, int s32,
                                     const void* qbuf, int qstride,
                                     const void* qlen, void* res, void* dirs,
                                     void* state, void* work, int B, int Wb,
-                                    int ROWS, int KR, void* stream) {
+                                    int ROWS, int KR, void* scratch,
+                                    long long scratch_bytes, void* stream) {
   const CoreArgs A{(const uint8_t*)qbuf, qstride, (const int32_t*)qlen,
                    (int32_t*)res, dirs, state, (long long*)work, B, Wb,
-                   ROWS, KR};
+                   ROWS, KR, (uint8_t*)scratch, scratch_bytes};
   return core_level(level, dirs_mode, s32, A, nullptr, stream);
+}
+
+// The scratch bytes a job of the core kernel at (level, s32, Wb) takes:
+// 0 up to 640 lanes, else its slot of the wide launch.
+extern "C" int wm_probe_core_scratch(int level, int s32, int Wb,
+                                     long long* bytes) {
+  if (level < 0 || level > 6 || Wb < 1 || Wb > kWideLanesMax)
+    return (int)cudaErrorInvalidValue;
+  *bytes = Wb > kCoreLanes ? wide_geo(level, s32 != 0, Wb).per_job : 0;
+  return 0;
 }
 
 // Blocks (jobs) of the core kernel at (level, dirs_mode, s32, Wb) one SM

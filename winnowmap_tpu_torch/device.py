@@ -7,7 +7,19 @@ running on the CPU.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
+
+# one lock for every counter of the port (the kernels' LAUNCHES, the
+# mapping path's STATS): engines on several host threads bump them at once
+_COUNT_LOCK = threading.Lock()
+
+
+def count(counter: dict, key, n=1) -> None:
+    """counter[key] += n, as one step for every thread."""
+    with _COUNT_LOCK:
+        counter[key] += n
 
 
 def resolve_device(device=None) -> torch.device:

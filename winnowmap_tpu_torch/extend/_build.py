@@ -112,7 +112,9 @@ def bind(lib) -> None:
                              ctypes.c_uint32, ctypes.c_uint32] + [vp] * 4,
         "wm_kcount_launch": [vp, i64, ci, ci, vp, vp, i64] + [vp] * 4,
         "wm_probe_core_launch": [ci, ci, ci, vp, ci, vp, vp, vp, vp, vp]
-        + [ci] * 4 + [vp],
+        + [ci] * 4 + [vp, ctypes.c_longlong, vp],
+        "wm_probe_core_scratch": [ci, ci, ci, ctypes.POINTER(
+            ctypes.c_longlong)],
         "wm_probe_core_occupancy": [ci] * 4 + [ctypes.POINTER(ci)],
         "wm_probe_l0_launch": [vp, vp] + [ci] * 6 + [vp],
         "wm_probe_bisect_launch": [ci, vp, vp, vp] + [ci] * 4 + [vp],

@@ -30,8 +30,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import threading
+
 import numpy as np
 import torch
+
+from ..device import count
 
 NEG_INF = -0x40000000
 
@@ -868,7 +872,7 @@ def _ext_dp(mode, qpool, tpool, jobs, dirs_off, ncol, geo, prof, flag,
     if rc != 0:
         raise RuntimeError(f"{mode} kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES[mode] += 1
+    count(LAUNCHES, mode)
     return res, dirs
 
 
@@ -911,7 +915,7 @@ def exts_dp(qpool, tpool, jobs, dirs_off, ncol, geo: ExtGeometry,
     if rc != 0:
         raise RuntimeError(f"exts kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES["exts"] += 1
+    count(LAUNCHES, "exts")
     return res, dirs
 
 
@@ -1032,7 +1036,7 @@ def traceback(dirs, dirs_off, jobs, ncol, start, n_ops: int,
     if rc != 0:
         raise RuntimeError(f"traceback kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES["traceback"] += 1
+    count(LAUNCHES, "traceback")
     return ops, fin
 
 
@@ -1057,21 +1061,33 @@ def pack_ops4(ops):
 # pooled calls
 # --------------------------------------------------------------------------
 
+# guards the index objects' device copies of the reference: engines on
+# several host threads share one index
+_CODES_LOCK = threading.Lock()
+
+
 class PoolContext:
     """The sequence pools of one mapping batch on the device: the batch's
     read-strand pool and the reference codes.  The reference upload is kept
-    on the index object (one per device) so later batches reuse it."""
+    on the index object (one per device) so later batches, and engines on
+    other host threads, reuse it: it is complete before any stream reads
+    it, and each stream that reads it is recorded on it."""
 
     def __init__(self, qpool_np: np.ndarray, mi, device: torch.device):
         self.device = torch.device(device)
         self.qpool = torch.from_numpy(qpool_np).to(self.device)
-        cache = mi.device_codes
         key = str(self.device)
-        if key not in cache:
-            cache.clear()  # one device copy of the reference at a time
-            cache[key] = torch.from_numpy(
-                np.ascontiguousarray(mi.codes, np.uint8)).to(self.device)
-        self.ref = cache[key]
+        with _CODES_LOCK:
+            cache = mi.device_codes
+            if key not in cache:
+                ref = torch.from_numpy(
+                    np.ascontiguousarray(mi.codes, np.uint8)).to(self.device)
+                if ref.is_cuda:
+                    torch.cuda.current_stream(self.device).synchronize()
+                cache[key] = ref
+            self.ref = cache[key]
+        if self.ref.is_cuda:
+            self.ref.record_stream(torch.cuda.current_stream(self.device))
         self._ranges = [_addr_range(qpool_np), _addr_range(mi.codes)]
 
     def resolve(self, js) -> tuple[int, int] | None:

@@ -182,6 +182,48 @@ def _launch_groups(seqs) -> list[list[int]]:
     return groups
 
 
+def genome_codes(records, seqs: list) -> np.ndarray:
+    """The records' codes concatenated; appends each record's SeqMeta to
+    seqs."""
+    total = 0
+    for rec in records:
+        seqs.append(SeqMeta(rec.name, total, len(rec.seq)))
+        total += len(rec.seq)
+    codes = np.empty(total, dtype=np.uint8)
+    for s, rec in zip(seqs, records):
+        codes[s.offset:s.offset + s.length] = encode(rec.seq)
+    return codes
+
+
+def sketch_genome(records, codes, seqs, w: int, k: int, is_hpc: bool,
+                  wset: np.ndarray, bloom: tuple | None, device=None,
+                  sketch_min_bp: int | None = DEVICE_SKETCH_MIN_BP):
+    """Each record's minimizers (x, y), in sketch order: a genome of
+    sketch_min_bp or more bases on `device` (None: the card, which raises
+    when there is none), one S1 launch a SKETCH_MAX_CODES of records; a
+    smaller one, or any with sketch_min_bp None, with the native sketch,
+    and the device is not asked for.  codes/seqs: the genome's codes and
+    each record's SeqMeta; an empty record gives no entry on the native
+    route."""
+    xs, ys = [], []
+    if sketch_min_bp is not None and len(codes) >= sketch_min_bp:
+        wt = weights_on(wset, bloom, resolve_device(device))
+        for group in _launch_groups(seqs):
+            res = sketch_records([codes[seqs[r].offset:seqs[r].offset
+                                        + seqs[r].length] for r in group],
+                                 w, k, group, is_hpc, wt)
+            xs += [x for x, _ in res]
+            ys += [y for _, y in res]
+    else:
+        for rid, rec in enumerate(records):
+            if len(rec.seq) > 0:
+                x, y = native.sketch(rec.seq, w, k, rid, is_hpc, wset,
+                                     bloom)
+                xs.append(x)
+                ys.append(y)
+    return xs, ys
+
+
 def build_index(records, w: int, k: int, flag: int = 0,
                 weight_set: np.ndarray | None = None, is_hpc: bool = False,
                 weight_bloom: tuple | None = None, device=None,
@@ -192,34 +234,14 @@ def build_index(records, w: int, k: int, flag: int = 0,
     or more bases sketches on `device` (None: the card, which raises when
     there is none) in one S1 launch (one a SKETCH_MAX_CODES of records); a
     smaller one, or any with sketch_min_bp None, with the native sketch,
-    and the device is not asked for."""
+    and the device is not asked for (sketch_genome)."""
     mi = MinimizerIndex(w=w, k=k, flag=flag)
     if weight_set is not None:
         mi.wset = weight_set
     mi.bloom = weight_bloom
-    total = 0
-    for rec in records:
-        mi.seqs.append(SeqMeta(rec.name, total, len(rec.seq)))
-        total += len(rec.seq)
-    codes = np.empty(total, dtype=np.uint8)
-    for s, rec in zip(mi.seqs, records):
-        codes[s.offset:s.offset + s.length] = encode(rec.seq)
-    xs, ys = [], []
-    if sketch_min_bp is not None and total >= sketch_min_bp:
-        wt = weights_on(mi.wset, mi.bloom, resolve_device(device))
-        for group in _launch_groups(mi.seqs):
-            res = sketch_records([codes[mi.seqs[r].offset:mi.seqs[r].offset
-                                        + mi.seqs[r].length] for r in group],
-                                 w, k, group, is_hpc, wt)
-            xs += [x for x, _ in res]
-            ys += [y for _, y in res]
-    else:
-        for rid, rec in enumerate(records):
-            if len(rec.seq) > 0:
-                x, y = native.sketch(rec.seq, w, k, rid, is_hpc, mi.wset,
-                                     mi.bloom)
-                xs.append(x)
-                ys.append(y)
+    codes = genome_codes(records, mi.seqs)
+    xs, ys = sketch_genome(records, codes, mi.seqs, w, k, is_hpc, mi.wset,
+                           mi.bloom, device, sketch_min_bp)
     mi.codes = codes
     x = np.concatenate(xs) if xs else np.zeros(0, np.uint64)
     y = np.concatenate(ys) if ys else np.zeros(0, np.uint64)

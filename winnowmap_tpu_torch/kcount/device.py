@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import count, resolve_device
 from . import MERYL_CODE, KmerCounts
 from .outofcore import _merge_two, _Run
 
@@ -171,7 +171,7 @@ def count_block_launch(codes: torch.Tensor, k: int,
     if rc != 0:
         raise RuntimeError(f"k-mer count kernel launch failed: cudaError "
                            f"{rc} ({_build.error_string(rc)})")
-    LAUNCHES["kcount"] += 1
+    count(LAUNCHES, "kcount")
     return bufs["uniq"], bufs["counts"], bufs["scal"][1]
 
 

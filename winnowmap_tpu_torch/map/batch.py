@@ -31,9 +31,10 @@ from collections import defaultdict
 from functools import partial
 
 import numpy as np
+import torch
 
 from ..chain.device import chain_dp_auto, chain_gate
-from ..device import resolve_device
+from ..device import count, resolve_device
 from ..extend.kernels import DevCallPooled, PoolContext, job_geometry
 from ..options import MM_F_SPLICE
 from ..utils import dbg
@@ -50,12 +51,24 @@ __all__ = ["map_batch", "map_batch_frags", "map_batch_generator",
 def map_batch(mi, opt, seqs, qnames, device=None, chain_min=None):
     """Map a batch of reads; returns one MapResult per read, in order.
 
-    device=None runs the DP on the CUDA card (raises when there is none);
-    device="cpu" runs the kernels' plain PyTorch versions.  One-segment
+    device=None runs the DP on the CUDA card (raises when there is none),
+    and a batch the engine takes on every visible card when there are
+    several (parallel/multidev.map_batch_multidev); an explicit device
+    pins the batch to it; device="cpu" runs the kernels' plain PyTorch
+    versions.  The split driver (engine.map_batch_engine_pipelined) is
+    called directly, never from here.  One-segment
     anchor sets of at least chain_min anchors chain on the device (None:
     the device's default, chain/device.chain_gate; 0: none).  The debug
     dumps (dbg.flag) map on the generator path, on the same device."""
     if engine_supported(opt, mi) and not dbg.flag:
+        if device is None and len(seqs) > 1 and torch.cuda.is_available() \
+                and torch.cuda.device_count() > 1:
+            # every visible card, an engine each (the JAX package routes
+            # to its multi-device driver with more than one local device)
+            from ..parallel.multidev import map_batch_multidev
+
+            return map_batch_multidev(mi, opt, seqs, qnames,
+                                      chain_min=chain_min)
         return map_batch_engine(mi, opt, seqs, qnames,
                                 resolve_device(device), chain_min)
     return map_batch_generator(mi, opt, seqs, qnames, device, chain_min)
@@ -166,9 +179,9 @@ def _dispatch(pools, key, units) -> list:
         t0 = time.perf_counter()
         call = DevCallPooled(pools, rows[lo:hi], mat, q, e, q2, e2,
                              eb[lo:hi], flag, splice=spl, juncs=juncs)
-        STATS["dispatch_s"] += time.perf_counter() - t0
-        STATS["dev_calls"] += 1
-        STATS["dev_jobs"] += len(chunk)
+        count(STATS, "dispatch_s", time.perf_counter() - t0)
+        count(STATS, "dev_calls")
+        count(STATS, "dev_jobs", len(chunk))
         out.append((call, chunk))
         lo = hi
     return out
@@ -194,8 +207,8 @@ def run_ext_tasks(tasks: list[_Task], pools: PoolContext) -> None:
                 if refused(job[0], len(job[1]), len(job[2])):
                     t0 = time.perf_counter()
                     ez = align_pair(*job)
-                    STATS["host_s"] += time.perf_counter() - t0
-                    STATS["host_jobs"] += 1
+                    count(STATS, "host_s", time.perf_counter() - t0)
+                    count(STATS, "host_jobs")
                     send = t.deliver(k, ez)
                 else:
                     queues[_group_key(job)].append(
@@ -218,7 +231,7 @@ def run_ext_tasks(tasks: list[_Task], pools: PoolContext) -> None:
         for call, chunk in calls:
             t0 = time.perf_counter()
             ezs = call.collect()
-            STATS["dev_wait_s"] += time.perf_counter() - t0
+            count(STATS, "dev_wait_s", time.perf_counter() - t0)
             ready = []
             for (t, k, _, _), ez in zip(chunk, ezs):
                 send = t.deliver(k, ez)
@@ -236,8 +249,8 @@ def _gen_time():
     t_start = time.perf_counter()
     s0 = {k: STATS[k] for k in ("dispatch_s", "dev_wait_s", "host_s")}
     yield
-    STATS["gen_py_s"] += (time.perf_counter() - t_start) - sum(
-        STATS[k] - v for k, v in s0.items())
+    count(STATS, "gen_py_s", (time.perf_counter() - t_start) - sum(
+        STATS[k] - v for k, v in s0.items()))
 
 
 def _read_pool(mi, seqs, device, chain_min):

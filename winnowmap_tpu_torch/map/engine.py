@@ -37,6 +37,7 @@ import torch
 
 from .. import native
 from ..chain.device import chain_dp_device_batch, chain_gate
+from ..device import count
 from ..extend.kernels import DevCallPooled, PoolContext, job_geometry
 from ..io.seqcode import encode
 from ..options import (
@@ -228,9 +229,9 @@ class MapEngine:
                 self.L.wm_eng_deliver_chain(self.h, cid, len(u),
                                             u.ctypes.data, len(oax),
                                             oax.ctypes.data, oay.ctypes.data)
-        STATS["chain_dev_s"] += time.perf_counter() - t0
-        STATS["chain_dev_jobs"] += len(rows)
-        STATS["chain_dev_anchors"] += int(rows[:, 1].sum())
+        count(STATS, "chain_dev_s", time.perf_counter() - t0)
+        count(STATS, "chain_dev_jobs", len(rows))
+        count(STATS, "chain_dev_anchors", int(rows[:, 1].sum()))
         return True
 
     def _deliver(self, rows: np.ndarray, collected) -> None:
@@ -252,7 +253,7 @@ class MapEngine:
         self.L.wm_eng_deliver(self.h, n, ids.ctypes.data, res.ctypes.data,
                               blob.ctypes.data, off.ctypes.data,
                               ln.ctypes.data)
-        STATS["delivered_jobs"] += n
+        count(STATS, "delivered_jobs", n)
 
     def _dispatch(self, prof: int, flag: int, rows: np.ndarray) -> list:
         """DevCallPooled calls for one group of rows (same scoring class and
@@ -285,11 +286,12 @@ class MapEngine:
                 opt.e, opt.q2, opt.e2,
                 np.ascontiguousarray(crows[:, C_EB]), int(flag),
                 splice=splice)
-            STATS["dispatch_s"] += time.perf_counter() - t0
-            STATS["dev_calls"] += 1
-            STATS["dev_jobs"] += len(crows)
-            STATS["cells_live_G"] += _est_live_cells(crows, spliced) / 1e9
-            STATS["cells_pad_G"] += call.geometry.dirs_bytes / 1e9
+            count(STATS, "dispatch_s", time.perf_counter() - t0)
+            count(STATS, "dev_calls")
+            count(STATS, "dev_jobs", len(crows))
+            count(STATS, "cells_live_G",
+                  _est_live_cells(crows, spliced) / 1e9)
+            count(STATS, "cells_pad_G", call.geometry.dirs_bytes / 1e9)
             out.append((call, crows))
             lo = hi
         return out
@@ -315,7 +317,7 @@ class MapEngine:
                 call, crows = inflight.popleft()
                 t0 = time.perf_counter()
                 collected = call.collect_blob()
-                STATS["dev_wait_s"] += time.perf_counter() - t0
+                count(STATS, "dev_wait_s", time.perf_counter() - t0)
                 self._deliver(crows, collected)
                 continue
             if not chained and self.L.wm_eng_live(self.h) == 0:
@@ -416,13 +418,34 @@ def map_batch_engine(mi, opt: MapOptions, seqs, qnames,
         results = eng.results()
         perf = np.zeros(8, np.int64)
         eng.L.wm_eng_perf(eng.h, perf.ctypes.data)
-        STATS["eng_host_dp_s"] += perf[0] / 1e9
-        STATS["eng_host_dp_calls"] += int(perf[1])
-        STATS["eng_chain_s"] += perf[2] / 1e9
-        STATS["eng_chain_calls"] += int(perf[3])
+        count(STATS, "eng_host_dp_s", perf[0] / 1e9)
+        count(STATS, "eng_host_dp_calls", int(perf[1]))
+        count(STATS, "eng_chain_s", perf[2] / 1e9)
+        count(STATS, "eng_chain_calls", int(perf[3]))
     finally:
         eng.close()
     for i, seq in enumerate(seqs):
         if len(seq) == 0:
             results[i] = MapResult([], 0, 0)
     return results
+
+
+def map_batch_engine_pipelined(mi, opt: MapOptions, seqs, qnames,
+                               device=None, ways: int = 2,
+                               chain_min: int | None = None
+                               ) -> list[MapResult]:
+    """Interleave `ways` engine drivers in host threads over strided
+    sub-batches of one read batch (the JAX package's split driver): while
+    one driver waits on its device calls, the others' engine threads and
+    pumps use the host -- the single-host analogue of the reference's
+    read/map/write pipeline overlap (src/kthread.c:130-159).  This is
+    map_batch_multidev over `ways` copies of `device` (None: the card),
+    each driver under a CUDA stream of its own, so their kernels overlap
+    on the card; at most one driver for every 64 reads.  Results return in
+    input order, equal to map_batch_engine's."""
+    from ..device import resolve_device
+    from ..parallel.multidev import map_batch_multidev
+
+    dev = resolve_device(device)
+    ways = max(1, min(ways, (len(seqs) + 63) // 64))
+    return map_batch_multidev(mi, opt, seqs, qnames, [dev] * ways, chain_min)

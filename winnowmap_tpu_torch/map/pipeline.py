@@ -32,11 +32,11 @@ from ..options import (
     MapOptions,
     update_mid_occ,
 )
+from ..parallel.sharded import pack_results, unpack_results
 from ..utils.log import phase_log
 from .batch import map_batch, map_batch_frags
 from .frag import MapResult
-from .hit import Extra, Reg, hit_sort, select_sub, set_mapq, set_parent, \
-    set_sam_pri
+from .hit import hit_sort, select_sub, set_mapq, set_parent, set_sam_pri
 
 
 def map_file(mi, opt: MapOptions, path: str, out=sys.stdout,
@@ -308,87 +308,6 @@ def merge_read_regs(opt: MapOptions, merged_k: int, per_part_regs,
     set_mapq(regs, opt.min_chain_score, opt.a, rep_len,
              bool(opt.flag & MM_F_SR))
     return regs, rep_len
-
-
-# a region's row in a part's hit file (the JAX package's
-# parallel/sharded.py layout): int32 fields in REG_I32 order, the flags,
-# Extra's fields, the cigar's (offset, length) in a shared u32 blob, and
-# div's f32 bits in the last column
-REG_I32 = [
-    "id", "cnt", "rid", "score", "qs", "qe", "rs", "re", "parent", "subsc",
-    "as_", "mlen", "blen", "n_sub", "score0", "mapq", "split", "seg_id",
-    "n_segs", "hash",
-]
-REG_BOOL = ["inv", "rev", "split_inv", "sam_pri", "seg_split", "is_alt"]
-REG_P_I32 = ["dp_score", "dp_max", "dp_max2", "n_ambi", "trans_strand"]
-ROW_W = len(REG_I32) + len(REG_BOOL) + 1 + len(REG_P_I32) + 3  # +has_p,co,nc
-DIV_COL = ROW_W - 1
-
-
-def pack_results(results):
-    """list[MapResult] -> (meta (n, 3) i64, rows (n_regs, ROW_W) i32,
-    cigars u32 blob); meta = (n_regs, rep_len, rep_len_defined)."""
-    meta = np.zeros((len(results), 3), np.int64)
-    rows = []
-    cigs = []
-    co = 0
-    for i, res in enumerate(results):
-        meta[i] = (len(res.regs), res.rep_len, int(res.rep_len_defined))
-        for r in res.regs:
-            row = np.zeros(ROW_W, np.int32)
-            for j, f in enumerate(REG_I32):
-                v = getattr(r, f)
-                row[j] = np.uint32(v & 0xFFFFFFFF).view(np.int32) \
-                    if f == "hash" else v
-            o = len(REG_I32)
-            for j, f in enumerate(REG_BOOL):
-                row[o + j] = int(getattr(r, f))
-            o += len(REG_BOOL)
-            row[o] = int(r.p is not None)
-            if r.p is not None:
-                for j, f in enumerate(REG_P_I32):
-                    row[o + 1 + j] = getattr(r.p, f)
-                row[o + 1 + len(REG_P_I32)] = co
-                row[o + 2 + len(REG_P_I32)] = len(r.p.cigar)
-                cigs.append(np.asarray(r.p.cigar, np.uint32))
-                co += len(r.p.cigar)
-            row[DIV_COL] = np.float32(r.div).view(np.int32)
-            rows.append(row)
-    rows = np.stack(rows) if rows else np.zeros((0, ROW_W), np.int32)
-    blob = np.concatenate(cigs) if cigs else np.zeros(0, np.uint32)
-    return meta, rows, blob
-
-
-def unpack_results(meta, rows, blob):
-    """Inverse of pack_results -> list[MapResult]."""
-    out = []
-    ri = 0
-    for n_regs, rep_len, rep_def in meta:
-        regs = []
-        for _ in range(int(n_regs)):
-            row = rows[ri]
-            ri += 1
-            r = Reg()
-            for j, f in enumerate(REG_I32):
-                if f == "hash":
-                    setattr(r, f, int(np.int32(row[j]).view(np.uint32)))
-                else:
-                    setattr(r, f, int(row[j]))
-            o = len(REG_I32)
-            for j, f in enumerate(REG_BOOL):
-                setattr(r, f, bool(row[o + j]))
-            o += len(REG_BOOL)
-            if row[o]:
-                r.p = Extra()
-                for j, f in enumerate(REG_P_I32):
-                    setattr(r.p, f, int(row[o + 1 + j]))
-                co = int(row[o + 1 + len(REG_P_I32)])
-                nc = int(row[o + 2 + len(REG_P_I32)])
-                r.p.cigar = np.asarray(blob[co:co + nc], np.uint32)
-            r.div = float(np.int32(row[DIV_COL]).view(np.float32))
-            regs.append(r)
-        out.append(MapResult(regs, int(rep_len), 0, bool(rep_def)))
-    return out
 
 
 def map_file_multipart(all_records, io_opts, opt: MapOptions, wset, paths,

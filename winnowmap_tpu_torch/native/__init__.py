@@ -14,6 +14,7 @@ import hashlib
 import os
 import subprocess
 import sysconfig
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -116,9 +117,20 @@ class _ExtraIO(ctypes.Structure):
 
 
 _lib = None
+_lib_lock = threading.Lock()
 
 
 def lib() -> ctypes.CDLL:
+    """The loaded library.  Its first load (and build) runs under a lock:
+    engine driver threads (parallel/multidev.py) may ask for it at once,
+    and two builds in one process would share _build's temporary file."""
+    if _lib is None:
+        with _lib_lock:
+            return _load()
+    return _lib
+
+
+def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         path = _build()

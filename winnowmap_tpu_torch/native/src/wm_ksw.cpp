@@ -1665,6 +1665,17 @@ void wm_extd(int qlen, const uint8_t* query, int tlen, const uint8_t* target,
   }
 }
 
+#ifdef WM_SIMD_X86
+// whether the AVX-512BW paths run (WM_NO_SIMD=1: never); asked once, by a
+// static initializer, which C++ runs once for all the engine's threads
+static bool simd_avx512_ok() {
+  if (std::getenv("WM_NO_SIMD")) return false;
+  __builtin_cpu_init();
+  return __builtin_cpu_supports("avx512bw") &&
+         __builtin_cpu_supports("avx512vl");
+}
+#endif
+
 // ---------------------------------------------------------------------------
 // Spliced extension (reference ksw_exts2_sse, src/ksw2_exts2_sse.c): the
 // dual-gap wavefront with the long-gap state re-purposed as an intron --
@@ -1682,16 +1693,7 @@ void wm_extd_fast(int qlen, const uint8_t* query, int tlen,
                   int8_t e, int8_t q2, int8_t e2, int w, int zdrop,
                   int end_bonus, int flag, wm_ext_result* ez) {
 #ifdef WM_SIMD_X86
-  static int simd_ok = -1;
-  if (simd_ok < 0) {
-    simd_ok = 0;
-    if (!std::getenv("WM_NO_SIMD")) {
-      __builtin_cpu_init();
-      if (__builtin_cpu_supports("avx512bw") &&
-          __builtin_cpu_supports("avx512vl"))
-        simd_ok = 1;
-    }
-  }
+  static const bool simd_ok = simd_avx512_ok();
   if (simd_ok && !(flag & WM_EZ_GENERIC_SC)) {
     wm_extd_avx512(qlen, query, tlen, target, m, mat, q, e, q2, e2, w, zdrop,
                    end_bonus, flag, ez);
@@ -1996,16 +1998,7 @@ void wm_extz_fast(int qlen, const uint8_t* query, int tlen,
                   int8_t e, int w, int zdrop, int end_bonus, int flag,
                   wm_ext_result* ez) {
 #ifdef WM_SIMD_X86
-  static int simd_ok = -1;
-  if (simd_ok < 0) {
-    simd_ok = 0;
-    if (!std::getenv("WM_NO_SIMD")) {
-      __builtin_cpu_init();
-      if (__builtin_cpu_supports("avx512bw") &&
-          __builtin_cpu_supports("avx512vl"))
-        simd_ok = 1;
-    }
-  }
+  static const bool simd_ok = simd_avx512_ok();
   if (simd_ok && !(flag & WM_EZ_GENERIC_SC)) {
     wm_extz_avx512(qlen, query, tlen, target, m, mat, q, e, w, zdrop,
                    end_bonus, flag, ez);
@@ -2024,16 +2017,7 @@ void wm_exts_fast(int qlen, const uint8_t* query, int tlen,
                   int8_t junc_bonus, int flag, const uint8_t* junc,
                   wm_ext_result* ez) {
 #ifdef WM_SIMD_X86
-  static int simd_ok = -1;
-  if (simd_ok < 0) {
-    simd_ok = 0;
-    if (!std::getenv("WM_NO_SIMD")) {
-      __builtin_cpu_init();
-      if (__builtin_cpu_supports("avx512bw") &&
-          __builtin_cpu_supports("avx512vl"))
-        simd_ok = 1;
-    }
-  }
+  static const bool simd_ok = simd_avx512_ok();
   if (simd_ok && !(flag & WM_EZ_GENERIC_SC)) {
     wm_exts_avx512(qlen, query, tlen, target, m, mat, q, e, q2, noncan,
                    zdrop, junc_bonus, flag, junc, ez);

@@ -19,19 +19,22 @@
 namespace {
 
 // base -> 2-bit code; 4 = ambiguous (reference sketch.c:19-36 table)
-const uint8_t* nt4_table() {
-  static uint8_t tbl[256];
-  static bool init = false;
-  if (!init) {
+// (a static initializer: made once, whatever the number of threads)
+struct Nt4 {
+  uint8_t tbl[256];
+  Nt4() {
     std::memset(tbl, 4, sizeof(tbl));
     tbl[(uint8_t)'A'] = tbl[(uint8_t)'a'] = 0;
     tbl[(uint8_t)'C'] = tbl[(uint8_t)'c'] = 1;
     tbl[(uint8_t)'G'] = tbl[(uint8_t)'g'] = 2;
     tbl[(uint8_t)'T'] = tbl[(uint8_t)'t'] = 3;
     tbl[(uint8_t)'U'] = tbl[(uint8_t)'u'] = 3;
-    init = true;
   }
-  return tbl;
+};
+
+const uint8_t* nt4_table() {
+  static const Nt4 t;
+  return t.tbl;
 }
 
 // MurmurHash3 64-bit finalizer (reference sketch.c:43-51)

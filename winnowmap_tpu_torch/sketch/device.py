@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import resolve_device
+from ..device import count, resolve_device
 from ..io.seqcode import encode
 
 # kernel launches on this process; chip_smoke.py zeroes them around the
@@ -229,7 +229,7 @@ def sketch(codes: torch.Tensor, k: int, wt: Weights, out=None):
     if rc != 0:
         raise RuntimeError(f"sketch kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES["sketch"] += 1
+    count(LAUNCHES, "sketch")
     return out
 
 

@@ -1,4 +1,6 @@
-"""Cost probes of the extension-DP kernels on the card.
+"""Cost probes of the extension-DP kernels on the card, the timing scripts,
+and the two analysis tools of the reference's scripts/ directory
+(extract_selected_reads, minimizer_dist).
 
 Counterparts of the JAX package's Pallas probes: probe_bisect (P1, the
 fixed cost of a step), probe_l0 (P2, the state floor) and probe_core (P3,
@@ -22,6 +24,8 @@ import time
 
 import torch
 
+from ..device import count
+
 # kernel launches on this process, by probe; chip_smoke.py zeroes them
 # around the probes' entry points
 LAUNCHES = {"probe_bisect": 0, "probe_l0": 0, "probe_core": 0}
@@ -44,14 +48,14 @@ def launch(name: str, entry, *args, captured=False) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} "
                            f"({_build.probe_error_string(rc)})")
     if not captured:
-        LAUNCHES[name] += 1
+        count(LAUNCHES, name)
 
 
 def replay(name: str, graph, n: int) -> None:
     """Replays a CUDA graph of `n` captured launches of probe `name`, and
     counts them."""
     graph.replay()
-    LAUNCHES[name] += n
+    count(LAUNCHES, name, n)
 
 
 def card_line() -> str:

@@ -25,8 +25,11 @@ CORE_B, CORE_ROWS = 8, 320
 # the timed shapes' defaults: run_level's, probe_l0.run's, probe_bisect.run's
 TIMED_B, TIMED_WB, TIMED_ROWS = 512, 640, 32
 TIMED_KR = {"core": 63, "l0": 63, "bisect": 16}
-# every width P3's kernel takes
-WIDTHS = range(1, P3.KERNEL_LANES + 1)
+# every width of P3's narrow launch, and widths of its wide launch: a
+# partial sixth chunk, a partial eighth, 16 and 32 whole chunks (a warp a
+# chunk), and 40 chunks on 32 warps (a warp taking two in turn)
+WIDTHS = range(1, P3.NARROW_LANES + 1)
+WIDE_WIDTHS = (641, 1000, 2048, 4096, 5000)
 
 
 def _err(a, b) -> int:

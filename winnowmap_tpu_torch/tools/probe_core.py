@@ -17,10 +17,15 @@ The kernel (csrc/probes.cu, core_kernel<L, DM, S32>) is built on K1's
 register-slot row (csrc/ext_common.cuh): a block of five warps a job, one
 barrier a row, each thread a group of 4 consecutive lanes whose state
 stays in registers across rows, lane t-1's values by shuffle inside a
-warp and through a double-buffered edge array across warps.  The kernel
-takes any Wb from 1 to 640, a partial last chunk and group of lanes
-included (core_plain and the Pallas probe take any Wb >= 1; above 640 the
-kernel raises).
+warp and through a double-buffered edge array across warps.  It takes
+any Wb from 1 to 640 (the timed window), a partial last chunk and group
+of lanes included.  A wider window (core_plain and the Pallas probe take
+any Wb >= 1) takes the wide launch, core_wide_kernel<L, DM, S32>: the
+same row with a block of up to 32 warps a job, a chunk of 128 lanes a
+warp, each warp taking several chunks in turn past 4,096 lanes, its
+buffers (and then the chunks' state between their turns) in a slot of
+global scratch a job, whose size the source gives
+(wm_probe_core_scratch).
 From level 2 on only the 16-rounded band lanes are computed, chunk by
 chunk of 128, as K1 does; dirs rows are still written whole (0 outside the
 band), as the probe's output holds them, and once a job has set done its
@@ -52,8 +57,9 @@ from .. import tools
 from ..device import resolve_device
 
 DIRS_MODES = ("none", "u8", "i32")
-# the lanes a job's window holds in the kernel (csrc/probes.cu kCoreLanes)
-KERNEL_LANES = 640
+# the widest window of the narrow launch, the timed one (csrc/probes.cu
+# kCoreLanes); wider windows take the wide launch
+NARROW_LANES = 640
 
 levels = {
     0: "rw state only      ",
@@ -250,22 +256,35 @@ def core_plain(level, qbuf, qlen, *, Wb, ROWS, KR, dirs_mode="u8",
     return res, dirs, state
 
 
-def _check_kernel(Wb):
-    if Wb > KERNEL_LANES:
-        raise ValueError(f"the kernel takes Wb at most {KERNEL_LANES}")
+def scratch_bytes(lib, level, s32, Wb) -> int:
+    """Bytes of global scratch a job of the core kernel takes at (level,
+    s32, Wb): 0 up to NARROW_LANES, else the wide launch's slot."""
+    import ctypes
+
+    n = ctypes.c_longlong(0)
+    rc = lib.wm_probe_core_scratch(level, int(s32), Wb, ctypes.byref(n))
+    if rc != 0:
+        raise ValueError(f"the core kernel refuses level {level} at Wb {Wb}")
+    return n.value
 
 
 def core_launch(lib, level, dirs_mode, s32, qbuf, qlen, res, dirs, state,
                 work, Wb, ROWS, KR, stream) -> int:
     """One launch of csrc/probes.cu's core kernel through `lib` (the card's
-    library or the CUDA stub's) on tensors of one device; returns the
-    entry's error code."""
+    library or the CUDA stub's) on tensors of one device, with the wide
+    launch's scratch made on that device; returns the entry's error
+    code."""
+    per_job = scratch_bytes(lib, level, s32, Wb)
+    B = qbuf.shape[0]
+    scratch = (torch.empty(B * per_job, dtype=torch.uint8,
+                           device=qbuf.device) if per_job and B else None)
     return lib.wm_probe_core_launch(
         level, DIRS_MODES.index(dirs_mode), int(s32), qbuf.data_ptr(),
         qbuf.shape[1], qlen.data_ptr(), res.data_ptr(),
         dirs.data_ptr() if dirs is not None else None, state.data_ptr(),
-        work.data_ptr() if work is not None else None, qbuf.shape[0], Wb,
-        ROWS, KR, stream)
+        work.data_ptr() if work is not None else None, B, Wb, ROWS, KR,
+        scratch.data_ptr() if scratch is not None else None,
+        scratch.numel() if scratch is not None else 0, stream)
 
 
 def core_outputs(qbuf, Wb, ROWS, KR, dirs_mode="u8", s32=False):
@@ -283,7 +302,6 @@ def core_probe(level, qbuf, qlen, *, Wb, ROWS, KR, dirs_mode="u8",
         return core_plain(level, qbuf, qlen, Wb=Wb, ROWS=ROWS, KR=KR,
                           dirs_mode=dirs_mode, s32=s32, work=work)
     _check(level, qbuf, qlen, Wb, ROWS, KR, dirs_mode)
-    _check_kernel(Wb)
     if not (qbuf.is_contiguous() and qlen.is_contiguous()):
         raise ValueError("qbuf and qlen must be contiguous")
     if work is not None and (work.dtype != torch.int64 or tuple(
