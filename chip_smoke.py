@@ -180,6 +180,17 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      S1 launch each, its long chains through C1), rank 0's PAF byte-equal
      to the single-process n_parts = 2 run, and map_file_sharded of 200
      of phase 4's reads merged by merge_parts byte-equal to map_file.
+ 13. the genome-scale run (winnowmap_tpu_torch/tools/scale_run.py, the
+     port of tests/tools/scale_run.py) at 0.02 Gbp, in a process of its
+     own beside the holds: the JAX tool's corpus from its seed (one
+     chromosome of 20 Mbp with eight tandem-repeat arrays, 32 reads of 15
+     +- 5 kb at 8% substitutions), its 15-mers counted through KC (once a
+     block) and the distinct=0.9998 list, the index through S1 (once a
+     launch group) equal to the native build, the reads mapped twice with
+     -c to one PAF, K1 and K2 held to their plain versions on the
+     median-rows call of each launch, no DP job on the engine's host DP,
+     at least 98% of the primary hits on the reads' origins; its
+     SCALE-SUMMARY line.
 The down-weight lists (-W) of phases 4, 5, 8 (d) and 9 are counted on the
 card (count_kmers through KC, meryl's distinct=0.9998 selection;
 rep_list), and phase 10 (a) holds phase 9's to a numpy selection.
@@ -1652,49 +1663,33 @@ class LaunchTimer(EntryTimer):
     """An EntryTimer around a DP kernel's and K2's C launch entries (mode
     "extd": K1, wm_extd_launch; "extz": K4, wm_extz_launch; "exts": K3,
     wm_exts_launch; and wm_traceback_launch), and each K.extd_dp,
-    K.extz_dp or K.exts_dp call's arguments by name (the pools are shared),
-    to count launches by flag and by launch and to pick one call of each
-    launch to hold to the plain versions."""
+    K.extz_dp or K.exts_dp call's arguments by name (check.CallRecorder;
+    the pools are shared), to count launches by flag and by launch and to
+    pick one call of each launch to hold to the plain versions."""
 
     NAMES = {"extd": ("k1", "k2"), "extz": ("k4", "k2"),
              "exts": ("k3", "k2s")}
 
     def __init__(self, K, torch, mode):
-        import inspect
+        from winnowmap_tpu_torch.extend import check
 
         self.mode = mode
         self.entries = (f"wm_{mode}_launch", "wm_traceback_launch")
         super().__init__(torch, self.entries)
-        self.K = K
-        self.fn_name = f"{mode}_dp"
-        self.dp = getattr(K, self.fn_name)
-        self.sig = inspect.signature(self.dp)
-        self.calls = []
+        self.rec = check.CallRecorder(mode)
+        self.calls = self.rec.calls
         self.peak = 0
 
     def __enter__(self):
-        setattr(self.K, self.fn_name, self._record)
+        self.rec.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
-        setattr(self.K, self.fn_name, self.dp)
+        self.rec.__exit__(*exc)
         super().__exit__(*exc)
 
-    def _record(self, *args, **kw):
-        call = self.sig.bind(*args, **kw)
-        call.apply_defaults()
-        self.calls.append(call.arguments)
-        return self.dp(*args, **kw)
-
     def sizes(self):
-        """Each recorded call's jobs and its longest job's rows, read after
-        the run (a read from the card would stall it)."""
-        out = []
-        for c in self.calls:
-            ja = c["jobs"].cpu().numpy()
-            out.append((len(ja), int((ja[:, 1] + ja[:, 4] - 1).max())
-                        if len(ja) else 0))
-        return out
+        return self.rec.sizes()
 
     def summary(self, wall_s):
         """Summed device ms and share of the wall of the DP kernel and K2,
@@ -1722,22 +1717,12 @@ class LaunchTimer(EntryTimer):
 
     def pick(self, phase, juncs=False):
         """For each launch the DP kernel took, the call at the median of
-        that launch's longest rows (with `juncs`, among the calls that
-        carry junction bytes, where the launch has one), as hold_call's
-        arguments with the tensors copied to the host."""
-        by_path = {}
-        for (_, r), c in zip(self.sizes(), self.calls):
-            by_path.setdefault(c["geo"].path, []).append((r, c))
-        out = []
-        for p, cs in sorted(by_path.items()):
-            if juncs and any(c["jpool"] is not None for _, c in cs):
-                cs = [x for x in cs if x[1]["jpool"] is not None]
-            cs.sort(key=lambda x: x[0])
-            r, c = cs[len(cs) // 2]
-            args = {k: v.cpu().numpy() if hasattr(v, "cpu") else v
-                    for k, v in c.items()}
-            out.append((phase, self.mode, p, r, args))
-        return out
+        that launch's longest rows (check.CallRecorder.picks), as
+        hold_call's arguments with the tensors copied to the host."""
+        return [(phase, self.mode, p, r,
+                 {k: v.cpu().numpy() if hasattr(v, "cpu") else v
+                  for k, v in c.items()})
+                for p, r, c in self.rec.picks(juncs)]
 
 
 def hold_call(phase, mode, path, r, args):
@@ -1758,45 +1743,15 @@ def hold_call(phase, mode, path, r, args):
 
 
 def _hold_call(torch, phase, mode, path, r, args):
-    from winnowmap_tpu_torch.extend import kernels as K
+    from winnowmap_tpu_torch.extend import check
 
     c = {k: torch.from_numpy(v).to(DEVICE) if isinstance(v, np.ndarray)
          else v for k, v in args.items()}
-    jobs, flag, prof = c["jobs"], c["flag"], c["prof"]
-    spliced = mode == "exts"
-    B = jobs.shape[0]
-    res_k, dirs_k = getattr(K, f"{mode}_dp")(**c)
-    res_p = torch.zeros((B, 16), dtype=torch.int32, device=jobs.device)
-    dirs_p = torch.zeros(max(1, c["dirs_bytes"]), dtype=torch.uint8,
-                         device=jobs.device)
-    plain = (c["qpool"], c["tpool"], jobs, c["dirs_off"], c["ncol"], prof,
-             flag, res_p, dirs_p)
-    if spliced:
-        plain += (c["jpool"], c["joff"])
-    getattr(K, f"{mode}_dp_plain")(*plain)
-    same = bool((res_k[:, :9] == res_p[:, :9]).all())
-    if not flag & K.EZ_SCORE_ONLY:
-        eb = torch.zeros(B, dtype=torch.int64, device=jobs.device)
-        n_ops = max(4, (r + 3) // 4 * 4)
-        min_intron = prof.min_intron if spliced else 0
-        walks = []
-        for res, dirs in ((res_k, dirs_k), (res_p, dirs_p)):
-            start = K.select_starts(res, jobs, eb,
-                                    bool(flag & K.EZ_EXTZ_ONLY), prof.dead,
-                                    spliced)
-            walks.append((dirs, start))
-        ops_k, fin_k = K.traceback(walks[0][0], c["dirs_off"], jobs,
-                                   c["ncol"], walks[0][1], n_ops, min_intron)
-        ops_p = torch.empty((B, n_ops), dtype=torch.uint8, device=jobs.device)
-        fin_p = torch.empty((B, 2), dtype=torch.int32, device=jobs.device)
-        K.traceback_plain(walks[1][0], c["dirs_off"], jobs, c["ncol"],
-                          walks[1][1], ops_p, fin_p, min_intron)
-        same = (same and bool((ops_k == ops_p).all())
-                and bool((fin_k == fin_p).all()))
-    if not same:
-        fail(f"{phase}: a {mode} call at {path} (flag {flag:#x}, {B} jobs, "
-             f"{r} rows) != plain")
-    return [f"{flag:#x}", B, r, c.get("jpool") is not None]
+    if not check.hold_call(c, mode, r):
+        fail(f"{phase}: a {mode} call at {path} (flag {c['flag']:#x}, "
+             f"{c['jobs'].shape[0]} jobs, {r} rows) != plain")
+    return [f"{c['flag']:#x}", c["jobs"].shape[0], r,
+            c.get("jpool") is not None]
 
 
 def hold_bytes(h):
@@ -1813,17 +1768,18 @@ def hold_bytes(h):
     return arrays + 2 * a["dirs_bytes"] + 64 * 8 * len(jobs) * T
 
 
-def hold_all(torch, holds):
+def hold_all(torch, holds, reserve=0):
     """Every picked call held to the plain versions (hold_call) in worker
     processes, the longest first (the plain versions are bound by the
-    host's Python), as many at once as the card's free memory holds by
-    hold_bytes; logs each phase's calls."""
+    host's Python), as many at once as the card's free memory, less
+    `reserve` bytes for other processes, holds by hold_bytes; logs each
+    phase's calls."""
     t0 = time.perf_counter()
     log(f"[holds] this process reserved at most "
         f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB on the card")
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
-    budget = free - (PHASE2_WORKERS + 1) * HOLD_CONTEXT_BYTES
+    budget = free - (PHASE2_WORKERS + 1) * HOLD_CONTEXT_BYTES - reserve
     log(f"[holds] {free / 2**30:.2f} GiB free on the card, "
         f"{budget / 2**30:.2f} GiB for the held calls")
     spawn = multiprocessing.get_context("spawn")
@@ -3736,6 +3692,40 @@ def phase12(torch, K, batch, pipeline, corpus, p4, ctx):
 
 
 
+# --------------------------------------------------------------------------
+# phase 13: the genome-scale run at a small size
+# --------------------------------------------------------------------------
+
+# one chromosome of 20 Mbp (the scale tool's corpus: eight tandem-repeat
+# arrays) and 32 reads of 15 +- 5 kb, numpy seed 11 (the JAX tool's)
+PHASE13_GBP = 0.02
+PHASE13_READS = 32
+# what phase 13's process may take on the card beside the holds: its own
+# peak (0.78 GiB at 0.02 Gbp) and its held calls
+PHASE13_RESERVE_BYTES = 8 << 30
+
+
+def phase13():
+    """tools/scale_run.run on the card at PHASE13_GBP with every check of
+    its genome-scale run: KC once a block, S1 once a launch group and its
+    index equal to the native build, two map passes with one PAF, K1 and K2
+    held to plain on the median-rows call of each launch, no DP job on the
+    engine's host DP, the primary hits on their origins.  Returns the
+    launches of its path, each zeroed just before its phase.  Runs in a
+    process of its own beside the holds, so its seconds are no
+    measurement."""
+    from winnowmap_tpu_torch.tools import scale_run
+
+    t0 = time.perf_counter()
+    try:
+        s = scale_run.run(DATA / f"scale_{PHASE13_GBP}", gbp=PHASE13_GBP,
+                          n_reads=PHASE13_READS, device=DEVICE)
+    except scale_run.ScaleCheckFailed as e:
+        fail(f"phase 13: {e}")
+    log("[phase 13] " + scale_run.summary_line(s))
+    return s["launches"], time.perf_counter() - t0
+
+
 T_START = time.perf_counter()
 
 
@@ -3862,11 +3852,17 @@ def main():
     phase12(torch, K, batch, pipeline, corpus, p4, asm_ctx)
     del asm_ctx, p4
     log(f"[phase 12] {time.perf_counter() - t0:.1f} s")
-    # C1's launch held to the plain version beside the DP calls' holds
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+    # C1's launch held to the plain version, and phase 13, beside the DP
+    # calls' holds
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn) as pool:
         c1_held = pool.submit(hold_chain, *c1_launch)
-        hold_all(torch, holds)
+        scale = pool.submit(phase13)
+        hold_all(torch, holds, PHASE13_RESERVE_BYTES)
         c1 = c1_record(c1_launch, c1_ms, c1_held.result())
+        scale, scale_s = scale.result()
+    log(f"[phase 13] launches {scale}; {scale_s:.1f} s in its process; the "
+        f"holds and phase 13 {time.perf_counter() - t0:.1f} s")
     # C1 and S1's launches on their path: assembly mapping with its index
     # build (phase 9)
     c1["launches"], s1_record["launches"] = asm["chain_fwd"], asm["sketch"]

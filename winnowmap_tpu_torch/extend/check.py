@@ -1,8 +1,11 @@
 """Random extd, extz and spliced (exts) job batches, and K1/K3/K4 with K2
 held against their plain versions on the same device tensors, and against
-the native oracle on a sample.
+the native oracle on a sample; and a mapping run's own DP calls,
+recorded (CallRecorder) and run again through kernel and plain versions
+(hold_call).
 
-Shared by the on-card tests (tests/test_torch_gpu.py) and chip_smoke.py.
+Shared by the on-card tests (tests/test_torch_gpu.py), chip_smoke.py and
+the genome-scale run (tools/scale_run.py).
 The kernels are integer DP, so every comparison is exact: the errors that
 check_against_plain returns are 0 when the kernels are right.
 """
@@ -277,3 +280,94 @@ def check_against_plain(c: OnDevice):
     err[dp] = max(err[dp], _max_abs(ops_k, ops_p), _max_abs(fin_k, fin_p))
     err["traceback"] = max(_max_abs(ops_kp, ops_p), _max_abs(fin_kp, fin_p))
     return err, res_k, ops_k, fin_k
+
+
+class CallRecorder:
+    """While the block runs: the arguments, by name, of each call of the
+    DP kernel's wrapper K.{mode}_dp (mode "extd": K1, "extz": K4, "exts":
+    K3), patched on the kernels module, where DevCallPooled looks it up.
+    The recorded tensors stay on their device."""
+
+    def __init__(self, mode: str):
+        import inspect
+
+        self.mode = mode
+        self.fn_name = f"{mode}_dp"
+        self.dp = getattr(K, self.fn_name)
+        self.sig = inspect.signature(self.dp)
+        self.calls = []
+
+    def __enter__(self):
+        setattr(K, self.fn_name, self._record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(K, self.fn_name, self.dp)
+
+    def _record(self, *args, **kw):
+        call = self.sig.bind(*args, **kw)
+        call.apply_defaults()
+        self.calls.append(call.arguments)
+        return self.dp(*args, **kw)
+
+    def sizes(self):
+        """Each recorded call's jobs and its longest job's rows, read after
+        the run (a read from the card would stall it)."""
+        out = []
+        for c in self.calls:
+            ja = c["jobs"].cpu().numpy()
+            out.append((len(ja), int((ja[:, 1] + ja[:, 4] - 1).max())
+                        if len(ja) else 0))
+        return out
+
+    def picks(self, juncs: bool = False):
+        """For each launch the DP kernel took, the call at the median of
+        that launch's longest rows (with `juncs`, among the calls that
+        carry junction bytes, where the launch has one): a list of
+        (launch, rows, arguments), by launch."""
+        by_path = {}
+        for (_, r), c in zip(self.sizes(), self.calls):
+            by_path.setdefault(c["geo"].path, []).append((r, c))
+        out = []
+        for p, cs in sorted(by_path.items()):
+            if juncs and any(c["jpool"] is not None for _, c in cs):
+                cs = [x for x in cs if x[1]["jpool"] is not None]
+            cs.sort(key=lambda x: x[0])
+            r, c = cs[len(cs) // 2]
+            out.append((p, r, c))
+        return out
+
+
+def hold_call(c: dict, mode: str, rows: int) -> bool:
+    """One recorded call (CallRecorder's arguments, tensors on one device)
+    run again through its DP kernel and K2 and through their plain
+    versions: True when the nine result fields, and the traceback of each
+    version's direction bytes from its own starts, are exactly equal."""
+    jobs, flag, prof = c["jobs"], c["flag"], c["prof"]
+    spliced = mode == "exts"
+    B = jobs.shape[0]
+    res_k, dirs_k = getattr(K, f"{mode}_dp")(**c)
+    res_p = torch.zeros((B, 16), dtype=torch.int32, device=jobs.device)
+    dirs_p = torch.zeros(max(1, c["dirs_bytes"]), dtype=torch.uint8,
+                         device=jobs.device)
+    plain = (c["qpool"], c["tpool"], jobs, c["dirs_off"], c["ncol"], prof,
+             flag, res_p, dirs_p)
+    if spliced:
+        plain += (c["jpool"], c["joff"])
+    getattr(K, f"{mode}_dp_plain")(*plain)
+    same = bool((res_k[:, :9] == res_p[:, :9]).all())
+    if flag & K.EZ_SCORE_ONLY:
+        return same
+    eb = torch.zeros(B, dtype=torch.int64, device=jobs.device)
+    n_ops = max(4, (rows + 3) // 4 * 4)
+    min_intron = prof.min_intron if spliced else 0
+    starts = [K.select_starts(res, jobs, eb, bool(flag & K.EZ_EXTZ_ONLY),
+                              prof.dead, spliced) for res in (res_k, res_p)]
+    ops_k, fin_k = K.traceback(dirs_k, c["dirs_off"], jobs, c["ncol"],
+                               starts[0], n_ops, min_intron)
+    ops_p = torch.empty((B, n_ops), dtype=torch.uint8, device=jobs.device)
+    fin_p = torch.empty((B, 2), dtype=torch.int32, device=jobs.device)
+    K.traceback_plain(dirs_p, c["dirs_off"], jobs, c["ncol"], starts[1],
+                      ops_p, fin_p, min_intron)
+    return (same and bool((ops_k == ops_p).all())
+            and bool((fin_k == fin_p).all()))
