@@ -8,6 +8,8 @@ running on the CPU.
 from __future__ import annotations
 
 import threading
+import time
+from collections import defaultdict
 
 import torch
 
@@ -15,11 +17,44 @@ import torch
 # mapping path's STATS): engines on several host threads bump them at once
 _COUNT_LOCK = threading.Lock()
 
+# per-process counters of the mapping path (reset by callers that report);
+# map/engine.py and map/batch.py re-export this object
+STATS: dict = defaultdict(float)
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
 
 def count(counter: dict, key, n=1) -> None:
     """counter[key] += n, as one step for every thread."""
     with _COUNT_LOCK:
         counter[key] += n
+
+
+class span:
+    """Time a block: its host seconds are added to counter[name + "_s"]
+    (through count, so from any thread).  While a torch profiler records,
+    the block is also the range "wm." + name, nested under its caller's
+    range on the clock of the card's kernels; otherwise the cost is one
+    flag test and two clock reads."""
+
+    __slots__ = ("counter", "name", "rf", "t0")
+
+    def __init__(self, counter: dict, name: str):
+        self.counter, self.name = counter, name
+
+    def __enter__(self):
+        self.rf = None
+        if _profiler_enabled():
+            self.rf = torch.profiler.record_function("wm." + self.name)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        count(self.counter, self.name + "_s", time.perf_counter() - self.t0)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
 
 
 def resolve_device(device=None) -> torch.device:

@@ -24,7 +24,11 @@ DevCallPooled strings the pieces together for one batch of jobs (the
 engine's, or the generator path's): descriptors up, K1, K3 or K4, start
 selection, K2, op packing (2-bit, or 4-bit for the spliced ops), one
 device-to-host copy; collect_blob() decodes it into the engine's deliver
-layout, collect() into one native.ExtResult a job.
+layout, collect() into one native.ExtResult a job.  Its host-to-device
+copies before the DP's launch, the end-bonus copy after it, its wait for
+the card and its decode are the spans dispatch_upload, dispatch_bonus,
+collect_sync and collect_decode of the mapping path's STATS
+(device.span).
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import threading
 import numpy as np
 import torch
 
-from ..device import count
+from ..device import STATS, count, span
 
 NEG_INF = -0x40000000
 
@@ -1161,13 +1165,15 @@ class DevCallPooled:
         self.geometry = geo
         dev = pools.device
         self.device = dev
-        jobs_t = torch.from_numpy(ja).to(dev)
-        off_t = torch.from_numpy(geo.dirs_off).to(dev)
-        ncol_t = torch.from_numpy(geo.ncol).to(dev)
+        with span(STATS, "dispatch_upload"):
+            jobs_t = torch.from_numpy(ja).to(dev)
+            off_t = torch.from_numpy(geo.dirs_off).to(dev)
+            ncol_t = torch.from_numpy(geo.ncol).to(dev)
+            if self.spliced:
+                jpool, joff = junction_pool(juncs, dev)
         if self.spliced:
             prof = exts_profile(mat, q, e, q2, *splice)
             self.min_intron = prof.min_intron
-            jpool, joff = junction_pool(juncs, dev)
             res, dirs = exts_dp(pools.qpool, pools.ref, jobs_t, off_t, ncol_t,
                                 exts_geometry(geo.cap, geo.qlen_max),
                                 prof, flag, geo.dirs_bytes, jpool, joff)
@@ -1184,7 +1190,9 @@ class DevCallPooled:
                                 ncol_t, ext_geometry(geo.span, geo.qlen_max),
                                 prof, flag, geo.dirs_bytes)
         if self.with_cigar:
-            eb = torch.from_numpy(self.end_bonus).to(dev)
+            # pageable, after the DP's launch: mostly the wait for it
+            with span(STATS, "dispatch_bonus"):
+                eb = torch.from_numpy(self.end_bonus).to(dev)
             start = select_starts(res, jobs_t, eb, self.extz_only, prof.dead,
                                   self.spliced)
             n_ops = max(4, (int(geo.rows.max()) + 3) // 4 * 4)
@@ -1213,28 +1221,30 @@ class DevCallPooled:
         from .. import native
 
         if self.event is not None:
-            self.event.synchronize()
-        buf = self.host.numpy()
-        blob = off = ln = None
-        if self.with_cigar:
-            res = np.ascontiguousarray(buf[:, :64]).view(np.int32)
-            fin = np.ascontiguousarray(buf[:, 64:72]).view(np.int32)
-            rev = np.full(self.B0, self.rev_cigar, np.uint8)
-            packed = np.ascontiguousarray(buf[:, 72:])
-            if self.spliced:
-                blob, off, ln = native.rle_ops_blob4(
-                    packed, fin[:, 0], fin[:, 1], rev, self.min_intron)
+            with span(STATS, "collect_sync"):
+                self.event.synchronize()
+        with span(STATS, "collect_decode"):
+            buf = self.host.numpy()
+            blob = off = ln = None
+            if self.with_cigar:
+                res = np.ascontiguousarray(buf[:, :64]).view(np.int32)
+                fin = np.ascontiguousarray(buf[:, 64:72]).view(np.int32)
+                rev = np.full(self.B0, self.rev_cigar, np.uint8)
+                packed = np.ascontiguousarray(buf[:, 72:])
+                if self.spliced:
+                    blob, off, ln = native.rle_ops_blob4(
+                        packed, fin[:, 0], fin[:, 1], rev, self.min_intron)
+                else:
+                    blob, off, ln = native.rle_ops_blob(packed, fin[:, 0],
+                                                        fin[:, 1], rev)
             else:
-                blob, off, ln = native.rle_ops_blob(packed, fin[:, 0],
-                                                    fin[:, 1], rev)
-        else:
-            res = np.ascontiguousarray(buf).view(np.int32)
-        res9 = np.ascontiguousarray(res[:, :9], np.int32)
-        reach = np.zeros(self.B0, np.int32)
-        if self.with_cigar and self.extz_only and not self.spliced:
-            reach = ((res9[:, 1] == 0)
-                     & (res9[:, 4] + self.end_bonus > res9[:, 0])
-                     ).astype(np.int32)
+                res = np.ascontiguousarray(buf).view(np.int32)
+            res9 = np.ascontiguousarray(res[:, :9], np.int32)
+            reach = np.zeros(self.B0, np.int32)
+            if self.with_cigar and self.extz_only and not self.spliced:
+                reach = ((res9[:, 1] == 0)
+                         & (res9[:, 4] + self.end_bonus > res9[:, 0])
+                         ).astype(np.int32)
         return res9, blob, off, ln, reach
 
     def collect(self) -> list:

@@ -26,7 +26,6 @@ from __future__ import annotations
 import contextlib
 import io
 import sys
-import time
 from collections import defaultdict
 from functools import partial
 
@@ -34,12 +33,12 @@ import numpy as np
 import torch
 
 from ..chain.device import chain_dp_auto, chain_gate
-from ..device import count, resolve_device
+from ..device import STATS, count, resolve_device, span
 from ..extend.kernels import DevCallPooled, PoolContext, job_geometry
 from ..options import MM_F_SPLICE
 from ..utils import dbg
 from .align import JobSeq, _seq_of, align_pair, refused
-from .engine import (MAX_CALL_DIRS_BYTES, STATS, build_read_pool,
+from .engine import (MAX_CALL_DIRS_BYTES, build_read_pool,
                      engine_supported, map_batch_engine)
 from .frag import (MapResult, McasState, _map_vanilla_gen, map_frag_gen,
                    mcas_stage2_gen, read_prologue)
@@ -176,10 +175,9 @@ def _dispatch(pools, key, units) -> list:
         juncs = None
         if spl is not None:
             juncs = [u[3][8] if len(u[3]) > 8 else None for u in chunk]
-        t0 = time.perf_counter()
-        call = DevCallPooled(pools, rows[lo:hi], mat, q, e, q2, e2,
-                             eb[lo:hi], flag, splice=spl, juncs=juncs)
-        count(STATS, "dispatch_s", time.perf_counter() - t0)
+        with span(STATS, "dispatch"):
+            call = DevCallPooled(pools, rows[lo:hi], mat, q, e, q2, e2,
+                                 eb[lo:hi], flag, splice=spl, juncs=juncs)
         count(STATS, "dev_calls")
         count(STATS, "dev_jobs", len(chunk))
         out.append((call, chunk))
@@ -205,9 +203,8 @@ def run_ext_tasks(tasks: list[_Task], pools: PoolContext) -> None:
             send = None
             for k, job in zip(ks, jobs):
                 if refused(job[0], len(job[1]), len(job[2])):
-                    t0 = time.perf_counter()
-                    ez = align_pair(*job)
-                    count(STATS, "host_s", time.perf_counter() - t0)
+                    with span(STATS, "host"):
+                        ez = align_pair(*job)
                     count(STATS, "host_jobs")
                     send = t.deliver(k, ez)
                 else:
@@ -229,9 +226,8 @@ def run_ext_tasks(tasks: list[_Task], pools: PoolContext) -> None:
             calls += _dispatch(pools, key, queues[key])
         queues.clear()
         for call, chunk in calls:
-            t0 = time.perf_counter()
-            ezs = call.collect()
-            count(STATS, "dev_wait_s", time.perf_counter() - t0)
+            with span(STATS, "dev_wait"):
+                ezs = call.collect()
             ready = []
             for (t, k, _, _), ez in zip(chunk, ezs):
                 send = t.deliver(k, ez)
@@ -245,12 +241,12 @@ def run_ext_tasks(tasks: list[_Task], pools: PoolContext) -> None:
 @contextlib.contextmanager
 def _gen_time():
     """Adds the block's host time to STATS["gen_py_s"], less the dispatch,
-    device wait and host DP time spent in it."""
-    t_start = time.perf_counter()
+    device wait and host DP time spent in it (the profiler's "wm.gen_py"
+    range covers the whole block)."""
     s0 = {k: STATS[k] for k in ("dispatch_s", "dev_wait_s", "host_s")}
-    yield
-    count(STATS, "gen_py_s", (time.perf_counter() - t_start) - sum(
-        STATS[k] - v for k, v in s0.items()))
+    with span(STATS, "gen_py"):
+        yield
+    count(STATS, "gen_py_s", -sum(STATS[k] - v for k, v in s0.items()))
 
 
 def _read_pool(mi, seqs, device, chain_min):

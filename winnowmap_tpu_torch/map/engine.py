@@ -24,12 +24,20 @@ the chains back (wm_eng_deliver_chain); STATS["chain_dev_jobs"],
 ["chain_dev_anchors"] and ["chain_dev_s"] count them.  The gate is
 DEVICE_CHAIN_MIN_ANCHORS (50,000) on a card and 0, every chain on the
 host, on the CPU, unless the caller gives chain_min.
+
+The pump's work is timed in spans (device.span: STATS["<name>_s"], and the
+profiler range "wm.<name>" while one records): eng_setup, eng_launch
+(joining a phase's threads, starting the next's), eng_step, eng_group
+(grouping a step's jobs and planning their calls; the dispatches nest in
+it), dispatch, dev_wait, chain_dev, eng_deliver, eng_results.  The engine's
+threads report their time in each phase (wm_eng_perf): eng_thread_s
+(threads x the phase's wall), eng_blocked_s (waiting on an exported DP job
+or chain) and eng_finished_s (done while others still ran).
 """
 from __future__ import annotations
 
 import ctypes
 import os
-import time
 from collections import defaultdict, deque
 
 import numpy as np
@@ -37,7 +45,7 @@ import torch
 
 from .. import native
 from ..chain.device import chain_dp_device_batch, chain_gate
-from ..device import count
+from ..device import STATS, count, span
 from ..extend.kernels import DevCallPooled, PoolContext, job_geometry
 from ..io.seqcode import encode
 from ..options import (
@@ -62,21 +70,6 @@ from .hit import Extra, Reg
 # direction-buffer bytes one device call may allocate; a group above it is
 # split over several calls (a single larger job still gets a call of its own)
 MAX_CALL_DIRS_BYTES = 4 << 30
-
-# per-process counters of the mapping path (reset by callers that report)
-STATS: dict = defaultdict(float)
-
-
-def _est_live_cells(rows, unbanded: bool = False):
-    """Live band cells of jobs: (qlen + tlen - 1) * min(qlen, tlen, w + 1),
-    without the w term for unbanded (exts) jobs."""
-    ql = rows[:, C_QLEN].astype(np.int64)
-    tl = rows[:, C_TLEN].astype(np.int64)
-    wv = np.minimum(ql, tl)
-    if not unbanded:
-        wv = np.minimum(wv, rows[:, C_W] + 1)
-    return float(((ql + tl - 1) * wv).sum())
-
 
 def engine_supported(opt: MapOptions, mi=None) -> bool:
     """Options the native engine handles; map_batch sends the others to the
@@ -194,7 +187,8 @@ class MapEngine:
         """Wait until every live engine thread is blocked and take the jobs
         they exported (wm_eng_step)."""
         p = ctypes.POINTER(ctypes.c_int64)()
-        n = self.L.wm_eng_step(self.h, ctypes.byref(p))
+        with span(STATS, "eng_step"):
+            n = self.L.wm_eng_step(self.h, ctypes.byref(p))
         if n == 0:
             return np.zeros((0, 12), np.int64)
         return np.ctypeslib.as_array(p, (n, 12)).copy()
@@ -205,54 +199,59 @@ class MapEngine:
         forward pass per parameter set, and deliver each (u, ax, ay) back
         to its thread.  Returns whether there were any."""
         p = ctypes.POINTER(ctypes.c_int64)()
-        n = self.L.wm_eng_step_chains(self.h, ctypes.byref(p))
+        with span(STATS, "eng_step"):
+            n = self.L.wm_eng_step_chains(self.h, ctypes.byref(p))
         if n == 0:
             return False
         rows = np.ctypeslib.as_array(p, (n, 16)).copy()
-        t0 = time.perf_counter()
-        u64p = ctypes.POINTER(ctypes.c_uint64)
-        groups = defaultdict(list)  # parameters -> [(id, ax, ay)]
-        for r in rows:
-            na = int(r[1])
-            ax = np.ctypeslib.as_array(ctypes.cast(int(r[2]), u64p), (na,))
-            ay = np.ctypeslib.as_array(ctypes.cast(int(r[3]), u64p), (na,))
-            # the engine's scalar path takes gap_scale through a float cast
-            gs = float(np.float32(np.int64(r[13]).view(np.float64)))
-            groups[tuple(int(v) for v in r[4:13]) + (gs,)].append(
-                (int(r[0]), ax, ay))
-        for key, members in groups.items():
-            mdx, mindx, mdy, bw, mskip, miter, mcnt, msc, is_cdna, gs = key
-            results = chain_dp_device_batch(
-                [(ax, ay) for _, ax, ay in members], mdx, mindx, mdy, bw,
-                mskip, miter, mcnt, msc, gs, is_cdna, self.pools.device)
-            for (cid, _, _), (u, oax, oay) in zip(members, results):
-                self.L.wm_eng_deliver_chain(self.h, cid, len(u),
-                                            u.ctypes.data, len(oax),
-                                            oax.ctypes.data, oay.ctypes.data)
-        count(STATS, "chain_dev_s", time.perf_counter() - t0)
+        with span(STATS, "chain_dev"):
+            u64p = ctypes.POINTER(ctypes.c_uint64)
+            groups = defaultdict(list)  # parameters -> [(id, ax, ay)]
+            for r in rows:
+                na = int(r[1])
+                ax = np.ctypeslib.as_array(ctypes.cast(int(r[2]), u64p),
+                                           (na,))
+                ay = np.ctypeslib.as_array(ctypes.cast(int(r[3]), u64p),
+                                           (na,))
+                # the engine's scalar path takes gap_scale through a float
+                # cast
+                gs = float(np.float32(np.int64(r[13]).view(np.float64)))
+                groups[tuple(int(v) for v in r[4:13]) + (gs,)].append(
+                    (int(r[0]), ax, ay))
+            for key, members in groups.items():
+                mdx, mindx, mdy, bw, mskip, miter, mcnt, msc, is_cdna, gs = \
+                    key
+                results = chain_dp_device_batch(
+                    [(ax, ay) for _, ax, ay in members], mdx, mindx, mdy, bw,
+                    mskip, miter, mcnt, msc, gs, is_cdna, self.pools.device)
+                for (cid, _, _), (u, oax, oay) in zip(members, results):
+                    self.L.wm_eng_deliver_chain(
+                        self.h, cid, len(u), u.ctypes.data, len(oax),
+                        oax.ctypes.data, oay.ctypes.data)
         count(STATS, "chain_dev_jobs", len(rows))
         count(STATS, "chain_dev_anchors", int(rows[:, 1].sum()))
         return True
 
     def _deliver(self, rows: np.ndarray, collected) -> None:
         """Feed one call's results back over the flat deliver boundary."""
-        res9, blob, off, ln, reach = collected
-        n = len(rows)
-        ids = np.ascontiguousarray(rows[:, C_ID])
-        res = np.zeros((n, 10), np.int32)
-        res[:, :9] = res9
-        res[:, 9] = reach
-        if blob is None:
-            blob = np.zeros(1, np.uint32)
-            off = np.zeros(n, np.int64)
-            ln = np.zeros(n, np.int32)
-        else:
-            blob = np.ascontiguousarray(blob, np.uint32)
-            off = np.ascontiguousarray(off, np.int64)
-            ln = np.ascontiguousarray(ln, np.int32)
-        self.L.wm_eng_deliver(self.h, n, ids.ctypes.data, res.ctypes.data,
-                              blob.ctypes.data, off.ctypes.data,
-                              ln.ctypes.data)
+        with span(STATS, "eng_deliver"):
+            res9, blob, off, ln, reach = collected
+            n = len(rows)
+            ids = np.ascontiguousarray(rows[:, C_ID])
+            res = np.zeros((n, 10), np.int32)
+            res[:, :9] = res9
+            res[:, 9] = reach
+            if blob is None:
+                blob = np.zeros(1, np.uint32)
+                off = np.zeros(n, np.int64)
+                ln = np.zeros(n, np.int32)
+            else:
+                blob = np.ascontiguousarray(blob, np.uint32)
+                off = np.ascontiguousarray(off, np.int64)
+                ln = np.ascontiguousarray(ln, np.int32)
+            self.L.wm_eng_deliver(self.h, n, ids.ctypes.data,
+                                  res.ctypes.data, blob.ctypes.data,
+                                  off.ctypes.data, ln.ctypes.data)
         count(STATS, "delivered_jobs", n)
 
     def _dispatch(self, prof: int, flag: int, rows: np.ndarray) -> list:
@@ -280,18 +279,14 @@ class MapEngine:
                                      side="right"))
             hi = max(hi, lo + 1)
             crows = rows[lo:hi]
-            t0 = time.perf_counter()
-            call = DevCallPooled(
-                self.pools, np.ascontiguousarray(units[lo:hi]), mat, opt.q,
-                opt.e, opt.q2, opt.e2,
-                np.ascontiguousarray(crows[:, C_EB]), int(flag),
-                splice=splice)
-            count(STATS, "dispatch_s", time.perf_counter() - t0)
+            with span(STATS, "dispatch"):
+                call = DevCallPooled(
+                    self.pools, np.ascontiguousarray(units[lo:hi]), mat,
+                    opt.q, opt.e, opt.q2, opt.e2,
+                    np.ascontiguousarray(crows[:, C_EB]), int(flag),
+                    splice=splice)
             count(STATS, "dev_calls")
             count(STATS, "dev_jobs", len(crows))
-            count(STATS, "cells_live_G",
-                  _est_live_cells(crows, spliced) / 1e9)
-            count(STATS, "cells_pad_G", call.geometry.dirs_bytes / 1e9)
             out.append((call, crows))
             lo = hi
         return out
@@ -307,17 +302,18 @@ class MapEngine:
         while True:
             rows = self._step()
             if len(rows):
-                pf = self.prof_rep[rows[:, C_PROF]]
-                fl = rows[:, C_FLAG]
-                for key in sorted(set(zip(pf.tolist(), fl.tolist()))):
-                    m = (pf == key[0]) & (fl == key[1])
-                    inflight.extend(self._dispatch(key[0], key[1], rows[m]))
+                with span(STATS, "eng_group"):
+                    pf = self.prof_rep[rows[:, C_PROF]]
+                    fl = rows[:, C_FLAG]
+                    for key in sorted(set(zip(pf.tolist(), fl.tolist()))):
+                        m = (pf == key[0]) & (fl == key[1])
+                        inflight.extend(
+                            self._dispatch(key[0], key[1], rows[m]))
             chained = self._service_chains()
             if inflight:
                 call, crows = inflight.popleft()
-                t0 = time.perf_counter()
-                collected = call.collect_blob()
-                count(STATS, "dev_wait_s", time.perf_counter() - t0)
+                with span(STATS, "dev_wait"):
+                    collected = call.collect_blob()
                 self._deliver(crows, collected)
                 continue
             if not chained and self.L.wm_eng_live(self.h) == 0:
@@ -407,21 +403,29 @@ def map_batch_engine(mi, opt: MapOptions, seqs, qnames,
     if not engine_supported(opt, mi):
         raise ValueError("the native engine does not take these options; "
                          "map_batch sends them to the generator path")
-    qpool, qoffs = build_read_pool(seqs)
-    pools = PoolContext(qpool, mi, device)
-    eng = MapEngine(mi, opt, seqs, qnames, pools, qoffs, qpool, chain_min)
+    with span(STATS, "eng_setup"):
+        qpool, qoffs = build_read_pool(seqs)
+        pools = PoolContext(qpool, mi, device)
+        eng = MapEngine(mi, opt, seqs, qnames, pools, qoffs, qpool,
+                        chain_min)
     try:
-        eng.L.wm_eng_start_phase1(eng.h)
+        with span(STATS, "eng_launch"):
+            eng.L.wm_eng_start_phase1(eng.h)
         eng._drive_phase()
-        if eng.L.wm_eng_start_phase2(eng.h):
+        with span(STATS, "eng_launch"):
+            phase2 = eng.L.wm_eng_start_phase2(eng.h)
+        if phase2:
             eng._drive_phase()
-        results = eng.results()
-        perf = np.zeros(8, np.int64)
-        eng.L.wm_eng_perf(eng.h, perf.ctypes.data)
-        count(STATS, "eng_host_dp_s", perf[0] / 1e9)
+        with span(STATS, "eng_results"):
+            results = eng.results()
+            perf = np.zeros(8, np.int64)
+            eng.L.wm_eng_perf(eng.h, perf.ctypes.data)
         count(STATS, "eng_host_dp_calls", int(perf[1]))
         count(STATS, "eng_chain_s", perf[2] / 1e9)
         count(STATS, "eng_chain_calls", int(perf[3]))
+        count(STATS, "eng_thread_s", perf[4] / 1e9)
+        count(STATS, "eng_blocked_s", perf[5] / 1e9)
+        count(STATS, "eng_finished_s", perf[6] / 1e9)
     finally:
         eng.close()
     for i, seq in enumerate(seqs):

@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..device import STATS, span
 from ..index.build import MinimizerIndex, SeqMeta, build_index
 from ..io import paf as pafmod
 from ..io import sam as sammod
@@ -42,11 +43,13 @@ from .hit import hit_sort, select_sub, set_mapq, set_parent, set_sam_pri
 def map_file(mi, opt: MapOptions, path: str, out=sys.stdout,
              device=None) -> int:
     """Map all reads in `path` against index `mi`, writing PAF/SAM to `out`.
-    Returns the number of reads processed."""
+    Returns the number of reads processed.  Reading a batch and writing its
+    records are the spans driver_read and driver_write (device.span)."""
     n_processed = 0
     with FastxReader(path) as reader:
         while True:
-            batch = reader.read_batch(opt.mini_batch_size)
+            with span(STATS, "driver_read"):
+                batch = reader.read_batch(opt.mini_batch_size)
             if batch is None:
                 break
             for i, rec in enumerate(batch):
@@ -58,8 +61,9 @@ def map_file(mi, opt: MapOptions, path: str, out=sys.stdout,
             batch = [batch[i] for i in order]
             results = map_batch(mi, opt, [r.seq for r in batch],
                                 [r.name for r in batch], device=device)
-            for rec, res in zip(batch, results):
-                _write_read(mi, opt, rec, res, out)
+            with span(STATS, "driver_write"):
+                for rec, res in zip(batch, results):
+                    _write_read(mi, opt, rec, res, out)
             n_processed += len(batch)
             phase_log("map_file", f"mapped {len(batch)} sequences")
     return n_processed

@@ -1165,12 +1165,40 @@ class Engine {
 
   // perf accounting (ns + calls), summed over all engine threads and read
   // out by wm_eng_perf for the Python STATS breakdown
-  std::atomic<int64_t> ns_host_dp{0}, n_host_dp{0};
+  std::atomic<int64_t> n_host_dp{0};
   std::atomic<int64_t> ns_chain{0}, n_chain_calls{0};
 
   std::mutex mu;
   std::condition_variable cv_settled;
   int n_live = 0, n_blocked = 0;
+
+  // thread time of the phases, guarded by mu: each phase adds its threads
+  // x (launch to the last thread's exit) to ns_thread, the time its
+  // threads waited on an exported job or chain to ns_blocked, and the time
+  // between each thread's exit and the last one's to ns_finished.  Stamps
+  // are taken only at a launch, a block, a wake and an exit.
+  using Clock = std::chrono::steady_clock;
+  Clock::time_point phase_t0;
+  int phase_threads = 0;
+  int64_t phase_exit_ns = 0;  // sum over exited threads of exit - phase_t0
+  int64_t ns_thread = 0, ns_blocked = 0, ns_finished = 0;
+
+  int64_t since(Clock::time_point t) const {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(Clock::now() -
+                                                                t)
+        .count();
+  }
+
+  // caller holds mu; the calling thread leaves the phase
+  void thread_exit() {
+    const int64_t t = since(phase_t0);
+    phase_exit_ns += t;
+    --n_live;
+    if (n_live == 0) {
+      ns_thread += (int64_t)phase_threads * t;
+      ns_finished += (int64_t)phase_threads * t - phase_exit_ns;
+    }
+  }
   std::vector<PendingJob> queue;
   std::vector<PendingJob> outstanding;     // slot = id - outstanding_base
   std::vector<uint8_t> outstanding_done;
@@ -1214,7 +1242,9 @@ class Engine {
       chain_queue.push_back(pc);
       ++n_blocked;
       if (n_blocked == n_live) cv_settled.notify_all();
+      const Clock::time_point tb = Clock::now();
       w.cv.wait(lk, [&] { return w.done; });
+      ns_blocked += since(tb);
       --n_blocked;
       if (aborting) return false;
     }
@@ -1323,12 +1353,7 @@ class Engine {
   }
 
   void run_host(const ExtJob& j, wm_ext_result* ez) {
-    auto t0 = std::chrono::steady_clock::now();
     run_host_inner(j, ez);
-    ns_host_dp.fetch_add(std::chrono::duration_cast<std::chrono::nanoseconds>(
-                             std::chrono::steady_clock::now() - t0)
-                             .count(),
-                         std::memory_order_relaxed);
     n_host_dp.fetch_add(1, std::memory_order_relaxed);
   }
 
@@ -1393,7 +1418,9 @@ class Engine {
       for (int slot : dev) queue.push_back({jobs[slot], &w, slot});
       ++n_blocked;
       if (n_blocked == n_live) cv_settled.notify_all();
+      const Clock::time_point tb = Clock::now();
       w.cv.wait(lk, [&] { return w.remaining == 0; });
+      ns_blocked += since(tb);
       --n_blocked;
     }
     for (int slot : dev) out[slot] = w.res[slot];
@@ -1423,6 +1450,9 @@ class Engine {
     {
       std::lock_guard<std::mutex> lk(mu);
       n_live = n;
+      phase_t0 = Clock::now();
+      phase_threads = n;
+      phase_exit_ns = 0;
     }
     spawn(n);
   }
@@ -2367,7 +2397,7 @@ void Engine::run_tasks() {
     {
       std::lock_guard<std::mutex> lk(mu);
       if (tasks.empty()) {
-        --n_live;
+        thread_exit();
         if (n_blocked == n_live) cv_settled.notify_all();
         return;
       }
@@ -2489,14 +2519,20 @@ void wm_eng_run_host_ids(void* ev, int64_t n, const int64_t* ids) {
   ((weng::Engine*)ev)->run_host_ids(n, ids);
 }
 
-// perf readout: [host_dp_ns, host_dp_calls, chain_ns, chain_calls, 0...]
+// perf readout: [0, host_dp_calls, chain_ns, chain_calls,
+// thread_ns, blocked_ns, finished_ns, 0] (the last three over the phases
+// whose threads have all exited)
 void wm_eng_perf(void* ev, int64_t* out8) {
   auto* e = (weng::Engine*)ev;
-  out8[0] = e->ns_host_dp.load();
+  out8[0] = 0;
   out8[1] = e->n_host_dp.load();
   out8[2] = e->ns_chain.load();
   out8[3] = e->n_chain_calls.load();
-  for (int i = 4; i < 8; ++i) out8[i] = 0;
+  std::lock_guard<std::mutex> lk(e->mu);
+  out8[4] = e->ns_thread;
+  out8[5] = e->ns_blocked;
+  out8[6] = e->ns_finished;
+  out8[7] = 0;
 }
 
 // ---- chain exchange (device colinear chaining) ---------------------------
