@@ -62,18 +62,23 @@ Needs one CUDA card, nvcc and g++.  Phases, each fatal on failure:
      reads of 15 +- 5 kb at 8% error (tests/tools/make_testdata.py, seed 7),
      its index built through S1 (one launch) and equal to the native
      build, the device sketch by stage against native.sketch,
-     reads/s, STATS and kernel launch counts of the run, and K1's and K2's
-     summed device time (CUDA events around their C launch entries), K1's
-     launches by flag and by launch, jobs and longest rows per call;
+     reads/s, STATS and kernel launch counts of the run, and K1's, K2's
+     and R1's summed device time (CUDA events around their C launch
+     entries), K1's launches by flag and by launch, jobs and longest rows
+     per call, the runs and bytes brought back a call (collect_runs,
+     collect_d2h_bytes); R1 on the run's call with the most op slots
+     timed (the kernels line's cigar_rle), beside its plain version and
+     its bytes' time, and held to both its plain version and the native
+     decode; one R1 launch a K2 launch;
   5. spliced mapping (-x splice -a) at a real size: a 4 Mbp genome with 400
      genes and 5000 reads of their transcripts from both strands, made
      with numpy (seed 20261016; the index through S1 in one launch, equal
      to the native build, the device sketch by stage and native.sketch
      timed on it); reads/s, STATS and launch
-     counts; every K3 and traceback launch timed by CUDA events recorded
-     around its C launch entry (their summed device time and share of the
-     wall, K3's launches by flag and by launch, jobs and longest rows per
-     call);
+     counts; every K3, traceback and R1 launch timed by CUDA events
+     recorded around its C launch entry (their summed device time and
+     share of the wall, K3's launches by flag and by launch, jobs and
+     longest rows per call); R1 on the widest call as in phase 4;
   6. single-cost mapping (map-ont SV-aware with -O 4,4 -E 2,2 -a) of phase
      4's corpus: every DP job through K4, none through K1; K4's device time
      and launches as K1's in phase 4;
@@ -197,7 +202,7 @@ rep_list), and phase 10 (a) holds phase 9's to a numpy selection.
 Every DP kernel call of phases 4, 5, 6, 8 (c), (d) and 11 (d) is
 recorded; for each launch a run took, its call at the median of that
 launch's longest rows (in 8 (c) one that carries junction bytes) is run
-again at the end through the kernel and K2 and through their plain
+again at the end through the kernel, K2 and R1 and through their plain
 versions, in worker processes, and must be exactly equal.
 Phases 4-6 keep no DP job on the engine's host DP (eng_host_dp_calls 0).
 It prints a "kernels" JSON line, the card's name and power limit, and as
@@ -1522,13 +1527,23 @@ def log_device(phase, timer, dt, n, launches, st):
     log(f"[{phase}] device time: {A} {dev[f'{a}_ms']:.3f} ms over "
         f"{dev[f'{a}_launches']} launches ({100 * dev[f'{a}_share']:.2f}% of "
         f"the wall), {B} {dev[f'{b}_ms']:.3f} ms over "
-        f"{dev[f'{b}_launches']} ({100 * dev[f'{b}_share']:.2f}%); {A} by "
+        f"{dev[f'{b}_launches']} ({100 * dev[f'{b}_share']:.2f}%), R1 "
+        f"{dev['r1_ms']:.3f} ms over {dev['r1_launches']} "
+        f"({100 * dev['r1_share']:.2f}%; {dev['r1_bytes']} bytes, bound "
+        f"{dev['r1_bound_ms']:.4f} ms); {A} by "
         f"flag {dev[f'{a}_by_flag']}, by launch {dev[f'{a}_by_path']}; jobs "
         f"per call (min, median, max) {dev['jobs_per_call']}; longest job's "
         f"rows per call (median, max) {dev['rows_per_call']}; card memory "
         f"reserved at most {dev['peak_reserved_gib']:.2f} GiB; host: "
         f"dispatch_s {st.get('dispatch_s')}, dev_wait_s "
         f"{st.get('dev_wait_s')}")
+    calls = max(1, st.get("dev_calls", 0))
+    log(f"[{phase}] collect: dev_calls {int(st.get('dev_calls', 0))}, "
+        f"collect_runs {int(st.get('collect_runs', 0))}, collect_d2h_bytes "
+        f"{int(st.get('collect_d2h_bytes', 0))} "
+        f"({st.get('collect_d2h_bytes', 0) / calls:.0f} a call), "
+        f"collect_decode_s {st.get('collect_decode_s')}, collect_copy_s "
+        f"{st.get('collect_copy_s')}")
     log(f"[{phase}] STATS " + json.dumps(st, sort_keys=True))
     log(f"[{phase}] JSON " + json.dumps({
         "reads": n, "wall_s": dt, "reads_per_s": n / dt, "device": dev,
@@ -1537,7 +1552,7 @@ def log_device(phase, timer, dt, n, launches, st):
     return dev
 
 
-def phase4(torch, K, build, fastx, options, batch, seqcode, holds):
+def phase4(torch, K, build, fastx, options, batch, seqcode, holds, r1):
     DATA.mkdir(exist_ok=True)
     pre = DATA / "wmbench2"
     ref, reads = Path(f"{pre}_ref.fa"), Path(f"{pre}_reads.fa")
@@ -1570,6 +1585,7 @@ def phase4(torch, K, build, fastx, options, batch, seqcode, holds):
         f"{int(st.get('eng_host_dp_calls', 0))}")
     log_device("phase 4", timer, dt, len(seqs), launches, st)
     holds += timer.pick("phase 4")
+    r1.append(r1_record("phase 4", torch, K, timer, launches))
     if launches["extd"] == 0 or launches["traceback"] == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
     check_mapped("phase 4", st, results, len(seqs))
@@ -1659,13 +1675,53 @@ def splice_corpus(check, ref: Path, reads: Path, bed: Path,
                     + "\n")
 
 
+class RleRecorder:
+    """While the block runs: each K.cigar_rle call's starts, row length and
+    run counts (R1's bytes, counted after the run), and the arguments of
+    the call with the most op slots, kept on the card to time R1 on."""
+
+    def __init__(self, K):
+        self.K, self.fn = K, K.cigar_rle
+        self.calls, self.widest = [], None
+
+    def __enter__(self):
+        self.K.cigar_rle = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.K.cigar_rle = self.fn
+
+    def _record(self, ops, fin, start, rev, min_intron=0, cap=None):
+        out = self.fn(ops, fin, start, rev, min_intron, cap)
+        self.calls.append((start, ops.shape[1], out[2]))
+        if self.widest is None or ops.numel() > self.widest[0].numel():
+            self.widest = (ops, fin, start, rev, min_intron, cap)
+        return out
+
+    def bytes(self):
+        """Each call's bytes (rle_bytes)."""
+        return [rle_bytes(st, n, ln) for st, n, ln in self.calls]
+
+
+def rle_bytes(start, n_ops, ln) -> int:
+    """R1's bytes in a call: each input read once (the op bytes of the
+    walks, slots 0 ... i0 + j0 of each start; fin and start, 16 bytes a
+    job) and each output written once (off and len, 12 bytes a job; 4 bytes
+    a run)."""
+    from winnowmap_tpu_torch.extend import check
+
+    return (int(check.walk_slots(start, n_ops).sum()) + 28 * len(start)
+            + 4 * int(ln.sum()))
+
+
 class LaunchTimer(EntryTimer):
-    """An EntryTimer around a DP kernel's and K2's C launch entries (mode
-    "extd": K1, wm_extd_launch; "extz": K4, wm_extz_launch; "exts": K3,
-    wm_exts_launch; and wm_traceback_launch), and each K.extd_dp,
-    K.extz_dp or K.exts_dp call's arguments by name (check.CallRecorder;
-    the pools are shared), to count launches by flag and by launch and to
-    pick one call of each launch to hold to the plain versions."""
+    """An EntryTimer around a DP kernel's, K2's and R1's C launch entries
+    (mode "extd": K1, wm_extd_launch; "extz": K4, wm_extz_launch; "exts":
+    K3, wm_exts_launch; and wm_traceback_launch, wm_cigar_rle_launch), and
+    each K.extd_dp, K.extz_dp or K.exts_dp call's arguments by name
+    (check.CallRecorder; the pools are shared), to count launches by flag
+    and by launch and to pick one call of each launch to hold to the plain
+    versions; R1's calls through RleRecorder."""
 
     NAMES = {"extd": ("k1", "k2"), "extz": ("k4", "k2"),
              "exts": ("k3", "k2s")}
@@ -1674,28 +1730,34 @@ class LaunchTimer(EntryTimer):
         from winnowmap_tpu_torch.extend import check
 
         self.mode = mode
-        self.entries = (f"wm_{mode}_launch", "wm_traceback_launch")
+        self.entries = (f"wm_{mode}_launch", "wm_traceback_launch",
+                        "wm_cigar_rle_launch")
         super().__init__(torch, self.entries)
         self.rec = check.CallRecorder(mode)
+        self.rle = RleRecorder(K)
         self.calls = self.rec.calls
         self.peak = 0
 
     def __enter__(self):
         self.rec.__enter__()
+        self.rle.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         self.rec.__exit__(*exc)
+        self.rle.__exit__(*exc)
         super().__exit__(*exc)
 
     def sizes(self):
         return self.rec.sizes()
 
     def summary(self, wall_s):
-        """Summed device ms and share of the wall of the DP kernel and K2,
-        the DP kernel's launches by flag and by launch, jobs per call and
-        the longest job's rows per call."""
-        dp_ms, k2_ms = (self.ms(name) for name in self.entries)
+        """Summed device ms and share of the wall of the DP kernel, K2 and
+        R1, R1's bytes and their time at the memory rate, the DP kernel's
+        launches by flag and by launch, jobs per call and the longest job's
+        rows per call."""
+        dp_ms, k2_ms, r1_ms = (self.ms(name) for name in self.entries)
+        r1_bytes = sum(self.rle.bytes())
         flags, paths = {}, {}
         for c in self.calls:
             f, g = f"{c['flag']:#x}", c["geo"].path
@@ -1710,6 +1772,9 @@ class LaunchTimer(EntryTimer):
             f"{a}_share": sum(dp_ms) / 1e3 / wall_s,
             f"{b}_ms": float(sum(k2_ms)), f"{b}_launches": len(k2_ms),
             f"{b}_share": sum(k2_ms) / 1e3 / wall_s,
+            "r1_ms": float(sum(r1_ms)), "r1_launches": len(r1_ms),
+            "r1_share": sum(r1_ms) / 1e3 / wall_s, "r1_bytes": r1_bytes,
+            "r1_bound_ms": r1_bytes / HBM_BPS * 1e3,
             f"{a}_by_flag": flags, f"{a}_by_path": paths,
             "jobs_per_call": [min(jobs), float(np.median(jobs)), max(jobs)],
             "rows_per_call": [float(np.median(rows)), max(rows)],
@@ -1723,6 +1788,52 @@ class LaunchTimer(EntryTimer):
                  {k: v.cpu().numpy() if hasattr(v, "cpu") else v
                   for k, v in c.items()})
                 for p, r, c in self.rec.picks(juncs)]
+
+
+def r1_record(phase, torch, K, timer, launches):
+    """R1 on the timed run's call with the most op slots: its CUDA-event ms
+    over 20 launches, its plain version's host-clock ms and its bytes'
+    time at the memory rate (rle_bytes), held to the plain version and to
+    the native decode; the kernels line's record, with the run's R1
+    launches, which must equal its K2 launches (one a call with a
+    CIGAR)."""
+    from winnowmap_tpu_torch import native
+    from winnowmap_tpu_torch.extend import check
+    from winnowmap_tpu_torch.tools import time_ms
+
+    if launches["rle"] != launches["traceback"]:
+        fail(f"{phase}: {launches['rle']} R1 launches for "
+             f"{launches['traceback']} K2 launches")
+    ops, fin, start, rev, min_intron, cap = timer.rle.widest
+    saved = dict(K.LAUNCHES)
+    err = check.rle_err(ops, fin, start, rev, min_intron)
+    blob, off, ln = K.cigar_rle(ops, fin, start, rev, min_intron, cap)
+    words = blob.cpu().numpy().view(np.uint32)
+    want = check.native_cigars(native, ops, fin, rev, timer.mode == "exts",
+                               min_intron)
+    err += sum(not np.array_equal(words[o:o + n], w) for o, n, w in
+               zip(off.tolist(), ln.tolist(), want))
+    ms = time_ms(lambda: K.cigar_rle(ops, fin, start, rev, min_intron, cap),
+                 torch.device(DEVICE), 20)
+    t0 = time.perf_counter()
+    K.cigar_rle_plain(ops, fin, start, rev, min_intron)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    K.LAUNCHES.update(saved)  # comparison launches are not main-path ones
+    if err:
+        fail(f"{phase}: R1 != plain or native on {err} jobs of its widest "
+             "call")
+    by = rle_bytes(start, ops.shape[1], ln)
+    rec = kernel_record("cigar_rle", "cigar.cu", "none (the JAX package "
+                        "decodes K2's packed rows on the host, native "
+                        "wm_rle_ops)", err, ms, pms, by / HBM_BPS * 1e3, 0.0)
+    rec["launches"] = launches["rle"]
+    walked = int(check.walk_slots(start, ops.shape[1]).sum())
+    log(f"[{phase}] R1 on the widest call ({ops.shape[0]} jobs x "
+        f"{ops.shape[1]} slots, {walked} walked, {int(ln.sum())} runs): "
+        f"{ms:.4f} ms; plain {pms:.1f} ms; bound {rec['bound_ms']:.6f} ms "
+        f"({by} bytes); equal to plain and native")
+    return rec
 
 
 def hold_call(phase, mode, path, r, args):
@@ -1806,9 +1917,9 @@ def hold_all(torch, holds, reserve=0):
                 peaks.append((peak, need, phase, path))
     for (phase, mode), held in sorted(out.items()):
         a, b = LaunchTimer.NAMES[mode]
-        log(f"[{phase}] {a.upper()} and {b.upper()} == plain on the call at "
-            f"the median rows of each launch {a.upper()} took (launch: flag, "
-            f"jobs, rows, junction bytes) {dict(sorted(held.items()))}")
+        log(f"[{phase}] {a.upper()}, {b.upper()} and R1 == plain on the call "
+            f"at the median rows of each launch {a.upper()} took (launch: "
+            f"flag, jobs, rows, junction bytes) {dict(sorted(held.items()))}")
     log("[holds] the largest held calls' peak GiB reserved against "
         "hold_bytes: " + ", ".join(
             f"{phase} {path} {peak / 2**30:.2f}/{need / 2**30:.2f}"
@@ -1817,7 +1928,8 @@ def hold_all(torch, holds, reserve=0):
         f"{PHASE2_WORKERS} worker processes: {time.perf_counter() - t0:.1f} s")
 
 
-def phase5(torch, K, check, build, fastx, options, batch, seqcode, holds):
+def phase5(torch, K, check, build, fastx, options, batch, seqcode, holds,
+           r1):
     """Spliced mapping (-x splice -a) of 5000 transcript reads against a
     4 Mbp genome of 400 genes."""
     DATA.mkdir(exist_ok=True)
@@ -1844,6 +1956,7 @@ def phase5(torch, K, check, build, fastx, options, batch, seqcode, holds):
         torch, K, batch, mi, mo, seqs, names, "exts")
     log_device("phase 5", timer, dt, len(seqs), launches, st)
     holds += timer.pick("phase 5")
+    r1.append(r1_record("phase 5", torch, K, timer, launches))
     mapped = [r for r in results if r.regs]
     n_spliced = sum(1 for r in mapped if any(
         g.p is not None and ((g.p.cigar & 15) == 3).any() for g in r.regs))
@@ -1879,6 +1992,9 @@ def phase6(torch, K, options, batch, corpus, holds):
         fail(f"a single-cost kernel was not launched: {launches}")
     if launches["extd"] != 0:
         fail(f"single-cost mapping launched K1: {launches}")
+    if launches["rle"] != launches["traceback"]:
+        fail(f"phase 6: {launches['rle']} R1 launches for "
+             f"{launches['traceback']} K2 launches")
     check_mapped("phase 6", st, results, len(seqs))
     return launches
 
@@ -3814,13 +3930,13 @@ def main():
     phase3(cli)
     # each timed run's recorded calls to hold to the plain versions at the
     # end, in worker processes (LaunchTimer.pick, hold_all)
-    holds = []
+    holds, r1 = [], []
     ont, corpus, p4 = phase4(torch, K, build, fastx, options, batch,
-                             seqcode, holds)
+                             seqcode, holds, r1)
     log(f"[phase 3-4] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     spl = phase5(torch, K, check, build, fastx, options, batch, seqcode,
-                 holds)
+                 holds, r1)
     log(f"[phase 5] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ext = phase6(torch, K, options, batch, corpus, holds)
@@ -3831,6 +3947,8 @@ def main():
     for rec, n in zip(records, (ont["extd"], ont["traceback"], ext["extz"],
                                 spl["exts"], spl["traceback"])):
         rec["launches"] = n
+    # R1 at phase 4's and phase 5's widest calls, with each run's launches
+    records += r1
     t0 = time.perf_counter()
     records += phase7(torch, k1)
     log(f"[phase 7] {time.perf_counter() - t0:.1f} s")

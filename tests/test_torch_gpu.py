@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: K1 (csrc/extd.cu), K3
 (csrc/exts.cu), K4 (csrc/extz.cu), K2 (csrc/traceback.cu, plain and
-spliced), the cost probes P1-P3 (csrc/probes.cu), C1 (csrc/chain.cu), S1
-(csrc/sketch.cu) and KC (csrc/kcount.cu) against their plain PyTorch
+spliced), R1 (csrc/cigar.cu, also against the native decode), the cost
+probes P1-P3 (csrc/probes.cu), C1 (csrc/chain.cu), S1 (csrc/sketch.cu) and
+KC (csrc/kcount.cu) against their plain PyTorch
 versions on the same device tensors (KC's counts of the golden genome also
 against the host counter and meryl's goldens; C1's chains and S1's
 sketches also against the native oracles,
@@ -367,6 +368,39 @@ def test_spliced_traceback_long_introns_matches_plain(cuda, flag):
     ops, _ = c.k2_plain(dirs, c.starts(res))
     if flag & 0x300:
         assert int((ops == 3).sum()) >= 1400
+
+
+# R1 on check.random_op_rows: (spliced, min_intron, rev, jobs, n_ops,
+# reach); n_ops 2,052 takes the byte loads; the wide calls' widest rows are
+# 200,000 diagonals, beside rows of a few hundred
+RLE_CARD = {
+    "2bit": (False, 0, False, 64, 4112, None),
+    "4bit-rev": (True, 30, True, 64, 4112, None),
+    "byte-loads": (True, 30, False, 64, 2052, None),
+    "wide-4bit": (True, 30, False, 64, 200_000, 400),
+    "wide-2bit-rev": (False, 0, True, 64, 200_000, 400),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RLE_CARD))
+def test_cigar_rle_kernel_matches_plain_and_native(cuda, case):
+    """R1 (csrc/cigar.cu) against its plain version on the card and
+    against the native decode of the same rows."""
+    spliced, min_intron, rev, B, n_ops, reach = RLE_CARD[case]
+    ops, fin, start = check.random_op_rows(
+        np.random.default_rng(len(case)), spliced, min_intron, B, n_ops,
+        reach)
+    t = [torch.from_numpy(a).to(cuda) for a in (ops, fin, start)]
+    n0 = K.LAUNCHES["rle"]
+    assert check.rle_err(*t, rev, min_intron) == 0
+    blob, off, ln = K.cigar_rle(*t, rev, min_intron)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rle"] == n0 + 2
+    want = check.native_cigars(native, ops, fin, rev, spliced, min_intron)
+    words = blob.cpu().numpy().view(np.uint32)
+    assert max(map(len, want)) > 1000
+    for b, (o, n) in enumerate(zip(off.tolist(), ln.tolist())):
+        assert np.array_equal(words[o:o + n], want[b]), b
 
 
 def test_long_unbanded_exts_job_matches_native(cuda):

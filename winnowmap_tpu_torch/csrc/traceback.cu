@@ -16,8 +16,8 @@
 //
 // Output: ops[b * ops_stride + r] = op for each visited r (the caller fills
 // the row with 255 first), fin[b] = the (i, j) left when the walk stops;
-// the host turns the walk plus the remainder runs into a CIGAR
-// (native wm_rle_ops).
+// R1 (csrc/cigar.cu) turns the walk plus the remainder runs into the CIGAR
+// on the card.
 //
 // What bounds it on this card: latency.  Each step needs the direction
 // byte of the step before, and consecutive steps lie in consecutive

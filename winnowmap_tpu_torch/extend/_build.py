@@ -19,8 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("extd.cu", "exts.cu", "extz.cu", "traceback.cu", "chain.cu",
-           "sketch.cu", "kcount.cu")
+SOURCES = ("extd.cu", "exts.cu", "extz.cu", "traceback.cu", "cigar.cu",
+           "chain.cu", "sketch.cu", "kcount.cu")
 # the cost probes (tools/), loaded on their own so that mapping never
 # waits on their build
 PROBE_SOURCES = ("probes.cu",)
@@ -106,6 +106,8 @@ def bind(lib) -> None:
         "wm_extz_launch": [vp, vp, vp, ci, vp, vp, vp, vp] + [ci] * 15
         + [vp],
         "wm_traceback_launch": [vp, vp, vp, vp, ci, vp, i64, vp, ci, vp],
+        "wm_cigar_rle_launch": [vp, i64, ci, vp, vp, ci, ci, vp, i64, vp,
+                                vp, vp],
         "wm_chain_fwd_launch": [vp] * 6 + [ci] * 6 + [ctypes.c_double]
         + [vp] * 5,
         "wm_sketch_launch": [vp, i64, ci, vp, i64, vp, ctypes.c_uint64,
@@ -139,10 +141,11 @@ def load():
         exts = ctypes.CDLL(str(paths["exts.cu"]))
         extz = ctypes.CDLL(str(paths["extz.cu"]))
         tb = ctypes.CDLL(str(paths["traceback.cu"]))
+        rle = ctypes.CDLL(str(paths["cigar.cu"]))
         chain = ctypes.CDLL(str(paths["chain.cu"]))
         sketch = ctypes.CDLL(str(paths["sketch.cu"]))
         kcount = ctypes.CDLL(str(paths["kcount.cu"]))
-        for lib in (extd, exts, extz, tb, chain, sketch, kcount):
+        for lib in (extd, exts, extz, tb, rle, chain, sketch, kcount):
             bind(lib)
 
         class _Api:
@@ -151,11 +154,12 @@ def load():
             wm_exts_launch = exts.wm_exts_launch
             wm_extz_launch = extz.wm_extz_launch
             wm_traceback_launch = tb.wm_traceback_launch
+            wm_cigar_rle_launch = rle.wm_cigar_rle_launch
             wm_chain_fwd_launch = chain.wm_chain_fwd_launch
             wm_sketch_launch = sketch.wm_sketch_launch
             wm_kcount_launch = kcount.wm_kcount_launch
             wm_cuda_error_string = extd.wm_cuda_error_string
-            libs = (extd, exts, extz, tb, chain, sketch, kcount)
+            libs = (extd, exts, extz, tb, rle, chain, sketch, kcount)
 
         _libs["api"] = _Api
         return _Api

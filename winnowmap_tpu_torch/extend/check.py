@@ -2,7 +2,8 @@
 held against their plain versions on the same device tensors, and against
 the native oracle on a sample; and a mapping run's own DP calls,
 recorded (CallRecorder) and run again through kernel and plain versions
-(hold_call).
+(hold_call); R1's K2-like rows (random_op_rows) and its native oracle
+(native_cigars).
 
 Shared by the on-card tests (tests/test_torch_gpu.py), chip_smoke.py and
 the genome-scale run (tools/scale_run.py).
@@ -117,6 +118,76 @@ def spliced_jobs(rng: np.random.Generator, B: int, rev: bool = False,
     return qpool, tpool, jobs, qs, ts, js
 
 
+def random_op_rows(rng: np.random.Generator, spliced: bool, min_intron: int,
+                   B: int = 40, n_ops: int = 4112, reach: int | None = None):
+    """K2-like output of one call, for R1: (ops (B, n_ops) uint8, fin,
+    start (B, 2) int32).  Job b's ops (0-2, or 0-3 when spliced) lie in
+    slots 0 ... i0 + j0 of its start, idle (255) above and between them,
+    in runs of about 1, 4 or 200.  By b % 8: no walk (start -1; fin -1,
+    or a remainder alone), the whole row (the call's widest job), under
+    20 slots, under 400, a walk whose slots stayed idle, a walk ending in
+    the i remainder's op, one ending in I with no i remainder, and tops
+    below `reach` (n_ops by default) for the rest.  Remainders of -1, 0
+    and more, i either side of min_intron."""
+    alpha = 4 if spliced else 3
+    ops = np.full((B, n_ops), 255, np.uint8)
+    start = np.full((B, 2), -1, np.int32)
+    fin = np.full((B, 2), -1, np.int32)
+    i_vals = [-1, 0, 1, 7, 600]
+    if min_intron:
+        i_vals += [min_intron - 1, min_intron, min_intron + 1]
+    for b in range(B):
+        kind = b % 8
+        fin[b] = rng.choice(i_vals), rng.choice([-1, 0, 3, 90])
+        if kind == 0:
+            if b % 16:
+                fin[b] = -1
+            continue
+        top = {1: n_ops - 1, 2: int(rng.integers(0, 20)),
+               3: int(rng.integers(0, 400))}.get(
+                   kind, int(rng.integers(0, reach or n_ops)))
+        i0 = int(rng.integers(0, top + 1))
+        start[b] = i0, top - i0
+        if kind == 4:
+            continue
+        # from the top down: every slot or about half of them kept
+        m = top + 1
+        change = rng.random(m) < 1 / rng.choice([1, 4, 200])
+        change[0] = True
+        at = np.maximum.accumulate(np.where(change, np.arange(m), 0))
+        walk = rng.integers(0, alpha, m).astype(np.uint8)[at]
+        keep = rng.random(m) < rng.choice([0.5, 1.0])
+        ops[b, top::-1][keep] = walk[keep]
+        if kind == 5:
+            fin[b, 0] = max(int(fin[b, 0]), 0)
+            iop = 3 if min_intron and fin[b, 0] >= min_intron else 2
+            ops[b, :min(8, top + 1)] = 255
+            ops[b, 0:min(3, top + 1):2] = iop
+        if kind == 6:
+            fin[b] = -1, max(int(fin[b, 1]), 0)
+            ops[b, :min(4, top + 1)] = 1
+    return ops, fin, start
+
+
+def native_cigars(native, ops, fin, rev: bool, spliced: bool,
+                  min_intron: int = 0):
+    """Per-job CIGARs (BAM uint32 arrays) of K2's ops and remaining (i, j),
+    by the host decode R1 replaced and is held to: native.rle_ops_blob on
+    2-bit-packed rows, rle_ops_blob4 on 4-bit rows (spliced, with the N
+    rule of min_intron)."""
+    f = torch.as_tensor(fin).cpu().numpy()
+    ops = torch.as_tensor(ops)
+    revs = np.full(len(f), rev, np.uint8)
+    if spliced:
+        blob, off, ln = native.rle_ops_blob4(K.pack_ops4(ops).cpu().numpy(),
+                                             f[:, 0], f[:, 1], revs,
+                                             min_intron)
+    else:
+        blob, off, ln = native.rle_ops_blob(K.pack_ops(ops).cpu().numpy(),
+                                            f[:, 0], f[:, 1], revs)
+    return [blob[o:o + n] for o, n in zip(off, ln)]
+
+
 def mutate_rates(rng: np.random.Generator, t: np.ndarray, sub: float,
                  ind: float) -> np.ndarray:
     """A copy of t with substitutions at rate sub and 1-base insertions and
@@ -220,17 +291,10 @@ class OnDevice:
 
     def cigars(self, native, ops, fin):
         """Per-job CIGARs (BAM uint32 arrays) of a traceback's ops and
-        remaining (i, j), decoded as DevCallPooled decodes them."""
-        f = fin.cpu().numpy()
-        rev = np.full(len(f), bool(self.flag & K.EZ_REV_CIGAR), np.uint8)
-        if self.spliced:
-            blob, off, ln = native.rle_ops_blob4(
-                K.pack_ops4(ops).cpu().numpy(), f[:, 0], f[:, 1], rev,
-                self.min_intron)
-        else:
-            blob, off, ln = native.rle_ops_blob(
-                K.pack_ops(ops).cpu().numpy(), f[:, 0], f[:, 1], rev)
-        return [blob[o:o + n] for o, n in zip(off, ln)]
+        remaining (i, j), by the native decode (native_cigars)."""
+        return native_cigars(native, ops, fin,
+                             bool(self.flag & K.EZ_REV_CIGAR), self.spliced,
+                             self.min_intron)
 
     def native(self, native, i: int, qseq, tseq):
         """The native oracle (native.extd, native.extz or native.exts) on
@@ -342,7 +406,8 @@ def hold_call(c: dict, mode: str, rows: int) -> bool:
     """One recorded call (CallRecorder's arguments, tensors on one device)
     run again through its DP kernel and K2 and through their plain
     versions: True when the nine result fields, and the traceback of each
-    version's direction bytes from its own starts, are exactly equal."""
+    version's direction bytes from its own starts, are exactly equal, and
+    R1 on the kernel's traceback equals its plain version (rle_err)."""
     jobs, flag, prof = c["jobs"], c["flag"], c["prof"]
     spliced = mode == "exts"
     B = jobs.shape[0]
@@ -370,4 +435,30 @@ def hold_call(c: dict, mode: str, rows: int) -> bool:
     K.traceback_plain(dirs_p, c["dirs_off"], jobs, c["ncol"], starts[1],
                       ops_p, fin_p, min_intron)
     return (same and bool((ops_k == ops_p).all())
-            and bool((fin_k == fin_p).all()))
+            and bool((fin_k == fin_p).all())
+            and rle_err(ops_k, fin_k, starts[0], bool(flag & K.EZ_REV_CIGAR),
+                        min_intron) == 0)
+
+
+def walk_slots(start, n_ops: int):
+    """The op slots R1 reads a job: 0 ... i0 + j0 of its start (within the
+    row), none when i0 or j0 is negative."""
+    s = start.long()
+    return torch.where((s >= 0).all(1), s.sum(1) + 1, 0).clamp(max=n_ops)
+
+
+def rle_err(ops, fin, start, rev: bool, min_intron: int) -> int:
+    """R1 (cigar_rle) against its plain version on the same tensors: 0
+    when the offsets, lengths and words are equal, else the number of
+    jobs whose CIGAR differs (all of them when the offsets do).  The
+    kernel's blob holds the most runs the walks' slots allow."""
+    cap = int(walk_slots(start, ops.shape[1]).sum()) + 2 * len(ops)
+    blob_k, off_k, ln_k = K.cigar_rle(ops, fin, start, rev, min_intron, cap)
+    blob_p, off_p, ln_p = K.cigar_rle_plain(ops, fin, start, rev, min_intron)
+    if not (torch.equal(off_k, off_p) and torch.equal(ln_k, ln_p)):
+        return len(ops)
+    if torch.equal(blob_k[:blob_p.numel()], blob_p):
+        return 0
+    words_k, words_p = blob_k.cpu().numpy(), blob_p.cpu().numpy()
+    return sum(not np.array_equal(words_k[o:o + n], words_p[o:o + n])
+               for o, n in zip(off_p.tolist(), ln_p.tolist()))

@@ -1,5 +1,6 @@
 """Extension DP on the device: the extd wavefront (K1), the spliced exts
-wavefront (K3), the single-cost extz wavefront (K4) and the traceback (K2).
+wavefront (K3), the single-cost extz wavefront (K4), the traceback (K2)
+and the CIGARs of its walks (R1).
 
 Counterpart of winnowmap_tpu/extend/pallas_kernel.py for PyTorch and CUDA.
 Semantics are those of the reference ksw_extd2_sse, ksw_exts2_sse,
@@ -13,22 +14,25 @@ the unbanded anti-diagonal.  Results and CIGARs equal native.extd,
 native.exts and native.extz exactly.
 
 Each kernel has
-  * a wrapper (extd_dp, exts_dp, extz_dp, traceback) that launches the CUDA
-    kernel for CUDA tensors and counts the launch in LAUNCHES, and uses the
-    plain version only for tensors on the CPU;
+  * a wrapper (extd_dp, exts_dp, extz_dp, traceback, cigar_rle) that
+    launches the CUDA kernel for CUDA tensors and counts the launch in
+    LAUNCHES, and uses the plain version only for tensors on the CPU;
   * a plain PyTorch version (extd_dp_plain, exts_dp_plain, extz_dp_plain,
-    traceback_plain) that runs the same recurrence vectorised over jobs and
-    band lanes, on any device.
+    traceback_plain, cigar_rle_plain) that computes the same vectorised
+    over jobs (and band lanes), on any device.
 
 DevCallPooled strings the pieces together for one batch of jobs (the
 engine's, or the generator path's): descriptors up, K1, K3 or K4, start
-selection, K2, op packing (2-bit, or 4-bit for the spliced ops), one
-device-to-host copy; collect_blob() decodes it into the engine's deliver
-layout, collect() into one native.ExtResult a job.  Its host-to-device
-copies before the DP's launch, the end-bonus copy after it, its wait for
-the card and its decode are the spans dispatch_upload, dispatch_bonus,
-collect_sync and collect_decode of the mapping path's STATS
-(device.span).
+selection, K2, R1 (the BAM CIGAR words of every job, in the engine's
+deliver layout, on the card), then a device-to-host copy of the results
+and each job's CIGAR offset and length.  collect_blob() waits for it and
+copies just the call's CIGAR words; collect() gives one native.ExtResult
+a job.  Its host-to-device copies before the DP's launch, the end-bonus
+copy after it, its wait for the card, the views of the results and the
+CIGAR words' copy are the spans dispatch_upload, dispatch_bonus,
+collect_sync, collect_decode and collect_copy of the mapping path's STATS
+(device.span); collect_runs and collect_d2h_bytes count the words and the
+bytes brought back.
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ EZ_SPLICE_FLANK = 0x400
 
 # kernel launches on this process, by kernel; chip_smoke.py zeroes them
 # around the main path to show it went through the kernels
-LAUNCHES = {"extd": 0, "exts": 0, "extz": 0, "traceback": 0}
+LAUNCHES = {"extd": 0, "exts": 0, "extz": 0, "traceback": 0, "rle": 0}
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -1044,9 +1048,113 @@ def traceback(dirs, dirs_off, jobs, ncol, start, n_ops: int,
     return ops, fin
 
 
+# --------------------------------------------------------------------------
+# R1: the CIGARs of K2's op rows
+# --------------------------------------------------------------------------
+
+def cigar_rle_plain(ops, fin, start, rev_cigar: bool, min_intron: int = 0):
+    """Plain PyTorch R1 on the device of its inputs: job b's CIGAR from
+    K2's op row ops[b] (B, n_ops) uint8, its remaining (i, j) fin[b] and
+    its walk's start[b] (both (B, 2) int32), as native.rle_ops_blob and
+    rle_ops_blob4 decode the packed row: slots 0 ... i0 + j0 from the top,
+    idle ones (255) dropped, equal ops merged into runs; then a D run of i
+    + 1 (N when min_intron > 0 and i >= min_intron) and an I run of j + 1
+    where i, j >= 0, each merged into the run before it when the op is the
+    same; reversed unless rev_cigar.  Slots above i0 + j0 are not read: K2
+    writes none there, and none at all when i0 or j0 is negative.  Returns
+    (blob (total,) int32 holding the BAM words len << 4 | op as uint32
+    bits, off (B,) int64, len (B,) int32), job b's words at blob[off[b]]
+    ... blob[off[b] + len[b] - 1]."""
+    dev = ops.device
+    B, n = ops.shape
+    i0, j0 = start[:, 0].long(), start[:, 1].long()
+    top = torch.where((i0 >= 0) & (j0 >= 0), torch.clamp(i0 + j0, max=n - 1),
+                      -1)
+    kept = (ops != 255) & (torch.arange(n, device=dev)[None, :]
+                           <= top[:, None])
+    rows, cols = kept.nonzero(as_tuple=True)
+    fi, fj = fin[:, 0].long(), fin[:, 1].long()
+    b = torch.arange(B, device=dev)
+    im, jm = fi >= 0, fj >= 0
+    # walk order: a job's slots from the top, then its i and j remainders
+    span_ = n + 2
+    key = torch.cat([rows * span_ + n - 1 - cols, (b * span_ + n)[im],
+                     (b * span_ + n + 1)[jm]])
+    iop = (torch.where(fi >= min_intron, 3, 2) if min_intron > 0
+           else torch.full_like(fi, 2))
+    op = torch.cat([ops[rows, cols].long(), iop[im], torch.ones_like(fj[jm])])
+    ln = torch.cat([torch.ones_like(rows), fi[im] + 1, fj[jm] + 1])
+    order = torch.argsort(key)
+    key, op, ln = key[order], op[order], ln[order]
+    job = torch.div(key, span_, rounding_mode="floor")
+    new = torch.ones_like(job, dtype=torch.bool)
+    new[1:] = (job[1:] != job[:-1]) | (op[1:] != op[:-1])
+    rid = torch.cumsum(new.long(), 0) - 1
+    nr = int(new.sum())
+    rlen = torch.zeros(nr, dtype=torch.int64, device=dev).index_add_(
+        0, rid, ln)
+    rjob, rop = job[new], op[new]
+    cnt = torch.bincount(rjob, minlength=B)
+    off = torch.cumsum(cnt, 0) - cnt
+    k = torch.arange(nr, device=dev) - off[rjob]
+    pos = off[rjob] + (k if rev_cigar else cnt[rjob] - 1 - k)
+    # the length's low 28 bits: the uint32 word's wrap
+    word = torch.empty(nr, dtype=torch.int64, device=dev)
+    word[pos] = ((rlen & 0xFFFFFFF) << 4) | rop
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word)
+    return word.to(torch.int32), off, cnt.to(torch.int32)
+
+
+def rle_launch(lib, ops, fin, start, rev_cigar: bool, min_intron: int, blob,
+               off, ln, stream) -> int:
+    """Calls R1's C launch entry of `lib` (csrc/cigar.cu) on contiguous
+    tensors; returns its CUDA error code.  cigar_rle calls it with the
+    card's library; the CPU tests with the source built against a stub
+    runtime (tools/cuda_stub)."""
+    B, n_ops = ops.shape
+    return lib.wm_cigar_rle_launch(
+        ops.data_ptr(), n_ops, B, fin.data_ptr(), start.data_ptr(),
+        int(rev_cigar), min_intron, blob.data_ptr(), blob.numel(),
+        off.data_ptr(), ln.data_ptr(), stream)
+
+
+def cigar_rle(ops, fin, start, rev_cigar: bool, min_intron: int = 0,
+              cap: int | None = None):
+    """R1: the CIGARs of K2's output (cigar_rle_plain has the semantics).
+    Returns (blob, off, len) on the device of ops; CUDA tensors launch
+    csrc/cigar.cu into a blob of `cap` words (by default B x (n_ops + 2):
+    a job reads at most n_ops slots and adds two remainder runs), CPU
+    tensors run cigar_rle_plain, whose blob is just long enough.  Either
+    way the runs end at off[-1] + len[-1]; the kernel drops words past
+    cap."""
+    if ops.dtype != torch.uint8 or ops.dim() != 2:
+        raise ValueError("ops must be (B, n_ops) uint8")
+    B, n_ops = ops.shape
+    for t in (fin, start):
+        if t.dtype != torch.int32 or t.shape != (B, 2):
+            raise ValueError("fin and start must be (B, 2) int32")
+    if ops.device.type == "cpu":
+        return cigar_rle_plain(ops, fin, start, rev_cigar, min_intron)
+    _check_kernel_args(ops, fin, start)
+    from . import _build
+
+    dev = ops.device
+    cap = B * (n_ops + 2) if cap is None else cap
+    blob = torch.empty(max(1, cap), dtype=torch.int32, device=dev)
+    off = torch.empty(B, dtype=torch.int64, device=dev)
+    ln = torch.empty(B, dtype=torch.int32, device=dev)
+    rc = rle_launch(_build.load(), ops, fin, start, rev_cigar, min_intron,
+                    blob, off, ln, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cigar_rle kernel launch failed: cudaError {rc} "
+                           f"({_build.error_string(rc)})")
+    count(LAUNCHES, "rle")
+    return blob, off, ln
+
+
 def pack_ops(ops):
     """Pack op bytes 4 per byte, 2 bits each (idle 255 -> 3), the layout
-    native.rle_ops_blob decodes."""
+    native.rle_ops_blob decodes (the oracle R1 is held to)."""
     B, n = ops.shape
     o = torch.clamp(ops, max=3).view(B, n // 4, 4)
     return (o[..., 0] | (o[..., 1] << 2) | (o[..., 2] << 4)
@@ -1055,7 +1163,7 @@ def pack_ops(ops):
 
 def pack_ops4(ops):
     """Pack op bytes 2 per byte, 4 bits each (idle 255 -> 15), the layout
-    native.rle_ops_blob4 decodes: the spliced ops use all of 0-3."""
+    native.rle_ops_blob4 decodes (the spliced ops use all of 0-3)."""
     B, n = ops.shape
     o = torch.clamp(ops, max=15).view(B, n // 2, 2)
     return (o[..., 0] | (o[..., 1] << 4)).contiguous()
@@ -1141,8 +1249,8 @@ class DevCallPooled:
     for none), sliced and oriented as the DP reads the target.  Without
     splice, one gap cost (q == q2 and e == e2) selects extz, as the JAX
     package chooses it; any other profile extd.  Launches everything
-    asynchronously; collect_blob() waits and decodes to flat arrays (the
-    engine's deliver columns), collect() to one native.ExtResult a job
+    asynchronously; collect_blob() waits and returns flat arrays (the
+    engine's deliver columns), collect() one native.ExtResult a job
     (the generator path's results)."""
 
     def __init__(self, pools: PoolContext, jobs, mat, q, e, q2, e2,
@@ -1195,12 +1303,18 @@ class DevCallPooled:
                 eb = torch.from_numpy(self.end_bonus).to(dev)
             start = select_starts(res, jobs_t, eb, self.extz_only, prof.dead,
                                   self.spliced)
-            n_ops = max(4, (int(geo.rows.max()) + 3) // 4 * 4)
+            # rows of 16-byte multiples: R1 reads them 16 bytes a lane
+            n_ops = max(16, (int(geo.rows.max()) + 15) // 16 * 16)
             ops, fin = traceback(dirs, off_t, jobs_t, ncol_t, start, n_ops,
                                  self.min_intron)
-            packed = pack_ops4(ops) if self.spliced else pack_ops(ops)
-            out = torch.cat([res.view(torch.uint8), fin.view(torch.uint8),
-                             packed], 1)
+            # a job has at most rows + 2 runs: its walk's ops and the two
+            # remainders
+            self.cap = int(geo.rows.sum()) + 2 * B0
+            self.blob, off, ln = cigar_rle(ops, fin, start, self.rev_cigar,
+                                           self.min_intron, self.cap)
+            out = torch.cat([res.view(torch.uint8),
+                             off.view(torch.uint8).view(B0, 8),
+                             ln.view(torch.uint8).view(B0, 4)], 1)
         else:
             out = res.view(torch.uint8)
         del dirs  # stream-ordered: the allocator reuses it after K2
@@ -1215,37 +1329,48 @@ class DevCallPooled:
             self.event = None
 
     def collect_blob(self):
-        """Wait for the call and decode it: (res9 (B0, 9) int32 in the
-        engine deliver column order, CIGAR blob uint32 | None, per-job blob
-        offsets int64, lengths int32, reach_end (B0,) int32)."""
-        from .. import native
-
+        """Wait for the call and take its results: (res9 (B0, 9) int32 in
+        the engine deliver column order, CIGAR blob uint32 | None, per-job
+        blob offsets int64, lengths int32, reach_end (B0,) int32)."""
         if self.event is not None:
             with span(STATS, "collect_sync"):
                 self.event.synchronize()
         with span(STATS, "collect_decode"):
             buf = self.host.numpy()
+            res9 = np.ascontiguousarray(buf[:, :36]).view(np.int32)
             blob = off = ln = None
             if self.with_cigar:
-                res = np.ascontiguousarray(buf[:, :64]).view(np.int32)
-                fin = np.ascontiguousarray(buf[:, 64:72]).view(np.int32)
-                rev = np.full(self.B0, self.rev_cigar, np.uint8)
-                packed = np.ascontiguousarray(buf[:, 72:])
-                if self.spliced:
-                    blob, off, ln = native.rle_ops_blob4(
-                        packed, fin[:, 0], fin[:, 1], rev, self.min_intron)
-                else:
-                    blob, off, ln = native.rle_ops_blob(packed, fin[:, 0],
-                                                        fin[:, 1], rev)
-            else:
-                res = np.ascontiguousarray(buf).view(np.int32)
-            res9 = np.ascontiguousarray(res[:, :9], np.int32)
+                off = np.ascontiguousarray(buf[:, 64:72]).view(np.int64)[:, 0]
+                ln = np.ascontiguousarray(buf[:, 72:76]).view(np.int32)[:, 0]
             reach = np.zeros(self.B0, np.int32)
             if self.with_cigar and self.extz_only and not self.spliced:
                 reach = ((res9[:, 1] == 0)
                          & (res9[:, 4] + self.end_bonus > res9[:, 0])
                          ).astype(np.int32)
+        runs = 0
+        if self.with_cigar:
+            runs = int(off[-1]) + int(ln[-1])
+            with span(STATS, "collect_copy"):
+                blob = self._runs(runs)
+        count(STATS, "collect_runs", runs)
+        count(STATS, "collect_d2h_bytes", buf.nbytes + 4 * runs)
         return res9, blob, off, ln, reach
+
+    def _runs(self, total: int) -> np.ndarray:
+        """The call's first `total` CIGAR words on the host: from the card,
+        one copy of just those words into pinned memory, on a stream of its
+        own (the call's stream may hold later calls' kernels by now)."""
+        if total > self.cap:
+            raise RuntimeError(f"cigar_rle wrote {total} runs into a blob "
+                               f"of {self.cap}")
+        if self.event is None:
+            return self.blob[:total].numpy().view(np.uint32)
+        if total == 0:
+            return np.zeros(0, np.uint32)
+        host = torch.empty(total, dtype=torch.int32, pin_memory=True)
+        with torch.cuda.stream(torch.cuda.Stream(self.device)):
+            host.copy_(self.blob[:total])
+        return host.numpy().view(np.uint32)
 
     def collect(self) -> list:
         """Wait for the call and return one native.ExtResult per job, in job

@@ -281,6 +281,12 @@ inline T __shfl_up_sync(unsigned mask, T v, unsigned d) {
   return l >= d ? stub::from_bits<T>(b[l - d]) : v;
 }
 template <class T>
+inline T __shfl_down_sync(unsigned mask, T v, unsigned d) {
+  const uint64_t* b = stub::exchange(mask, stub::bits(v));
+  const unsigned l = threadIdx.x & 31;
+  return l + d < 32 ? stub::from_bits<T>(b[l + d]) : v;
+}
+template <class T>
 inline T __shfl_xor_sync(unsigned mask, T v, int m) {
   const uint64_t* b = stub::exchange(mask, stub::bits(v));
   return stub::from_bits<T>(b[(threadIdx.x ^ m) & 31]);
